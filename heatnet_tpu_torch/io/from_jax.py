@@ -1,0 +1,67 @@
+"""JAX (flax) parameter trees → the port's ``state_dict``.
+
+The inverse of ``heatnet_tpu/io/torch_import.py``'s layout rules
+(:8-18, :215-225), for trees given as nested dicts of numpy arrays:
+
+- conv kernel ``(kh, kw, I, O)`` → weight ``(O, I, kh, kw)`` (grouped convs
+  included: ``I`` is the channels per group in both layouts);
+- ConvTranspose kernel ``(kh, kw, I, O)`` → ``np.flip(k, (0, 1))
+  .transpose(2, 3, 0, 1)``, i.e. ``(I, O, kh, kw)`` spatially flipped;
+- BN ``scale``/``bias`` → ``weight``/``bias``; batch_stats ``mean``/``var``
+  → ``running_mean``/``running_var`` (plus ``num_batches_tracked`` = 0, a
+  buffer of ``nn.BatchNorm2d``).
+
+Port module names are the JAX tree's, so a key is the tree path joined with
+``.``. A transposed conv is recognised by its module name, with the same
+rule as ``torch_import.convert_state_dict``.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+TRANSPOSE_NAMES = ("up", "up_seg_2", "up_seg_2_cert", "up_borders_3",
+                   "up_inst_2", "deconv", "upsample")
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+
+def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Convert flax ``params`` (and ``batch_stats``) to a port ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(params):
+        mods, name = list(path[:-1]), path[-1]
+        a = np.asarray(leaf, np.float32)
+        if mods and mods[-1] == "bn" and name in ("scale", "bias"):
+            name = "weight" if name == "scale" else "bias"
+        elif name == "kernel" and a.ndim == 4:
+            if mods and mods[-1].startswith(TRANSPOSE_NAMES):
+                a = np.flip(a, (0, 1)).transpose(2, 3, 0, 1)
+            else:
+                a = a.transpose(3, 2, 0, 1)
+            name = "weight"
+        sd[".".join(mods + [name])] = _tensor(a)
+    for path, leaf in _leaves(batch_stats or {}):
+        mods, name = list(path[:-1]), path[-1]
+        if name not in ("mean", "var"):
+            raise ValueError(f"unexpected batch_stats leaf {'/'.join(path)}")
+        sd[".".join(mods + ["running_" + name])] = _tensor(leaf)
+        if name == "mean":
+            sd[".".join(mods + ["num_batches_tracked"])] = torch.tensor(0)
+    return sd
