@@ -10,13 +10,27 @@ Phases, each of which exits non-zero on failure:
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes, with the error beside its stated tolerance and
    CUDA-event times of the kernel, the plain version and, for the grouped
-   conv, ``F.conv2d(groups=64)`` (a yardstick only; the port never calls it);
+   conv, ``F.conv2d(groups=64)`` (a yardstick only; the port never calls it).
+   The grouped conv's gradients (``GroupedConv3x3Function``) are checked
+   at the four training shapes (batch 10, 320x640 crop): forward and dx
+   against autograd of the plain version, dk in relative L2 norm, with
+   times of the dx kernel, ``torch.nn.grad.conv2d_input(groups=64)`` (a
+   yardstick) and the dk library call;
 4. the main path: a 16-frame 320x704 heatnet-pack-v1 directory served by
    ``heatnet_tpu_torch.cli.inference.main`` with ResNeXt-50 at full depth and
    width (random weights, seed 0) at batch 8, the kernels' launch counts
    read around that run, then the same weights served again through the
    plain versions for the class-map agreement, and one forward checked for
    finite logits of the right shapes;
+4b. the training path: a 12-frame 320x960 heatnet-train-pack-v1 directory
+   trained by ``heatnet_tpu_torch.cli.train_plain.main`` with ResNeXt-50 at
+   full depth and width, batch 10, 320x640 crop, for 4 steps, the kernels'
+   launch counts read around that run (16 forward and 16 dx launches per
+   step), finite losses, step time and peak memory; one step's loss and
+   gradients with the kernels against the same step through the plain
+   versions (and through the library's grouped conv, which measures how far
+   bf16 rounding alone moves them); 5 steps on one repeated batch, whose
+   loss must fall;
 5. one ``{"kernels": [...]}`` JSON line; the last line is
    ``{"ok": true, "device": {...}}``.
 
@@ -43,6 +57,15 @@ N_BATCH, H_IN, W_IN = 8, 320, 704
 STAGES = (("mod2", 128, 2, 1, 80, 176, 3), ("mod3", 256, 4, 1, 40, 88, 4),
           ("mod4", 512, 8, 2, 40, 88, 6), ("mod5", 1024, 16, 4, 40, 88, 3))
 MIN_AGREEMENT = 0.99
+# The training path: batch 10 of 320x640 crops from 320x960 frames, and the
+# grouped convs at that crop (the same stages at 80x160 and 40x80)
+N_TRAIN, CROP, TRAIN_STEPS = 10, (320, 640), 4
+TRAIN_STAGES = (("mod2", 128, 2, 1, 80, 160, 3), ("mod3", 256, 4, 1, 40, 80, 4),
+                ("mod4", 512, 8, 2, 40, 80, 6), ("mod5", 1024, 16, 4, 40, 80, 3))
+DK_TOL = 1e-2       # relative L2 of dk (cuDNN's, bf16) against autograd of plain
+STEP_LOSS_TOL = 1e-2
+GRAD_TOL = 0.05     # per tensor of norm >= 1e-4 (tests/test_train_parity.py:226),
+                    # or twice the library's distance (see phase 4b)
 
 
 def fail(msg: str) -> None:
@@ -67,13 +90,19 @@ def main() -> None:
     import torch.nn.functional as F
 
     from heatnet_tpu_torch.cli import inference as cli
-    from heatnet_tpu_torch.data.packed import PackedFrameDataset, write_pack
+    from heatnet_tpu_torch.cli import train_plain
+    from heatnet_tpu_torch.data.loaders import DeviceAugment, batch_iterator
+    from heatnet_tpu_torch.data.packed import (PackedFrameDataset,
+                                               PackedFreiburgTrainDataset,
+                                               write_pack, write_train_pack)
     from heatnet_tpu_torch.eval import validate
     from heatnet_tpu_torch.kernels import build
-    from heatnet_tpu_torch.models import get_model
+    from heatnet_tpu_torch.models import ResNeXtSeg, get_model
     from heatnet_tpu_torch.models.layers import init_params, prepare_for_inference
     from heatnet_tpu_torch.ops import fused_preproc as fp
     from heatnet_tpu_torch.ops import grouped_conv as gc
+    from heatnet_tpu_torch.train.state import init_model
+    from heatnet_tpu_torch.train.supervised import cross_entropy_ignore
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -115,7 +144,7 @@ def main() -> None:
 
     def check(name, out, ref, tol_fn, tol_text) -> float:
         torch.cuda.synchronize()
-        out, ref = out.float(), ref.float()
+        out, ref = out.detach().float(), ref.detach().float()
         if out.shape != ref.shape:
             fail(f"{name}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
         diff = (out - ref).abs()
@@ -209,6 +238,53 @@ def main() -> None:
               f"bound_ms {b_ms:.4f} ({b_by}, {n_bytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.2f} GFLOP)", flush=True)
 
+    # 3c. the grouped conv's gradients at the training shapes, against
+    # autograd of the plain version in f32 on the same bf16-valued inputs
+    print("kernels: grouped_conv3x3 gradients (GroupedConv3x3Function)", flush=True)
+    dx_err, dx_rows = 0.0, []
+    for name, c, cpg, d, h, w, count in TRAIN_STAGES:
+        groups = c // cpg
+        g = torch.Generator(device="cpu").manual_seed(c + 1)
+        x = torch.randn((N_TRAIN, h, w, c), generator=g).to(dev, torch.bfloat16)
+        wt = (torch.randn((c, cpg, 3, 3), generator=g) / (9 * cpg) ** 0.5).to(dev)
+        dy = torch.randn((N_TRAIN, h, w, c), generator=g).to(dev, torch.bfloat16)
+        xk, wk = x.clone().requires_grad_(), wt.clone().requires_grad_()
+        y = gc.differentiable_grouped_conv3x3(xk, wk, groups, d)
+        y.backward(dy)
+        xr = x.float().requires_grad_()
+        wr = wt.to(torch.bfloat16).float().requires_grad_()
+        y_ref = gc.grouped_conv3x3_plain(xr, wr, groups, d)
+        y_ref.backward(dy.float())
+        check(f"forward {name}", y, y_ref, *gc_tol)
+        dx_err = max(dx_err, check(f"dx {name}", xk.grad, xr.grad, *gc_tol))
+        rel = float((wk.grad - wr.grad).norm() / wr.grad.norm())
+        print(f"  dk {name}: rel L2 {rel:.3g} (tolerance {DK_TOL}) "
+              f"{'ok' if rel <= DK_TOL else 'FAIL'}", flush=True)
+        if not rel <= DK_TOL or wk.grad.dtype != torch.float32:
+            fail(f"dk {name} disagrees with autograd of the plain version")
+        del xr, wr, y_ref, xk, wk, y
+
+        wb = wt.to(torch.bfloat16)
+        w_flip = gc.dx_weight(wb, groups)
+        f_ms = time_ms(lambda: gc.grouped_conv3x3(x, wb, groups, d))
+        k_ms = time_ms(lambda: gc.grouped_conv3x3_dx(dy, wb, groups, d))
+        p_ms = time_ms(lambda: gc.grouped_conv3x3_plain(dy, w_flip, groups, d), reps=5)
+        dy_cl = dy.permute(0, 3, 1, 2)
+        l_ms = time_ms(lambda: torch.nn.grad.conv2d_input(
+            (N_TRAIN, c, h, w), wb, dy_cl, padding=d, dilation=d, groups=groups))
+        dk_ms = time_ms(lambda: gc.grouped_conv3x3_weight_grad(x, dy, groups, d))
+        n_bytes = 2 * x.numel() * 2 + wb.numel() * 2
+        flops = 2 * x.numel() * cpg * 9
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        dx_rows.append((name, count, k_ms, p_ms, l_ms, b_ms, n_bytes, flops, f_ms, dk_ms))
+        print(f"  {name} (C {c}, cpg {cpg}, d {d}, {N_TRAIN}x{h}x{w}): forward_ms "
+              f"{f_ms:.4f} dx kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
+              f"{l_ms:.4f} (conv2d_input) dk library_ms {dk_ms:.4f} bound_ms "
+              f"{b_ms:.4f} ({b_by}, {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
+              flush=True)
+        del x, dy, dy_cl
+    torch.cuda.empty_cache()
+
     # 4. the main path through the CLI
     print("main path: cli.inference, ResNeXt-50 (3,4,6,3), batch 8", flush=True)
     iters = 3
@@ -276,12 +352,160 @@ def main() -> None:
         if not np.array_equal(seg.argmax(-1).to(torch.uint8).cpu().numpy(), maps[:N_BATCH]):
             fail("a direct forward disagrees with the CLI's class maps")
         print("  forward: float32 logits, 6 taps of the JAX shapes, all finite", flush=True)
+    del model, seg, taps
+    torch.cuda.empty_cache()
+
+    # 4b. the training path through the CLI
+    print(f"main path: cli.train_plain, ResNeXt-50 (3,4,6,3), batch {N_TRAIN}, "
+          f"{CROP[0]}x{CROP[1]} crop, {TRAIN_STEPS} steps", flush=True)
+    train_kernels = (gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_DX)
+    with tempfile.TemporaryDirectory() as tmp:
+        prng = np.random.RandomState(2)
+        n_frames, h_full, w_full = 12, 320, 960
+        # labels in bands a learner can fit; images random
+        bands = (np.arange(h_full)[:, None] // 64 + np.arange(w_full)[None, :] // 192) % 13
+        pack = os.path.join(tmp, "train")
+        write_train_pack(
+            pack, prng.randint(0, 256, (n_frames, h_full, w_full, 3)).astype(np.uint8),
+            prng.randint(21000, 26000, (n_frames, h_full, w_full)).astype(np.uint16),
+            np.broadcast_to(bands, (n_frames, h_full, w_full)).astype(np.uint8),
+            prng.randint(0, 256, (n_frames, h_full, w_full, 3)).astype(np.uint8),
+            prng.randint(21000, 26000, (n_frames, h_full, w_full)).astype(np.uint16))
+        # one step per epoch (12 frames, batch 10), a checkpoint per epoch
+        argv = ["--dataroot", pack, "--batch_size", str(N_TRAIN),
+                "--n_epochs", str(TRAIN_STEPS), "--decay_epoch", "2",
+                "--max_iters_per_epoch", "1",
+                "--checkpointname", os.path.join(tmp, "ck"),
+                "--log_dir", os.path.join(tmp, "runs")]
+        for k in train_kernels:
+            k.launches = 0
+        gc.layout_copies.update(x=0, dy=0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = train_plain.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        train_launches = {k.name: k.launches for k in train_kernels}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        copies = dict(gc.layout_copies)
+        step_ms = [s * 1e3 for s in run.step_seconds]
+        print(f"  launches {train_launches} over {len(run.losses)} steps "
+              f"({wall:.1f} s wall); layout copies {copies}", flush=True)
+        print(f"  losses {[round(v, 6) for v in run.losses]}; step ms (host, "
+              f"augmentation to loss) {[round(v, 2) for v in step_ms]}, p50 "
+              f"{np.percentile(step_ms, 50):.2f} p95 {np.percentile(step_ms, 95):.2f}; "
+              f"peak memory {peak_gb:.2f} GB", flush=True)
+        if (len(run.losses) != TRAIN_STEPS
+                or any(v != 16 * TRAIN_STEPS for v in train_launches.values())):
+            fail(f"expected {TRAIN_STEPS} steps of 16 forward and 16 dx grouped-conv "
+                 f"launches, got {len(run.losses)} steps, {train_launches}")
+        if not all(np.isfinite(run.losses)):
+            fail(f"non-finite training loss {run.losses}")
+        saved = torch.load(run.checkpoint, map_location="cpu", weights_only=True)
+        served = get_model("net_resnext50", classes=13, input_channels=4)
+        served.load_state_dict(saved["state_dict"], strict=True)
+        if saved["epoch"] != TRAIN_STEPS:
+            fail(f"checkpoint epoch {saved['epoch']}")
+
+        ds = PackedFreiburgTrainDataset(pack)
+        raw = next(batch_iterator(ds, N_TRAIN, seed=0))
+        batch = DeviceAugment(CROP, dev)(torch.Generator().manual_seed(1), raw)
+
+    # one step's loss and gradients, kernels against the plain versions
+    model = init_model(ResNeXtSeg(structure=(3, 4, 6, 3), input_channels=4), 0, dev)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def one_step_grads():
+        model.load_state_dict(start)
+        model.zero_grad(set_to_none=True)
+        seg = model(batch["rgb_day"], batch["ir_day"])[0]
+        loss = cross_entropy_ignore(seg, batch["label_day"], ignore_index=-1)
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.float().clone()
+                                      for k, p in model.named_parameters()
+                                      if p.grad is not None}
+
+    def fwd_plain(x, w, groups, dilation=1):
+        return gc.grouped_conv3x3_plain(x, w, groups, dilation)
+
+    def dx_plain(dy, w, groups, dilation=1):
+        return gc.grouped_conv3x3_plain(dy, gc.dx_weight(w, groups), groups, dilation)
+
+    def fwd_library(x, w, groups, dilation=1):
+        return F.conv2d(x.permute(0, 3, 1, 2), w, padding=dilation,
+                        dilation=dilation, groups=groups).permute(0, 2, 3, 1)
+
+    def dx_library(dy, w, groups, dilation=1):
+        n, h, w_, c = dy.shape
+        return torch.nn.grad.conv2d_input(
+            (n, c, h, w_), w, dy.permute(0, 3, 1, 2), padding=dilation,
+            dilation=dilation, groups=groups).permute(0, 2, 3, 1)
+
+    loss_k, grads_k = one_step_grads()
+    for k in train_kernels:
+        k.launches = 0
+    with mock.patch.object(gc, "grouped_conv3x3", fwd_plain), \
+            mock.patch.object(gc, "grouped_conv3x3_dx", dx_plain):
+        loss_p, grads_p = one_step_grads()
+    with mock.patch.object(gc, "grouped_conv3x3", fwd_library), \
+            mock.patch.object(gc, "grouped_conv3x3_dx", dx_library):
+        loss_l, grads_l = one_step_grads()
+    if any(k.launches for k in train_kernels):
+        fail("the plain-version training step launched a kernel")
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    # at random init, bf16 rounding taken in another order moves the deep
+    # stages' gradients far more than GRAD_TOL (f32 gradients move up to 31 %
+    # under a 1e-4 input change, tools/grad_noise.py); each tensor is held
+    # to GRAD_TOL or to twice the distance of another bf16 implementation
+    # (the library's grouped conv) from the plain versions, whichever is larger
+    rows = []
+    for k, gp in grads_p.items():
+        if float(gp.norm()) >= 1e-4:
+            rows.append((k, float((grads_k[k] - gp).norm() / gp.norm()),
+                         float((grads_l[k] - gp).norm() / gp.norm())))
+    within = sum(rk < GRAD_TOL for _, rk, _ in rows)
+    bad = [r for r in rows if r[1] > max(GRAD_TOL, 2.0 * r[2])]
+    print(f"  one step, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(rel {loss_rel:.3g}, tolerance {STEP_LOSS_TOL}; library {loss_l:.6f}); "
+          f"{len(rows)} gradient tensors of norm >= 1e-4, {within} within rel L2 "
+          f"{GRAD_TOL}", flush=True)
+    for stage in ("mod1", "mod2", "mod3", "mod4", "mod5", "head"):
+        sel = [r for r in rows if r[0].startswith(stage) or (
+            stage == "head" and not r[0].startswith("mod"))]
+        print(f"    {stage}: {len(sel)} tensors, rel L2 kernel-plain max "
+              f"{max(r[1] for r in sel):.3g}, library-plain max "
+              f"{max(r[2] for r in sel):.3g}, largest ratio "
+              f"{max(r[1] / max(r[2], 1e-12) for r in sel):.3g}", flush=True)
+    if not loss_rel <= STEP_LOSS_TOL or bad or len(rows) < 50:
+        fail(f"the training step with kernels disagrees with the plain versions: "
+             f"{bad[:5]}")
+    del grads_k, grads_p, grads_l
+
+    # 5 steps on one repeated batch: the loss must fall
+    model.load_state_dict(start)
+    opt_ns = train_plain.build_parser().parse_args(["--dataroot", "-"])
+    state = train_plain.create_state(model, opt_ns, steps_per_epoch=1)
+    rep_losses, rep_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        rep_losses.append(float(train_plain.train_step(state, batch)))
+        rep_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"  5 steps on one batch: losses {[round(v, 6) for v in rep_losses]}; "
+          f"step ms (host, forward to loss, batch on the card) "
+          f"{[round(v, 2) for v in rep_ms]}", flush=True)
+    if not (all(np.isfinite(rep_losses)) and rep_losses[-1] < rep_losses[0]):
+        fail(f"the loss did not fall on a repeated batch: {rep_losses}")
+    del model, state, start, batch
+    torch.cuda.empty_cache()
 
     # 5. the record
     k_ms, p_ms, b_ms, b_by = ingest_ms[(W_IN, 0, W_IN)]
     sums = [sum(r[1] * r[i] for r in gc_rows) for i in (2, 3, 4)]
     gc_bound, gc_by = bound_ms(sum(r[1] * r[6] for r in gc_rows),
                                sum(r[1] * r[7] for r in gc_rows))
+    dx_sums = [sum(r[1] * r[i] for r in dx_rows) for i in (2, 3, 4, 8, 9)]
+    dx_bound, dx_by = bound_ms(sum(r[1] * r[6] for r in dx_rows),
+                               sum(r[1] * r[7] for r in dx_rows))
     record = {"kernels": [
         {"name": "ingest", "route": "cuda",
          "source": "heatnet_tpu_torch/csrc/ingest.cu",
@@ -300,6 +524,17 @@ def main() -> None:
          "bound_by": gc_by, "library_ms": sums[2],
          "work": f"one forward's 16 launches (3/4/6/3 per stage), batch {N_BATCH}, "
                  "fused bn3 + relu"},
+        {"name": "grouped_conv3x3_dx", "route": "cuda",
+         "source": "heatnet_tpu_torch/csrc/grouped_conv3x3.cu",
+         "replaces": "heatnet_tpu/ops/pallas_grouped_conv.py:297 (grouped_conv3x3 "
+                     "custom VJP: forward _kernel :121, dx of _bwd :313)",
+         "launches": train_launches["grouped_conv3x3_dx"], "max_abs_err": dx_err,
+         "ms": dx_sums[0], "plain_ms": dx_sums[1], "bound_ms": dx_bound,
+         "bound_by": dx_by, "library_ms": dx_sums[2],
+         "train_forward_launches": train_launches["grouped_conv3x3"],
+         "train_forward_ms": dx_sums[3], "dk_library_ms": dx_sums[4],
+         "work": f"one training step's 16 dx launches (3/4/6/3 per stage), batch "
+                 f"{N_TRAIN}, {CROP[0]}x{CROP[1]} crop; library: conv2d_input"},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

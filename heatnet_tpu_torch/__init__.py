@@ -19,13 +19,16 @@ Conventions:
 
 Package map:
 
-- ``ops``     ingest normalisers and the grouped 3x3 conv (kernels + plain)
-- ``models``  eval-mode layers, ``ResNeXtSeg`` and the registry
+- ``ops``     ingest normalisers, the grouped 3x3 conv and its autograd
+              Function (kernels + plain), train augmentation, IoU
+- ``models``  layers (eval and train mode), ``ResNeXtSeg`` and the registry
 - ``kernels`` the nvcc build and ctypes binding of ``csrc/*.cu``
-- ``io``      JAX parameter trees → the port's ``state_dict``
-- ``data``    heatnet-pack-v1 frame packs
+- ``io``      JAX parameter trees → ``state_dict``; checkpoints; run logs
+- ``data``    inference and train packs, batches, augmentation on the device
+- ``train``   loss, train/eval steps, optimizers and schedules, train state
 - ``eval``    batched inference to uint8 class maps
-- ``cli``     the ``inference`` entry point
+- ``cli``     the ``inference`` and ``train_plain`` entry points
+- ``tools``   profilers of the forward and the training step on the card
 """
 
 __version__ = "0.1.0"

@@ -6,7 +6,8 @@ prints the same ``Network took %f seconds`` (one frame, averaged over
 ``--iters``) and ``Ran inference on N frames`` lines.
 
 Weights are random from seed 0 unless ``--resume`` names a PyTorch
-``state_dict`` file (``io/from_jax.py`` converts JAX trees). Runs on the card
+``state_dict`` file or a ``{"epoch", "state_dict"}`` checkpoint of
+``cli/train_plain.py`` (``io/from_jax.py`` converts JAX trees). Runs on the card
 unless ``--device cpu``. Not ported yet: orbax checkpoints, PNG capture trees
 (their loader needs cv2), ``--borders-data``, ``--im-save-dir`` and ``--quant``.
 
@@ -27,6 +28,7 @@ import torch
 from ..data.packed import PackedFrameDataset, is_pack_dir
 from ..device import resolve
 from ..eval.validate import inference, modality_keys, predict
+from ..io.checkpoint import load_state_dict
 from ..models import ResNeXtSeg, get_model
 from ..models.layers import init_params, prepare_for_inference
 
@@ -35,7 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="HeatNet inference (PyTorch/CUDA)")
     p.add_argument("--arch", "-a", default="resnext50")
     p.add_argument("--resume", default="", type=str,
-                   help="PyTorch state_dict file to load")
+                   help="PyTorch state_dict or checkpoint file to load")
     p.add_argument("--data", required=True,
                    help="heatnet-pack-v1 directory (meta.json, rgb.npy, ir.npy)")
     p.add_argument("--modalities", default="ir_rgb")
@@ -76,8 +78,7 @@ def main(argv=None) -> InferenceRun:
                            classes=args.classes, input_channels=n_in)
     init_params(model, torch.Generator().manual_seed(0))
     if args.resume:
-        model.load_state_dict(torch.load(args.resume, map_location="cpu",
-                                         weights_only=True))
+        model.load_state_dict(load_state_dict(args.resume))
     model = prepare_for_inference(model, device)
 
     def sync():

@@ -1,1 +1,1 @@
-"""Frame packs (heatnet-pack-v1)."""
+"""Frame packs (inference and train), batches, augmentation on the device."""

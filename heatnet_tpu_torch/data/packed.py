@@ -1,7 +1,8 @@
-"""heatnet-pack-v1 frame packs: decode-free directory inference.
+"""Frame packs: decode-free directory inference and training.
 
-The port's own copy of ``heatnet_tpu/data/packed.py:184-214`` (numpy only)
-plus ``write_pack``, which writes a pack from arrays. Layout::
+The port's own copy of ``heatnet_tpu/data/packed.py:37-48,149-214`` (numpy
+only) plus ``write_pack`` and ``write_train_pack``, which write packs from
+arrays. An inference pack (heatnet-pack-v1)::
 
     pack/
       meta.json   {"n": N, "height": H, "width": W, "names": [...],
@@ -9,26 +10,43 @@ plus ``write_pack``, which writes a pack from arrays. Layout::
       rgb.npy     uint8  (N, H, W, 3)
       ir.npy      uint16 (N, H, W, 1)  radiometric counts, unclamped
 
-Frames are stored as the eval loaders ship them: resized to 960x320 and
+Its frames are stored as the eval loaders ship them: resized to 960x320 and
 cropped to the stride-aligned window 148:852 (W = 704), raw sensor dtypes.
-Packing a PNG capture tree (``pack_inference_dir``) needs the JAX package's
-cv2 loaders and is not ported.
+
+A train pack (heatnet-train-pack-v1) holds full 960x320 frames::
+
+    pack/
+      meta.json      {"format": "heatnet-train-pack-v1", "split": ...,
+                      "n_day": N, "n_night": M, "height": H, "width": W,
+                      "test_stamps_filtered": bool}
+      rgb_day.npy    uint8  (N, H, W, 3)    rgb_night.npy  uint8  (M, H, W, 3)
+      ir_day.npy     uint16 (N, H, W)       ir_night.npy   uint16 (M, H, W)
+      label_day.npy  uint8  (N, H, W)
+
+Packing PNG trees (``pack_inference_dir``, ``pack_freiburg_train``) needs
+the JAX package's cv2 loaders and is not ported.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
 FORMAT = "heatnet-pack-v1"
+TRAIN_FORMAT = "heatnet-train-pack-v1"
 
 
 def is_pack_dir(path: str) -> bool:
     return os.path.isfile(os.path.join(path, "meta.json")) and \
         os.path.isfile(os.path.join(path, "rgb.npy"))
+
+
+def is_train_pack_dir(path: str) -> bool:
+    return os.path.isfile(os.path.join(path, "meta.json")) and \
+        os.path.isfile(os.path.join(path, "rgb_day.npy"))
 
 
 def write_pack(out_dir: str, rgb: np.ndarray, ir: np.ndarray,
@@ -48,6 +66,67 @@ def write_pack(out_dir: str, rgb: np.ndarray, ir: np.ndarray,
         json.dump({"format": FORMAT, "n": n, "height": h, "width": w,
                    "names": names}, f)
     return n
+
+
+def write_train_pack(out_dir: str, rgb_day: np.ndarray, ir_day: np.ndarray,
+                     label_day: np.ndarray, rgb_night: np.ndarray,
+                     ir_night: np.ndarray, split: str = "train") -> Tuple[int, int]:
+    """Write day (rgb, ir, label) and night (rgb, ir) frames as a train pack.
+
+    uint8 rgb (N,H,W,3), uint16 ir (N,H,W) and uint8 labels (N,H,W); night
+    frames share H and W. Returns (n_day, n_night).
+    """
+    n, h, w = rgb_day.shape[:3]
+    m = rgb_night.shape[0]
+    want = {"rgb_day": (rgb_day, np.uint8, (n, h, w, 3)),
+            "ir_day": (ir_day, np.uint16, (n, h, w)),
+            "label_day": (label_day, np.uint8, (n, h, w)),
+            "rgb_night": (rgb_night, np.uint8, (m, h, w, 3)),
+            "ir_night": (ir_night, np.uint16, (m, h, w))}
+    for name, (a, dtype, shape) in want.items():
+        if a.dtype != dtype or a.shape != shape:
+            raise ValueError(f"{name} must be {np.dtype(dtype)} {shape}, "
+                             f"got {a.dtype} {a.shape}")
+    os.makedirs(out_dir, exist_ok=True)
+    for name, (a, _, _) in want.items():
+        np.save(os.path.join(out_dir, name + ".npy"), a)
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump({"format": TRAIN_FORMAT, "split": split, "n_day": n,
+                   "n_night": m, "height": h, "width": w,
+                   "test_stamps_filtered": False}, f)
+    return n, m
+
+
+class PackedFreiburgTrainDataset:
+    """Serve a train pack with the ``FreiburgThermalDataset`` item surface.
+
+    An item is the day frame ``index`` (uint8 rgb, uint16 ir, uint8 label)
+    and a night frame drawn by a ``RandomState(seed)`` stream, as the JAX
+    package pairs them.
+    """
+
+    def __init__(self, pack_dir: str, seed: int = 0):
+        with open(os.path.join(pack_dir, "meta.json")) as f:
+            self.meta = json.load(f)
+        if self.meta.get("format") != TRAIN_FORMAT:
+            raise ValueError(f"not a {TRAIN_FORMAT} directory: {pack_dir}")
+        for name in ("rgb_day", "ir_day", "label_day", "rgb_night", "ir_night"):
+            setattr(self, name, np.load(os.path.join(pack_dir, name + ".npy"),
+                                        mmap_mode="r"))
+        self._rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        return int(self.meta["n_day"])
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        rand_idx = self._rng.randint(0, int(self.meta["n_night"]))
+        return {
+            "rgb_day": np.asarray(self.rgb_day[index]),
+            "ir_day": np.asarray(self.ir_day[index]),
+            "label_day": np.asarray(self.label_day[index]),
+            "rgb_night": np.asarray(self.rgb_night[rand_idx]),
+            "ir_night": np.asarray(self.ir_night[rand_idx]),
+        }
 
 
 class PackedFrameDataset:

@@ -1,1 +1,1 @@
-"""Conversion of JAX parameter trees into the port's ``state_dict``."""
+"""JAX parameter trees → the port's ``state_dict``; checkpoints; run logs."""

@@ -1,4 +1,4 @@
-"""Ported models (eval mode, NCHW channels_last inside, NHWC at the surface)."""
+"""Ported models (eval and train mode, NCHW channels_last inside, NHWC at the surface)."""
 
 from .layers import NormAct
 from .registry import MODELS, get_model

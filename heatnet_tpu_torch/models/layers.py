@@ -1,8 +1,9 @@
-"""Building blocks of ``ResNeXtSeg``, eval mode, PyTorch.
+"""Building blocks of ``ResNeXtSeg``, eval and train mode, PyTorch.
 
 Counterpart of the parts of ``heatnet_tpu/models/layers.py`` that the RGB+thermal
-inference path runs: ``NormAct``/``ABN`` (:38-62, :288-319), ``conv`` (:897-962),
-the grouped conv, ``deconv``, the pools (:1153-1188), and
+serving and supervised training paths run: ``NormAct``/``ABN`` with
+``StatNamedBatchNorm``'s train-mode statistics (:38-198, :288-319), ``conv``
+(:897-962), the grouped conv, ``deconv``, the pools (:1153-1188), and
 ``IdentityResidualBlock``, ``ConvABN``, ``ASPP``, ``FuseModule``, ``InitBlock``
 and ``stride_dilation`` (:1230-1435).
 
@@ -13,8 +14,11 @@ dense/native/int8 dispatch is the grouped conv of ``ops/grouped_conv.py``,
 
 Modules take NCHW tensors in ``torch.channels_last`` memory. Submodule names
 are the JAX parameter tree's (``bn1``, ``conv2``, ABN's inner ``bn``), so a
-``state_dict`` key is the JAX path joined with ``.``. Train mode is not
-ported yet: a module in train mode raises.
+``state_dict`` key is the JAX path joined with ``.``. Every convolution casts
+its weight to the activations' dtype at call time, as the JAX convs do
+(``kern.astype(self.dtype)``): float32 parameters train under bf16
+activations. Not ported: ``bn_groups > 1`` (per-GPU BN statistics) and the
+lean BN VJP (``HEATNET_BN_IMPL=lean``, ``ops/lean_bn.py``).
 """
 
 from __future__ import annotations
@@ -36,24 +40,25 @@ class NormAct:
 
     activation: str = "relu"  # relu | leaky_relu | elu | none
     leaky_slope: float = 0.01
+    bn_momentum: float = 0.9  # flax's: running = m * running + (1 - m) * batch
     bn_epsilon: float = 1e-5
+    bn_groups: int = 1  # > 1 (per-GPU BN statistics) is not ported
 
     def act(self, x: torch.Tensor) -> torch.Tensor:
         return gc.apply_act(x, self.activation, self.leaky_slope)
 
 
-def _eval_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: train mode is not ported yet; "
-            "call .eval() first")
-
-
 class ABN(nn.Module):
-    """BatchNorm (running statistics) then activation (segnet.py:20-41).
+    """BatchNorm then activation (segnet.py:20-41).
 
+    Eval mode normalises with the running statistics. Train mode is flax's
+    ``BatchNorm`` (layers.py:173-198): it normalises with the batch mean and
+    the *biased* batch variance and updates the running statistics as
+    ``m * running + (1 - m) * batch``, biased variance included. PyTorch's
+    own update stores the unbiased variance, so the normalisation runs with
+    no running statistics and the update is made here, without gradient.
     The statistics and affine stay float32 whatever the activation dtype:
-    ``F.batch_norm`` computes in f32 and returns the input's dtype.
+    the batch-norm kernels compute in f32 and return the input's dtype.
     """
 
     def __init__(self, channels: int, norm_act: NormAct = NormAct()):
@@ -62,10 +67,21 @@ class ABN(nn.Module):
         self.bn = nn.BatchNorm2d(channels, eps=norm_act.bn_epsilon)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
         bn = self.bn
-        x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                         False, 0.0, bn.eps)
+        if not self.training:
+            x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                             bn.bias, False, 0.0, bn.eps)
+            return self.norm_act.act(x)
+        if self.norm_act.bn_groups != 1:
+            raise NotImplementedError("train-mode bn_groups > 1 is not ported")
+        x, mean, invstd = torch.native_batch_norm(
+            x, bn.weight, bn.bias, None, None, True, 0.0, bn.eps)
+        with torch.no_grad():
+            # invstd = 1 / sqrt(var + eps): the kernel's biased variance
+            var = (invstd.float().pow(-2) - bn.eps).clamp_(min=0.0)
+            m = self.norm_act.bn_momentum
+            bn.running_mean.mul_(m).add_(mean.float(), alpha=1.0 - m)
+            bn.running_var.mul_(m).add_(var, alpha=1.0 - m)
         return self.norm_act.act(x)
 
     def affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -75,12 +91,33 @@ class ABN(nn.Module):
         return scale, bn.bias.float() - bn.running_mean.float() * scale
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with its weight cast to the input's dtype per call."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(
+            x, self.weight.to(x.dtype),
+            None if self.bias is None else self.bias.to(x.dtype))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` with its weight cast to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(
+            x, self.weight.to(x.dtype),
+            None if self.bias is None else self.bias.to(x.dtype),
+            self.stride, self.padding, self.output_padding, self.groups,
+            self.dilation)
+
+
 class GroupedConv(nn.Module):
     """Grouped 3x3 stride-1 conv, padding = dilation, C in == C out.
 
     Owns the ``(C, C/groups, 3, 3)`` weight and calls ``ops/grouped_conv.py``
-    (the CUDA kernel on the card). ``epilogue=(scale, bias, norm_act)``
-    folds the following eval BN + activation into the same launch.
+    (the CUDA kernel on the card), differentiably, the weight cast to the
+    input's dtype. ``epilogue=(scale, bias, norm_act)`` folds the following
+    eval BN + activation into the same launch (no gradient).
     """
 
     def __init__(self, channels: int, groups: int, dilation: int = 1):
@@ -93,10 +130,11 @@ class GroupedConv(nn.Module):
     def forward(self, x: torch.Tensor, epilogue=None) -> torch.Tensor:
         xh = x.permute(0, 2, 3, 1)  # channels_last NCHW → contiguous NHWC view
         if epilogue is None:
-            y = gc.grouped_conv3x3(xh, self.weight, self.groups, self.dilation)
+            y = gc.differentiable_grouped_conv3x3(xh, self.weight, self.groups,
+                                                  self.dilation)
         else:
             scale, bias, na = epilogue
-            y = gc.grouped_conv3x3_fused(xh, self.weight, scale, bias,
+            y = gc.grouped_conv3x3_fused(xh, self.weight.to(x.dtype), scale, bias,
                                          self.groups, self.dilation,
                                          na.activation, na.leaky_slope)
         return y.permute(0, 3, 1, 2)
@@ -115,15 +153,15 @@ def conv(in_channels: int, features: int, kernel: int, stride: int = 1,
             raise NotImplementedError(
                 "only the grouped 3x3 stride-1 'same' conv is ported")
         return GroupedConv(features, groups, dilation)
-    return nn.Conv2d(in_channels, features, kernel, stride=stride,
-                     padding=padding, dilation=dilation, bias=use_bias)
+    return Conv2d(in_channels, features, kernel, stride=stride,
+                  padding=padding, dilation=dilation, bias=use_bias)
 
 
 def deconv(in_channels: int, features: int, kernel: int, stride: int,
            padding: int, use_bias: bool = False) -> nn.ConvTranspose2d:
     """``ConvTranspose2d(k, s, p)``: the (4,2,1) and (8,4,2) decoder geometries."""
-    return nn.ConvTranspose2d(in_channels, features, kernel, stride=stride,
-                              padding=padding, bias=use_bias)
+    return ConvTranspose2d(in_channels, features, kernel, stride=stride,
+                           padding=padding, bias=use_bias)
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
@@ -145,12 +183,13 @@ def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
 
 
 class IdentityResidualBlock(nn.Module):
-    """Pre-activation bottleneck block (segnet.py:44-124), eval forward.
+    """Pre-activation bottleneck block (segnet.py:44-124).
 
     ``channels`` = (c1, c2, c3): 1x1 → grouped 3x3 → 1x1. The projection
-    shortcut consumes the normalised input, as in the reference. With
-    groups > 1, ``conv2 → bn3 (+act)`` is one fused grouped-conv launch,
-    its affine taken from bn3's running statistics in f32.
+    shortcut consumes the normalised input, as in the reference. In eval
+    mode with groups > 1, ``conv2 → bn3 (+act)`` is one fused grouped-conv
+    launch, its affine taken from bn3's running statistics in f32; in train
+    mode bn3 uses batch statistics and runs after the conv (layers.py:1310-1315).
     """
 
     def __init__(self, in_channels: int, channels: Sequence[int],
@@ -172,11 +211,10 @@ class IdentityResidualBlock(nn.Module):
         self.conv3 = conv(chans[1], chans[2], 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
         bn1 = self.bn1(x)
         shortcut = self.proj_conv(bn1) if self.need_proj else x
         out = self.bn2(self.conv1(bn1))
-        if isinstance(self.conv2, GroupedConv):
+        if isinstance(self.conv2, GroupedConv) and not self.training:
             scale, bias = self.bn3.affine()
             out = self.conv2(out, epilogue=(scale, bias, self.norm_act))
         else:
@@ -305,20 +343,42 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
                 m.reset_parameters()
 
 
+def _prepare(module: nn.Module, device: torch.device, cast_weights: bool) -> None:
+    # bf16 activations on the card, as the JAX package computes in bf16 from
+    # float32 parameters (trgb_segnet.py:17-18); float32 on the CPU
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    weight_dtype = dtype if cast_weights else torch.float32
+    module.to(device)
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            m.to(dtype=weight_dtype, memory_format=torch.channels_last)
+        elif isinstance(m, GroupedConv):
+            m.to(dtype=weight_dtype)
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+
+
 def prepare_for_inference(module: nn.Module, device: torch.device) -> nn.Module:
     """Eval mode on ``device``; convolution weights in the compute dtype.
 
-    On the card the convolutions run in bf16 (the JAX package computes them
-    in bf16 from float32 parameters, trgb_segnet.py:17-18; here the weights
-    are cast once) and BN stays float32. Dense convolution weights move to
-    channels_last, the activations' layout, so cuDNN does not relayout them
-    per call; the grouped conv's weight stays contiguous, as its kernel reads it.
+    On the card the convolutions run in bf16 (here the weights are cast
+    once, so the per-call cast is free) and BN stays float32. Dense
+    convolution weights move to channels_last, the activations' layout, so
+    cuDNN does not relayout them per call; the grouped conv's weight stays
+    contiguous, as its kernel reads it.
     """
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    module.eval().to(device)
-    for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-            m.to(dtype=dtype, memory_format=torch.channels_last)
-        elif isinstance(m, GroupedConv):
-            m.to(dtype=dtype)
+    module.eval()
+    _prepare(module, device, cast_weights=True)
+    return module
+
+
+def prepare_for_training(module: nn.Module, device: torch.device) -> nn.Module:
+    """Train mode on ``device``; every parameter stays float32.
+
+    The activations are bf16 on the card, each convolution casting its
+    float32 weight per call; gradients and optimizer state are float32.
+    Dense convolution weights move to channels_last as for inference.
+    """
+    module.train()
+    _prepare(module, device, cast_weights=False)
     return module

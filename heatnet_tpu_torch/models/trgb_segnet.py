@@ -1,10 +1,21 @@
-"""ResNeXt-ASPP segmentation network, HeatNet RGB+thermal variant, eval forward.
+"""ResNeXt-ASPP segmentation network, HeatNet RGB+thermal variant.
 
 Counterpart of ``heatnet_tpu/models/trgb_segnet.py`` (``_Stage``,
 ``ResNeXtSeg``, ``net_resnext50``). Ported so far: early fusion (RGB and IR
 concatenated into one stem, or one pre-fused input), the 3x3 ``InitBlock``
-stem, and eval mode. Late fusion, the certainty branch, the Vistas 7x7 stem,
-ResNeXt-101/152 and train mode raise ``NotImplementedError``.
+stem, eval and train mode. Late fusion, the certainty branch, the Vistas 7x7
+stem and ResNeXt-101/152 raise ``NotImplementedError``.
+
+Mixed precision as in the JAX module (:115-117): the input is cast to
+``compute_dtype`` (bf16 on the card, set by ``prepare_for_inference`` /
+``prepare_for_training``), every convolution casts its weight to it, BN
+statistics and affine stay float32, and the logits come out float32.
+
+There is no rematerialisation. The JAX module's ``remat`` and
+``HEATNET_REMAT_*`` (:119-182) trade recompute for memory on a 16 GB TPU and
+do not change the function. At batch 10 x 320x640 the activations autograd
+saves are of the order of 10 GB (about 0.6 GB per frame in bf16, more with
+the float32 BN statistics), well inside the H100's 80 GB.
 
 ``forward`` takes and returns NHWC, like the JAX module, and returns
 ``(seg, [seg, cat(fusion, skip_down), out_4, out_3, out_2, out_1], None)``
@@ -77,11 +88,8 @@ class ResNeXtSeg(nn.Module):
         self.aspp = ASPP(in_ch, classes, cert_head=True, norm_act=norm_act)
         self.up_seg_2 = deconv(classes, classes, 4, 2, 1)
         self.fuse_seg = FuseModule(classes + ch[0][-1], classes, norm_act)
-
-    @property
-    def compute_dtype(self) -> torch.dtype:
-        """The convolutions' dtype (bf16 on the card, see prepare_for_inference)."""
-        return self.mod1.conv1.weight.dtype
+        # the activations' dtype (bf16 on the card, see prepare_for_inference)
+        self.compute_dtype = torch.float32
 
     def forward(self, modal_1: torch.Tensor,
                 modal_2: Optional[torch.Tensor] = None):

@@ -6,6 +6,10 @@ Counterpart of ``heatnet_tpu/ops/pallas_grouped_conv.py``:
 - ``grouped_conv3x3_fused(x, w, scale, bias, groups, dilation, act, slope)``
   ↔ ``grouped_conv3x3_fused``: ``act(conv(x, w) * scale + bias)`` with the
   epilogue on the f32 sum before the one rounding to the output dtype.
+- ``differentiable_grouped_conv3x3(x, w, groups, dilation)`` ↔ the
+  ``grouped_conv3x3`` custom VJP (:297-322), through
+  ``GroupedConv3x3Function``: the forward and the input gradient run the
+  same kernel, the weight gradient is the library's (see the class).
 
 ``x`` is NHWC, ``w`` PyTorch's grouped layout ``(C, C/groups, 3, 3)`` (the
 JAX kernel ``(3, 3, C/groups, C)`` transposed), output channels == C.
@@ -28,8 +32,14 @@ from ..kernels.build import Kernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-GROUPED_CONV3X3 = Kernel("grouped_conv3x3", "hn_grouped_conv3x3", [
-    _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P])
+_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+GROUPED_CONV3X3 = Kernel("grouped_conv3x3", "hn_grouped_conv3x3", _ARGTYPES)
+# The same kernel launched for the input gradient, counted on its own
+GROUPED_CONV3X3_DX = Kernel("grouped_conv3x3_dx", "hn_grouped_conv3x3", _ARGTYPES)
+
+# Activation copies the Function makes to give the kernel contiguous NHWC
+# (each is one read and one write of an activation), by tensor
+layout_copies = {"x": 0, "dy": 0}
 
 ACTS = {"none": 0, "relu": 1, "leaky_relu": 2, "elu": 3}
 _KERNEL_CPG = (2, 4, 8, 16)
@@ -72,7 +82,8 @@ def grouped_conv3x3_plain(x: torch.Tensor, w: torch.Tensor, groups: int,
     return apply_act(y, act, slope).to(x.dtype)
 
 
-def _conv(x, w, groups, dilation, scale, bias, act, slope):
+def _conv(x, w, groups, dilation, scale, bias, act, slope,
+          kernel: Kernel = GROUPED_CONV3X3):
     if x.dim() != 4 or x.shape[-1] % groups != 0:
         raise ValueError(f"x must be NHWC with C divisible by groups={groups}, "
                          f"got {tuple(x.shape)}")
@@ -111,7 +122,7 @@ def _conv(x, w, groups, dilation, scale, bias, act, slope):
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        GROUPED_CONV3X3.launch(
+        kernel.launch(
             x.data_ptr(), w.data_ptr(),
             None if scale is None else scale.data_ptr(),
             None if bias is None else bias.data_ptr(),
@@ -132,3 +143,105 @@ def grouped_conv3x3_fused(x: torch.Tensor, w: torch.Tensor,
                           slope: float = 0.01) -> torch.Tensor:
     """``act(grouped_conv3x3(x, w) * scale + bias)``, the epilogue in f32."""
     return _conv(x, w, groups, dilation, scale, bias, act, slope)
+
+
+def dx_weight(w: torch.Tensor, groups: int) -> torch.Tensor:
+    """The weight whose grouped conv of ``dy`` is the input gradient.
+
+    For a stride-1 conv with padding = dilation and C in == C out, the input
+    gradient is the same grouped conv of ``dy`` with each group's
+    ``(cpg_out, cpg_in)`` block transposed and the 3x3 taps flipped.
+    """
+    c, cpg = w.shape[:2]
+    return (w.view(groups, cpg, cpg, 3, 3).transpose(1, 2).flip(3, 4)
+            .reshape(c, cpg, 3, 3).contiguous())
+
+
+def grouped_conv3x3_dx(dy: torch.Tensor, w: torch.Tensor, groups: int,
+                       dilation: int = 1) -> torch.Tensor:
+    """Input gradient of ``grouped_conv3x3``: the kernel (or, on the CPU,
+    the plain version) run on ``dy`` with ``dx_weight(w)``."""
+    return _conv(dy, dx_weight(w, groups), groups, dilation, None, None,
+                 "none", 0.0, GROUPED_CONV3X3_DX)
+
+
+def grouped_conv3x3_weight_grad_plain(x: torch.Tensor, dy: torch.Tensor,
+                                      groups: int, dilation: int = 1
+                                      ) -> torch.Tensor:
+    """Plain weight gradient, f32 ``(C, C/groups, 3, 3)``: per tap, the
+    per-group product of the shifted input slice with ``dy``, summed over
+    batch and pixels."""
+    n, h, wd, c = x.shape
+    cpg = c // groups
+    d = dilation
+    xp = F.pad(x.to(torch.float32), (0, 0, d, d, d, d))
+    xp = xp.view(n, h + 2 * d, wd + 2 * d, groups, cpg)
+    g = dy.to(torch.float32).view(n, h, wd, groups, cpg)
+    dk = torch.empty((groups, cpg, cpg, 3, 3), dtype=torch.float32,
+                     device=x.device)
+    for ky in range(3):
+        for kx in range(3):
+            xs = xp[:, ky * d:ky * d + h, kx * d:kx * d + wd]
+            dk[..., ky, kx] = torch.einsum("nhwgi,nhwgo->goi", xs, g)
+    return dk.view(c, cpg, 3, 3)
+
+
+def grouped_conv3x3_weight_grad(x: torch.Tensor, dy: torch.Tensor,
+                                groups: int, dilation: int = 1) -> torch.Tensor:
+    """Weight gradient of ``grouped_conv3x3``, NHWC ``x`` and ``dy``.
+
+    No TPU kernel computes it (the JAX backward is XLA's autodiff of
+    ``_dense_reference``), so on the card it is the library's weight
+    gradient, cuDNN's, which sums in f32 and returns the inputs' dtype.
+    """
+    if x.device.type == "cpu":
+        return grouped_conv3x3_weight_grad_plain(x, dy, groups, dilation)
+    c = x.shape[-1]
+    return torch.nn.grad.conv2d_weight(
+        x.permute(0, 3, 1, 2), (c, c // groups, 3, 3), dy.permute(0, 3, 1, 2),
+        padding=dilation, dilation=dilation, groups=groups)
+
+
+def _contiguous(t: torch.Tensor, name: str) -> torch.Tensor:
+    if t.is_contiguous():
+        return t
+    layout_copies[name] += 1
+    return t.contiguous()
+
+
+class GroupedConv3x3Function(torch.autograd.Function):
+    """Differentiable grouped 3x3 conv (the ``grouped_conv3x3`` custom VJP).
+
+    Forward: ``grouped_conv3x3`` of NHWC ``x`` with ``w`` cast to x's dtype
+    (``kern.astype(dtype)``). Backward: dx is ``grouped_conv3x3_dx``, the
+    same kernel on ``dy``; dk is ``grouped_conv3x3_weight_grad``, returned
+    in ``w``'s dtype as ``_bwd`` returns ``dk.astype(kern.dtype)``. A tensor
+    that reaches the kernel in another layout is copied to contiguous NHWC
+    and counted in ``layout_copies``.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, groups: int, dilation: int):
+        x = _contiguous(x, "x")
+        wc = w.to(x.dtype)
+        ctx.save_for_backward(x, wc)
+        ctx.groups, ctx.dilation, ctx.w_dtype = groups, dilation, w.dtype
+        return grouped_conv3x3(x, wc, groups, dilation)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, wc = ctx.saved_tensors
+        dy = _contiguous(dy.to(x.dtype), "dy")
+        dx = dk = None
+        if ctx.needs_input_grad[0]:
+            dx = grouped_conv3x3_dx(dy, wc, ctx.groups, ctx.dilation)
+        if ctx.needs_input_grad[1]:
+            dk = grouped_conv3x3_weight_grad(
+                x, dy, ctx.groups, ctx.dilation).to(ctx.w_dtype)
+        return dx, dk, None, None
+
+
+def differentiable_grouped_conv3x3(x: torch.Tensor, w: torch.Tensor,
+                                   groups: int, dilation: int = 1) -> torch.Tensor:
+    """``grouped_conv3x3`` with gradients (``GroupedConv3x3Function``)."""
+    return GroupedConv3x3Function.apply(x, w, groups, dilation)

@@ -1,9 +1,17 @@
-"""Eval-time image preprocessing, plain PyTorch (NHWC).
+"""Image preprocessing, plain PyTorch (NHWC): eval ingest and train augmentation.
 
-Counterpart of ``heatnet_tpu/ops/preprocess.py:29-57,120-127,289-305`` and of
-``heatnet_tpu/eval/validate.py:52-68`` (``_device_normalize``). The chain is
-the reference loader's (thermal_loader.py:633-659, :711-728): window crop →
-radiometric IR clamp [21800, 25000] → [0, 1] → normalise (mean .5, std .5).
+Counterpart of ``heatnet_tpu/ops/preprocess.py:29-57,120-216,242-250,289-353``
+and of ``heatnet_tpu/eval/validate.py:52-68`` (``_device_normalize``). The
+eval chain is the reference loader's (thermal_loader.py:633-659, :711-728):
+window crop → radiometric IR clamp [21800, 25000] → [0, 1] → normalise (mean
+.5, std .5). The train chain (``train_sample_preprocess``) adds a shared
+random crop and independent day/night flips and rotations.
+
+The train functions work on batches with per-sample parameters. Drawing the
+parameters (``draw_train_params``, from an explicit ``torch.Generator``) is
+separate from applying them, so a caller can apply parameters drawn
+elsewhere, e.g. from a JAX key in the tests; the two frameworks' generators
+give different numbers from one seed.
 
 There are two crop conventions, and callers say which they follow:
 
@@ -17,7 +25,9 @@ The fused single-pass versions are in ``ops/fused_preproc.py``.
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+import math
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -83,3 +93,192 @@ def device_normalize(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.uint16:
         return normalize(ir_normalize(x), mean=(0.5,), std=(0.5,))
     return x
+
+
+# ---------------------------------------------------------------------------
+# Train-time augmentation (batched, per-sample parameters)
+# ---------------------------------------------------------------------------
+
+# The reference window of the train loader (thermal_loader.py:633-638)
+TRAIN_WINDOW = (150, 850)
+
+
+def random_crop_params(generator: torch.Generator, n: int,
+                       in_hw: Tuple[int, int], out_hw: Tuple[int, int]):
+    """(i, j), each (n,) int64, of uniform random crops
+    (transforms.RandomCrop.get_params)."""
+    i = torch.randint(0, in_hw[0] - out_hw[0] + 1, (n,), generator=generator)
+    j = torch.randint(0, in_hw[1] - out_hw[1] + 1, (n,), generator=generator)
+    return i, j
+
+
+def crop_at(img: torch.Tensor, i: Sequence[int], j: Sequence[int],
+            out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Per-sample crop of an NHWC batch at offsets ``i[k], j[k]``."""
+    h, w = out_hw
+    return torch.stack([img[k, int(a):int(a) + h, int(b):int(b) + w]
+                        for k, (a, b) in enumerate(zip(i, j))])
+
+
+def hflip(img: torch.Tensor) -> torch.Tensor:
+    """Horizontal flip of an NHWC batch."""
+    return img.flip(2)
+
+
+def maybe_hflip(do: torch.Tensor, *imgs: torch.Tensor):
+    """Flip the samples where ``do`` (N,) bool is set, all images together
+    (thermal_loader.py:685-692)."""
+    out = tuple(torch.where(do.view(-1, 1, 1, 1), hflip(im), im) for im in imgs)
+    return out if len(out) > 1 else out[0]
+
+
+def rotate(img: torch.Tensor, angle_deg: torch.Tensor, method: str = "bilinear",
+           fill: float = 0.0) -> torch.Tensor:
+    """Rotate each NHWC sample about its centre by ``angle_deg`` (N,) degrees,
+    counter-clockwise (PIL ``Image.rotate``).
+
+    Inverse-mapped sampling with explicit gathers: ``bilinear`` for images,
+    ``nearest`` (round half to even) for label maps (thermal_loader.py:695-705);
+    pixels that map outside the frame get ``fill``. Integer images come back
+    in their dtype, truncated. ``F.grid_sample`` is not used: its corner and
+    out-of-bounds rules differ.
+    """
+    n, h, w, _ = img.shape
+    theta = angle_deg.to(torch.float32) * math.pi / 180.0
+    cos = torch.cos(theta).view(n, 1, 1)
+    sin = torch.sin(theta).view(n, 1, 1)
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    yy = torch.arange(h, dtype=torch.float32, device=img.device).view(h, 1) - cy
+    xx = torch.arange(w, dtype=torch.float32, device=img.device).view(1, w) - cx
+    src_y = sin * xx + cos * yy + cy
+    src_x = cos * xx - sin * yy + cx
+    inside = (src_y >= 0) & (src_y <= h - 1) & (src_x >= 0) & (src_x <= w - 1)
+
+    img_f = img.to(torch.float32)
+    b = torch.arange(n, device=img.device).view(n, 1, 1)
+    if method == "nearest":
+        iy = torch.round(src_y).long().clamp(0, h - 1)
+        ix = torch.round(src_x).long().clamp(0, w - 1)
+        out = img_f[b, iy, ix]
+    else:
+        y0 = torch.floor(src_y).long().clamp(0, h - 1)
+        x0 = torch.floor(src_x).long().clamp(0, w - 1)
+        y1 = (y0 + 1).clamp(0, h - 1)
+        x1 = (x0 + 1).clamp(0, w - 1)
+        wy = (src_y - y0).clamp(0.0, 1.0)[..., None]
+        wx = (src_x - x0).clamp(0.0, 1.0)[..., None]
+        out = (img_f[b, y0, x0] * (1 - wy) * (1 - wx)
+               + img_f[b, y1, x0] * wy * (1 - wx)
+               + img_f[b, y0, x1] * (1 - wy) * wx
+               + img_f[b, y1, x1] * wy * wx)
+    out = torch.where(inside[..., None], out, fill)
+    return out if img.dtype.is_floating_point else out.to(img.dtype)
+
+
+def maybe_rotate_pair(do: torch.Tensor, angle_deg: torch.Tensor,
+                      images: Sequence[torch.Tensor],
+                      labels: Sequence[torch.Tensor] = ()):
+    """Where ``do`` is set, rotate images (bilinear) and labels (nearest) by
+    the sample's shared angle (thermal_loader.py:695-705)."""
+    m = do.view(-1, 1, 1, 1)
+    outs_i = tuple(torch.where(m, rotate(im, angle_deg, "bilinear"), im)
+                   for im in images)
+    outs_l = tuple(torch.where(m, rotate(lb, angle_deg, "nearest"), lb)
+                   for lb in labels)
+    return outs_i, outs_l
+
+
+def rect_drop_params(generator: torch.Generator, n: int,
+                     hw: Tuple[int, int]) -> torch.Tensor:
+    """(n, 4) int32 [i, j, h, w] rectangles: h in [100, 300), w in [100, 500),
+    placed uniformly inside the (H, W) frame (thermal_loader.py:661-666)."""
+    h = (100 + torch.rand(n, generator=generator) * 200).to(torch.int32)
+    w = (100 + torch.rand(n, generator=generator) * 400).to(torch.int32)
+    i = (torch.rand(n, generator=generator) * (hw[0] - h)).to(torch.int32)
+    j = (torch.rand(n, generator=generator) * (hw[1] - w)).to(torch.int32)
+    return torch.stack([i, j, h, w], dim=1)
+
+
+@dataclasses.dataclass
+class TrainAugParams:
+    """The random draws of ``train_sample_preprocess``, one row per sample."""
+
+    crop_i: torch.Tensor       # (N,) int, crop offsets
+    crop_j: torch.Tensor
+    flip_day: torch.Tensor     # (N,) bool
+    flip_night: torch.Tensor
+    rotate_day: torch.Tensor   # (N,) bool
+    angle_day: torch.Tensor    # (N,) float32 degrees
+    rotate_night: torch.Tensor
+    angle_night: torch.Tensor
+    mod_drop: torch.Tensor     # (N, 4) int32, rect_drop_params
+
+
+def draw_train_params(generator: torch.Generator, n: int,
+                      in_hw: Tuple[int, int], crop_hw: Tuple[int, int],
+                      max_angle: float = 20.0) -> TrainAugParams:
+    """Draw the parameters of ``n`` samples on the CPU: flips and rotations
+    with probability 0.5, angles uniform in [-max_angle, max_angle]."""
+    i, j = random_crop_params(generator, n, in_hw, crop_hw)
+
+    def coin():
+        return torch.rand(n, generator=generator) > 0.5
+
+    def angle():
+        return (torch.rand(n, generator=generator) - 0.5) * 2.0 * max_angle
+
+    return TrainAugParams(i, j, coin(), coin(), coin(), angle(), coin(), angle(),
+                          rect_drop_params(generator, n, crop_hw))
+
+
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dim() == 4 else t[..., None]
+
+
+def train_sample_preprocess(params: TrainAugParams, rgb_day, ir_day, label_day,
+                            rgb_night, ir_night,
+                            crop_hw: Tuple[int, int] = (320, 640)
+                            ) -> Dict[str, torch.Tensor]:
+    """The per-sample train chain after decode + resize, over a batch.
+
+    ``rgb_*`` uint8 (N,H,W,3), ``ir_*`` uint16 (N,H,W[,1]), ``label_day``
+    uint8 (N,H,W), all on one device. As ThermalDataLoader.__getitem__
+    (:596-740): window crop, the shared random crop, IR clamp, independent
+    day/night flips and rotations, normalisation. Returns float32 (N,h,w,3)
+    and (N,h,w,1) images, uint8 (N,h,w) day labels and ``mod_drop_params``.
+    The IR is normalised before the crops, with which it commutes, so no
+    uint16 tensor is indexed.
+    """
+    lo, hi = TRAIN_WINDOW
+    ir_day, ir_night = (ir_normalize(window_crop(_nhwc(x), lo, hi))
+                        for x in (ir_day, ir_night))
+    rgb_day, rgb_night = (window_crop(x, lo, hi) for x in (rgb_day, rgb_night))
+    label_day = window_crop(label_day[..., None], lo, hi)
+
+    i, j = params.crop_i.tolist(), params.crop_j.tolist()
+    rgb_day, ir_day, label_day, rgb_night, ir_night = (
+        crop_at(x, i, j, crop_hw)
+        for x in (rgb_day, ir_day, label_day, rgb_night, ir_night))
+    rgb_day = rgb_day.to(torch.float32) / 255.0
+    rgb_night = rgb_night.to(torch.float32) / 255.0
+
+    dev = rgb_day.device
+    rgb_day, ir_day, label_day = maybe_hflip(params.flip_day.to(dev),
+                                             rgb_day, ir_day, label_day)
+    rgb_night, ir_night = maybe_hflip(params.flip_night.to(dev),
+                                      rgb_night, ir_night)
+    (rgb_day, ir_day), (label_day,) = maybe_rotate_pair(
+        params.rotate_day.to(dev), params.angle_day.to(dev),
+        (rgb_day, ir_day), (label_day,))
+    (rgb_night, ir_night), _ = maybe_rotate_pair(
+        params.rotate_night.to(dev), params.angle_night.to(dev),
+        (rgb_night, ir_night))
+
+    return {
+        "rgb_day": normalize(rgb_day),
+        "ir_day": normalize(ir_day, (0.5,), (0.5,)),
+        "label_day": label_day[..., 0],
+        "rgb_night": normalize(rgb_night),
+        "ir_night": normalize(ir_night, (0.5,), (0.5,)),
+        "mod_drop_params": params.mod_drop,
+    }

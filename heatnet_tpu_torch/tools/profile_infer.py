@@ -37,6 +37,10 @@ def _family(name: str) -> str:
         return "cuDNN/cuBLAS conv"
     if "batch_norm" in n:
         return "batch norm"
+    if "multi_tensor" in n:
+        return "optimizer"
+    if "memcpy" in n:
+        return "host-device copy"
     if any(s in n for s in ("elementwise", "reduce")):
         return "elementwise / reduce"
     return "other"

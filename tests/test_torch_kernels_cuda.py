@@ -8,7 +8,10 @@ and the port import no JAX, so it runs on a machine without it:
 Tolerances: ingest is the plain version's arithmetic (f32 within 1e-6; nvcc
 contracts x/255 - .5 into one FMA, a last-bit difference that can move a bf16
 rounding by one step, 2^-8 at most in [-1, 1]); the grouped conv rounds f32
-sums taken in another order, so at most one bf16 step apart.
+sums taken in another order, so at most one bf16 step apart. Its gradients
+are held against autograd of the plain version in f32 on the same
+bf16-valued inputs: dx within one bf16 step (the kernel rounds once), dk
+(cuDNN's, returned in bf16) within 1e-2 in relative L2 norm.
 """
 
 import numpy as np
@@ -22,6 +25,9 @@ pytestmark = pytest.mark.cuda
 
 GROUPS = 64
 STAGES = [(128, 2, 1), (256, 4, 1), (512, 8, 2), (1024, 16, 4)]
+# (C, cpg, d, H, W) of ResNeXt-50's grouped convs at a 320x640 train crop
+TRAIN_STAGES = [(128, 2, 1, 80, 160), (256, 4, 1, 40, 80), (512, 8, 2, 40, 80),
+                (1024, 16, 4, 40, 80)]
 
 
 @pytest.fixture
@@ -88,3 +94,27 @@ def test_cuda_wrappers_raise_instead_of_falling_back(dev):
     wb = torch.randn(96, 1, 3, 3, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="cpg"):  # depthwise: not a kernel shape
         gc.grouped_conv3x3(xb, wb, 96)
+
+
+@pytest.mark.parametrize("c,cpg,d,h,w", TRAIN_STAGES)
+def test_grouped_conv_gradients_match_autograd_of_plain(dev, c, cpg, d, h, w):
+    g = torch.Generator().manual_seed(c + 1)
+    x = torch.randn((2, h, w, c), generator=g).to(torch.bfloat16)
+    wt = torch.randn((c, cpg, 3, 3), generator=g) / (9 * cpg) ** 0.5
+    dy = torch.randn((2, h, w, c), generator=g).to(torch.bfloat16)
+
+    xk = x.to(dev).requires_grad_()
+    wk = wt.to(dev).requires_grad_()
+    before = (gc.GROUPED_CONV3X3.launches, gc.GROUPED_CONV3X3_DX.launches)
+    gc.differentiable_grouped_conv3x3(xk, wk, GROUPS, d).backward(dy.to(dev))
+    assert (gc.GROUPED_CONV3X3.launches, gc.GROUPED_CONV3X3_DX.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert xk.grad.dtype == torch.bfloat16 and wk.grad.dtype == torch.float32
+
+    xr = x.to(dev).float().requires_grad_()
+    wr = wt.to(dev).to(torch.bfloat16).float().requires_grad_()
+    gc.grouped_conv3x3_plain(xr, wr, GROUPS, d).backward(dy.to(dev).float())
+    dx, dx_ref = xk.grad.float(), xr.grad
+    assert bool(((dx - dx_ref).abs() <= 2.0 ** -7 * dx_ref.abs() + 1e-3).all())
+    rel = float((wk.grad - wr.grad).norm() / wr.grad.norm())
+    assert rel <= 1e-2, rel

@@ -166,6 +166,11 @@ def test_stride_dilation_schedule():
 
 
 def test_train_mode_raises():
+    """Train mode runs; its per-GPU BN statistics (bn_groups > 1) are not
+    ported and raise."""
     blk = tl.IdentityResidualBlock(64, (128, 128, 256), groups=64)
+    assert blk.train()(torch.zeros(2, 64, 4, 4)).shape == (2, 256, 4, 4)
+    blk = tl.IdentityResidualBlock(64, (128, 128, 256), groups=64,
+                                   norm_act=tl.NormAct(bn_groups=4))
     with pytest.raises(NotImplementedError):
-        blk.train()(torch.zeros(1, 64, 4, 4))
+        blk.train()(torch.zeros(4, 64, 4, 4))
