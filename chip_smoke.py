@@ -10,12 +10,14 @@ Phases, each of which exits non-zero on failure:
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes, with the error beside its stated tolerance and
    CUDA-event times of the kernel, the plain version and, for the grouped
-   conv, ``F.conv2d(groups=64)`` (a yardstick only; the port never calls it).
-   The grouped conv's gradients (``GroupedConv3x3Function``) are checked
-   at the four training shapes (batch 10, 320x640 crop): forward and dx
-   against autograd of the plain version, dk in relative L2 norm, with
-   times of the dx kernel, ``torch.nn.grad.conv2d_input(groups=64)`` (a
-   yardstick) and the dk library call;
+   conv, ``F.conv2d(groups=64)`` (a yardstick only; the port never calls it),
+   the card time of each call's kernels (torch.profiler) beside them and
+   each stage's share of its bound. The grouped conv's gradients
+   (``GroupedConv3x3Function``) are checked at the four training shapes
+   (batch 10, 320x640 crop): forward and dx against autograd of the plain
+   version, dk in relative L2 norm, with times of the forward and dx
+   kernels, ``F.conv2d`` and ``torch.nn.grad.conv2d_input(groups=64)`` (the
+   yardsticks) and the dk library call;
 4. the main path: a 16-frame 320x704 heatnet-pack-v1 directory served by
    ``heatnet_tpu_torch.cli.inference.main`` with ResNeXt-50 at full depth and
    width (random weights, seed 0) at batch 8, the kernels' launch counts
@@ -142,6 +144,20 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    def device_ms(fn, reps: int = 10) -> float:
+        """Card time of every kernel one call launches (torch.profiler), so
+        that a call whose host side outlasts its kernels reads its kernels."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.device_time_total for e in prof.key_averages()
+                   if e.device_type.name == "CUDA") / 1e3 / reps
+
     def check(name, out, ref, tol_fn, tol_text) -> float:
         torch.cuda.synchronize()
         out, ref = out.detach().float(), ref.detach().float()
@@ -223,20 +239,22 @@ def main() -> None:
                 gc.grouped_conv3x3_fused(x, wt, scale, bias, c // cpg, d, act, 0.01),
                 gc.grouped_conv3x3_plain(x, wt, c // cpg, d, scale, bias, act, 0.01),
                 *gc_tol))
-        k_ms = time_ms(lambda: gc.grouped_conv3x3_fused(x, wt, scale, bias, c // cpg, d))
+        fused = lambda: gc.grouped_conv3x3_fused(x, wt, scale, bias, c // cpg, d)
+        k_ms, k_dev = time_ms(fused), device_ms(fused)
         p_ms = time_ms(lambda: gc.grouped_conv3x3_plain(
             x, wt, c // cpg, d, scale, bias, "relu"), reps=5)
         x_cl = x.permute(0, 3, 1, 2)
-        l_ms = time_ms(lambda: F.conv2d(x_cl, wt, padding=d, dilation=d,
-                                        groups=c // cpg))
+        lib = lambda: F.conv2d(x_cl, wt, padding=d, dilation=d, groups=c // cpg)
+        l_ms, l_dev = time_ms(lib), device_ms(lib)
         n_bytes = 2 * x.numel() * 2 + wt.numel() * 2 + 2 * c * 4
         flops = 2 * x.numel() * cpg * 9
         b_ms, b_by = bound_ms(n_bytes, flops)
-        gc_rows.append((name, count, k_ms, p_ms, l_ms, b_ms, n_bytes, flops))
+        gc_rows.append((name, count, k_ms, p_ms, l_ms, b_ms, n_bytes, flops, k_dev, l_dev))
         print(f"  {name} (C {c}, cpg {cpg}, d {d}, {N_BATCH}x{h}x{w}) fused relu: "
-              f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
-              f"bound_ms {b_ms:.4f} ({b_by}, {n_bytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP)", flush=True)
+              f"kernel_ms {k_ms:.4f} (device {k_dev:.4f}) plain_ms {p_ms:.4f} "
+              f"library_ms {l_ms:.4f} (device {l_dev:.4f}) bound_ms {b_ms:.4f} "
+              f"({b_by}, {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) "
+              f"share of bound {b_ms / k_ms:.3f}", flush=True)
 
     # 3c. the grouped conv's gradients at the training shapes, against
     # autograd of the plain version in f32 on the same bf16-valued inputs
@@ -266,23 +284,35 @@ def main() -> None:
 
         wb = wt.to(torch.bfloat16)
         w_flip = gc.dx_weight(wb, groups)
-        f_ms = time_ms(lambda: gc.grouped_conv3x3(x, wb, groups, d))
-        k_ms = time_ms(lambda: gc.grouped_conv3x3_dx(dy, wb, groups, d))
+        fwd = lambda: gc.grouped_conv3x3(x, wb, groups, d)
+        f_ms, f_dev = time_ms(fwd), device_ms(fwd)
+        fp_ms = time_ms(lambda: gc.grouped_conv3x3_plain(x, wb, groups, d), reps=5)
+        x_cl = x.permute(0, 3, 1, 2)
+        f_lib = lambda: F.conv2d(x_cl, wb, padding=d, dilation=d, groups=groups)
+        fl_ms, fl_dev = time_ms(f_lib), device_ms(f_lib)
+        dxk = lambda: gc.grouped_conv3x3_dx(dy, wb, groups, d)
+        k_ms, k_dev = time_ms(dxk), device_ms(dxk)
         p_ms = time_ms(lambda: gc.grouped_conv3x3_plain(dy, w_flip, groups, d), reps=5)
         dy_cl = dy.permute(0, 3, 1, 2)
-        l_ms = time_ms(lambda: torch.nn.grad.conv2d_input(
-            (N_TRAIN, c, h, w), wb, dy_cl, padding=d, dilation=d, groups=groups))
+        dx_lib = lambda: torch.nn.grad.conv2d_input(
+            (N_TRAIN, c, h, w), wb, dy_cl, padding=d, dilation=d, groups=groups)
+        l_ms, l_dev = time_ms(dx_lib), device_ms(dx_lib)
         dk_ms = time_ms(lambda: gc.grouped_conv3x3_weight_grad(x, dy, groups, d))
         n_bytes = 2 * x.numel() * 2 + wb.numel() * 2
         flops = 2 * x.numel() * cpg * 9
         b_ms, b_by = bound_ms(n_bytes, flops)
-        dx_rows.append((name, count, k_ms, p_ms, l_ms, b_ms, n_bytes, flops, f_ms, dk_ms))
-        print(f"  {name} (C {c}, cpg {cpg}, d {d}, {N_TRAIN}x{h}x{w}): forward_ms "
-              f"{f_ms:.4f} dx kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
-              f"{l_ms:.4f} (conv2d_input) dk library_ms {dk_ms:.4f} bound_ms "
-              f"{b_ms:.4f} ({b_by}, {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
-              flush=True)
-        del x, dy, dy_cl
+        dx_rows.append((name, count, k_ms, p_ms, l_ms, b_ms, n_bytes, flops, f_ms, dk_ms,
+                        fl_ms, fp_ms, f_dev, fl_dev, k_dev, l_dev))
+        print(f"  {name} (C {c}, cpg {cpg}, d {d}, {N_TRAIN}x{h}x{w}), bound_ms "
+              f"{b_ms:.4f} per direction ({b_by}, {n_bytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP):\n"
+              f"    forward kernel_ms {f_ms:.4f} (device {f_dev:.4f}) plain_ms "
+              f"{fp_ms:.4f} library_ms {fl_ms:.4f} (device {fl_dev:.4f}, conv2d) "
+              f"share of bound {b_ms / f_ms:.3f}\n"
+              f"    dx kernel_ms {k_ms:.4f} (device {k_dev:.4f}) plain_ms {p_ms:.4f} "
+              f"library_ms {l_ms:.4f} (device {l_dev:.4f}, conv2d_input) share of "
+              f"bound {b_ms / k_ms:.3f}; dk library_ms {dk_ms:.4f}", flush=True)
+        del x, dy, dy_cl, x_cl
     torch.cuda.empty_cache()
 
     # 4. the main path through the CLI
@@ -503,7 +533,13 @@ def main() -> None:
     sums = [sum(r[1] * r[i] for r in gc_rows) for i in (2, 3, 4)]
     gc_bound, gc_by = bound_ms(sum(r[1] * r[6] for r in gc_rows),
                                sum(r[1] * r[7] for r in gc_rows))
-    dx_sums = [sum(r[1] * r[i] for r in dx_rows) for i in (2, 3, 4, 8, 9)]
+    dx_sums = [sum(r[1] * r[i] for r in dx_rows) for i in (2, 3, 4, 8, 9, 10, 11)]
+
+    def stage_list(rows, cols):
+        return [{"stage": r[0], "per_forward": r[1], "bound_ms": r[5],
+                 **{k: r[i] for k, i in cols.items()},
+                 "share_of_bound": r[5] / r[cols["ms"]]} for r in rows]
+
     dx_bound, dx_by = bound_ms(sum(r[1] * r[6] for r in dx_rows),
                                sum(r[1] * r[7] for r in dx_rows))
     record = {"kernels": [
@@ -522,6 +558,8 @@ def main() -> None:
          "launches": launches["grouped_conv3x3"], "max_abs_err": gc_err,
          "ms": sums[0], "plain_ms": sums[1], "bound_ms": gc_bound,
          "bound_by": gc_by, "library_ms": sums[2],
+         "stages": stage_list(gc_rows, {"ms": 2, "plain_ms": 3, "library_ms": 4,
+                                        "device_ms": 8, "library_device_ms": 9}),
          "work": f"one forward's 16 launches (3/4/6/3 per stage), batch {N_BATCH}, "
                  "fused bn3 + relu"},
         {"name": "grouped_conv3x3_dx", "route": "cuda",
@@ -532,7 +570,15 @@ def main() -> None:
          "ms": dx_sums[0], "plain_ms": dx_sums[1], "bound_ms": dx_bound,
          "bound_by": dx_by, "library_ms": dx_sums[2],
          "train_forward_launches": train_launches["grouped_conv3x3"],
-         "train_forward_ms": dx_sums[3], "dk_library_ms": dx_sums[4],
+         "train_forward_ms": dx_sums[3], "train_forward_library_ms": dx_sums[5],
+         "train_forward_plain_ms": dx_sums[6], "dk_library_ms": dx_sums[4],
+         "stages": stage_list(dx_rows, {"ms": 2, "plain_ms": 3, "library_ms": 4,
+                                        "device_ms": 14, "library_device_ms": 15,
+                                        "train_forward_ms": 8,
+                                        "train_forward_library_ms": 10,
+                                        "train_forward_device_ms": 12,
+                                        "train_forward_library_device_ms": 13,
+                                        "dk_library_ms": 9}),
          "work": f"one training step's 16 dx launches (3/4/6/3 per stage), batch "
                  f"{N_TRAIN}, {CROP[0]}x{CROP[1]} crop; library: conv2d_input"},
     ]}

@@ -15,9 +15,11 @@ Counterpart of ``heatnet_tpu/ops/pallas_grouped_conv.py``:
 JAX kernel ``(3, 3, C/groups, C)`` transposed), output channels == C.
 
 Dispatch: a CUDA tensor launches ``csrc/grouped_conv3x3.cu`` (bf16, C a
-multiple of 32, 2/4/8/16 channels per group, any dilation) or raises; a CPU
-tensor runs ``grouped_conv3x3_plain``, the 9-tap shifted-slice sum in f32,
-which relies on no library convolution.
+multiple of 64, 1/2/4/8/16 channels per group, dilation 1 to 8), which
+multiplies the weight's 16x16 block-diagonal tiles (``pack_weight_tiles``
+defines them) on tensor cores, or raises; a CPU tensor runs
+``grouped_conv3x3_plain``, the 9-tap shifted-slice sum in f32, which relies
+on no library convolution.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from ..kernels.build import Kernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
 GROUPED_CONV3X3 = Kernel("grouped_conv3x3", "hn_grouped_conv3x3", _ARGTYPES)
 # The same kernel launched for the input gradient, counted on its own
 GROUPED_CONV3X3_DX = Kernel("grouped_conv3x3_dx", "hn_grouped_conv3x3", _ARGTYPES)
@@ -42,7 +44,10 @@ GROUPED_CONV3X3_DX = Kernel("grouped_conv3x3_dx", "hn_grouped_conv3x3", _ARGTYPE
 layout_copies = {"x": 0, "dy": 0}
 
 ACTS = {"none": 0, "relu": 1, "leaky_relu": 2, "elu": 3}
-_KERNEL_CPG = (2, 4, 8, 16)
+_KERNEL_CPG = (1, 2, 4, 8, 16)  # each divides the 16-channel tile
+_KERNEL_CHANNELS = 64  # channels per block tile: C must be a multiple
+_KERNEL_MAX_DILATION = 8
+TILE = 16
 
 
 def apply_act(y: torch.Tensor, act: str, slope: float) -> torch.Tensor:
@@ -82,8 +87,46 @@ def grouped_conv3x3_plain(x: torch.Tensor, w: torch.Tensor, groups: int,
     return apply_act(y, act, slope).to(x.dtype)
 
 
+def pack_weight_tiles(w: torch.Tensor, groups: int,
+                      transpose_flip: bool = False) -> torch.Tensor:
+    """PyTorch's ``(C, C/groups, 3, 3)`` weight as the kernel's bf16 tiles.
+
+    Returns ``(9, C/16, 16, 16)``: ``tiles[t, j, co, ci]`` is the weight from
+    input channel ``16j + ci`` to output channel ``16j + co`` at tap
+    ``t = 3*ky + kx``, zero where the two channels lie in different groups.
+    ``tiles[t, j].T`` is the diagonal 16x16 block ``j`` of the JAX
+    ``_block_diag_taps`` (indexed ``[t, ci, co]``). ``ci`` is the inner axis
+    because that is the order of mma's B operand (``.col``): a lane's
+    register holds two consecutive ``ci`` of one ``co``.
+
+    ``transpose_flip=True`` packs ``dx_weight(w)`` instead (each group's
+    block transposed, the taps flipped), the weight of the input gradient,
+    in the same gather.
+
+    The CUDA kernel gathers these tiles itself, each warp its own B
+    fragments straight from ``w``: a pack on the host added two PyTorch
+    launches per call, and the host time they took held mod3's eager loop
+    to 0.070 ms against 0.020 ms of card time (PERF.md). This function is
+    their definition and plain version, held against JAX in the CPU tests.
+    """
+    c, cpg = w.shape[:2]
+    if c % TILE or TILE % cpg or c // cpg != groups:
+        raise ValueError(f"tiles need C % {TILE} == 0 and channels per group "
+                         f"dividing {TILE}, got C={c}, groups={groups}")
+    t = torch.arange(9, device=w.device).view(9, 1, 1, 1)
+    j = torch.arange(c // TILE, device=w.device).view(1, -1, 1, 1)
+    co = torch.arange(TILE, device=w.device).view(1, 1, TILE, 1)
+    ci = torch.arange(TILE, device=w.device).view(1, 1, 1, TILE)
+    if transpose_flip:
+        src = ((TILE * j + ci) * cpg + co % cpg) * 9 + (8 - t)
+    else:
+        src = ((TILE * j + co) * cpg + ci % cpg) * 9 + t
+    tiles = w.reshape(-1).to(torch.bfloat16)[src]
+    return tiles.masked_fill_(co // cpg != ci // cpg, 0)
+
+
 def _conv(x, w, groups, dilation, scale, bias, act, slope,
-          kernel: Kernel = GROUPED_CONV3X3):
+          kernel: Kernel = GROUPED_CONV3X3, transpose_flip: bool = False):
     if x.dim() != 4 or x.shape[-1] % groups != 0:
         raise ValueError(f"x must be NHWC with C divisible by groups={groups}, "
                          f"got {tuple(x.shape)}")
@@ -100,16 +143,21 @@ def _conv(x, w, groups, dilation, scale, bias, act, slope,
         if t is not None and (t.shape != (c,) or t.device != x.device):
             raise ValueError(f"{name} must be ({c},) on {x.device}")
     if x.device.type == "cpu":
-        return grouped_conv3x3_plain(x, w, groups, dilation, scale, bias,
-                                     act, slope)
+        return grouped_conv3x3_plain(
+            x, dx_weight(w, groups) if transpose_flip else w, groups, dilation,
+            scale, bias, act, slope)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
 
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernel takes bf16 x and w, got {x.dtype}, {w.dtype}")
-    if cpg not in _KERNEL_CPG or c % 32 != 0:
-        raise ValueError(f"the CUDA kernel takes C % 32 == 0 and channels per "
-                         f"group in {_KERNEL_CPG}, got C={c}, cpg={cpg}")
+    if cpg not in _KERNEL_CPG or c % _KERNEL_CHANNELS != 0:
+        raise ValueError(f"the CUDA kernel takes C % {_KERNEL_CHANNELS} == 0 and "
+                         f"channels per group (cpg) in {_KERNEL_CPG}, got C={c}, "
+                         f"cpg={cpg}")
+    if dilation > _KERNEL_MAX_DILATION:
+        raise ValueError(f"the CUDA kernel takes dilation <= {_KERNEL_MAX_DILATION}, "
+                         f"got {dilation}")
     if not (x.is_contiguous() and w.is_contiguous()) or x.data_ptr() % 16:
         raise ValueError("x (NHWC) and w must be contiguous, x 16-byte aligned")
     if w.device != x.device:
@@ -120,14 +168,16 @@ def _conv(x, w, groups, dilation, scale, bias, act, slope,
 
     n, h, wd, _ = x.shape
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        kernel.launch(
-            x.data_ptr(), w.data_ptr(),
-            None if scale is None else scale.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            out.data_ptr(), n, h, wd, c, cpg, dilation, ACTS[act], float(slope),
-            stream)
+    args = (x.data_ptr(), w.data_ptr(), None if scale is None else scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), n, h, wd, c,
+            cpg, dilation, int(transpose_flip), ACTS[act], float(slope))
+    dev = x.device.index
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if dev == torch.cuda.current_device():  # the launch goes to the current device
+        kernel.launch(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            kernel.launch(*args, stream)
     return out
 
 
@@ -159,10 +209,12 @@ def dx_weight(w: torch.Tensor, groups: int) -> torch.Tensor:
 
 def grouped_conv3x3_dx(dy: torch.Tensor, w: torch.Tensor, groups: int,
                        dilation: int = 1) -> torch.Tensor:
-    """Input gradient of ``grouped_conv3x3``: the kernel (or, on the CPU,
-    the plain version) run on ``dy`` with ``dx_weight(w)``."""
-    return _conv(dy, dx_weight(w, groups), groups, dilation, None, None,
-                 "none", 0.0, GROUPED_CONV3X3_DX)
+    """Input gradient of ``grouped_conv3x3``: the conv of ``dy`` with
+    ``dx_weight(w)``. On the card the kernel gathers the transposed, flipped
+    tiles from ``w`` itself (no copy of the weight); on the CPU the plain
+    version runs with ``dx_weight(w)``."""
+    return _conv(dy, w, groups, dilation, None, None, "none", 0.0,
+                 GROUPED_CONV3X3_DX, transpose_flip=True)
 
 
 def grouped_conv3x3_weight_grad_plain(x: torch.Tensor, dy: torch.Tensor,

@@ -11,7 +11,9 @@ rounding by one step, 2^-8 at most in [-1, 1]); the grouped conv rounds f32
 sums taken in another order, so at most one bf16 step apart. Its gradients
 are held against autograd of the plain version in f32 on the same
 bf16-valued inputs: dx within one bf16 step (the kernel rounds once), dk
-(cuDNN's, returned in bf16) within 1e-2 in relative L2 norm.
+(cuDNN's, returned in bf16) within 1e-2 in relative L2 norm. The
+tensor-core kernel's tile edges (8 x 16 output pixels, 64 channels) are
+probed at shapes that are not multiples of them.
 """
 
 import numpy as np
@@ -85,6 +87,74 @@ def test_grouped_conv_kernel_matches_plain(dev, c, cpg, d):
               gc.grouped_conv3x3_fused(x, w, s, b, GROUPS, d, act, 0.1))
 
 
+def _close(out, ref):
+    out, ref = out.float(), ref.float()
+    assert out.shape == ref.shape
+    err = (out - ref).abs() - (2.0 ** -7 * ref.abs() + 1e-3)
+    assert bool(torch.isfinite(out).all()) and float(err.max()) <= 0, float(err.max())
+
+
+# (N, H, W): one pixel, smaller than a tile, ragged in both, a serving stage
+EDGE_SHAPES = [(1, 1, 1), (3, 7, 5), (1, 17, 33), (3, 40, 88)]
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+@pytest.mark.parametrize("cpg", [1, 2, 4, 8, 16])
+def test_grouped_conv_kernel_tile_edges(dev, cpg, d):
+    c = 64 if cpg == 1 else 128
+    groups = c // cpg
+    g = torch.Generator().manual_seed(cpg * 10 + d)
+    w = (torch.randn((c, cpg, 3, 3), generator=g) / (9 * cpg) ** 0.5).to(dev, torch.bfloat16)
+    s = (torch.rand(c, generator=g) + 0.5).to(dev)
+    b = (torch.randn(c, generator=g) * 0.1).to(dev)
+    for n, h, wd in EDGE_SHAPES:
+        x = torch.randn((n, h, wd, c), generator=g).to(dev, torch.bfloat16)
+        counts = (gc.GROUPED_CONV3X3.launches, gc.GROUPED_CONV3X3_DX.launches)
+        _close(gc.grouped_conv3x3(x, w, groups, d), gc.grouped_conv3x3_plain(x, w, groups, d))
+        _close(gc.grouped_conv3x3_fused(x, w, s, b, groups, d, "leaky_relu", 0.1),
+               gc.grouped_conv3x3_plain(x, w, groups, d, s, b, "leaky_relu", 0.1))
+        _close(gc.grouped_conv3x3_dx(x, w, groups, d),
+               gc.grouped_conv3x3_plain(x, gc.dx_weight(w, groups), groups, d))
+        # one launch per call, forward and fused on one count, dx on its own
+        assert (gc.GROUPED_CONV3X3.launches, gc.GROUPED_CONV3X3_DX.launches) == \
+            (counts[0] + 2, counts[1] + 1)
+
+
+# (N, C, cpg, d, H, W): the serving stages at batch 2 and the training ones
+MAIN_SHAPES = [(2, c, cpg, d, 40 * (2 if c == 128 else 1), 88 * (2 if c == 128 else 1))
+               for c, cpg, d in STAGES] + [(2,) + t for t in TRAIN_STAGES]
+
+
+@pytest.mark.parametrize("n,c,cpg,d,h,w", MAIN_SHAPES)
+def test_grouped_conv_dx_at_main_path_shapes(dev, n, c, cpg, d, h, w):
+    groups = c // cpg
+    g = torch.Generator().manual_seed(c + h)
+    dy = torch.randn((n, h, w, c), generator=g).to(dev, torch.bfloat16)
+    wt = (torch.randn((c, cpg, 3, 3), generator=g) / (9 * cpg) ** 0.5).to(dev, torch.bfloat16)
+    before = gc.GROUPED_CONV3X3_DX.launches
+    _close(gc.grouped_conv3x3_dx(dy, wt, groups, d),
+           gc.grouped_conv3x3_plain(dy, gc.dx_weight(wt, groups), groups, d))
+    assert gc.GROUPED_CONV3X3_DX.launches == before + 1
+
+
+def test_dx_launches_no_weight_flip_copies(dev):
+    """dx and the forward each launch the conv kernel and nothing else: the
+    kernel gathers its weight tiles itself (no packing launch, no transpose
+    or flip copy of ``dx_weight``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dy = torch.randn(2, 40, 80, 512, device=dev, dtype=torch.bfloat16)
+    wt = torch.randn(512, 8, 3, 3, device=dev, dtype=torch.bfloat16)
+    for conv in (gc.grouped_conv3x3, gc.grouped_conv3x3_dx):
+        conv(dy, wt, 64, 2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            conv(dy, wt, 64, 2)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        assert len(names) == 1 and "grouped_conv3x3" in names[0], names
+
+
 def test_cuda_wrappers_raise_instead_of_falling_back(dev):
     x = torch.randn(1, 4, 4, 128, device=dev)  # f32: the kernel takes bf16
     w = torch.randn(128, 2, 3, 3, device=dev)
@@ -92,8 +162,15 @@ def test_cuda_wrappers_raise_instead_of_falling_back(dev):
         gc.grouped_conv3x3(x, w, GROUPS)
     xb = torch.randn(1, 4, 4, 96, device=dev, dtype=torch.bfloat16)
     wb = torch.randn(96, 1, 3, 3, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="cpg"):  # depthwise: not a kernel shape
+    with pytest.raises(ValueError, match="cpg"):  # C = 96: not 64-channel slices
         gc.grouped_conv3x3(xb, wb, 96)
+    x64 = torch.randn(1, 4, 4, 192, device=dev, dtype=torch.bfloat16)
+    w64 = torch.randn(192, 2, 3, 3, device=dev, dtype=torch.bfloat16)
+    gc.grouped_conv3x3(x64, w64, 96)  # C = 3 x 64 is taken
+    with pytest.raises(ValueError, match="C % 64"):
+        gc.grouped_conv3x3(x64[..., :160].contiguous(), w64[:160], 80)
+    with pytest.raises(ValueError, match="dilation"):
+        gc.grouped_conv3x3(x64, w64, 96, 9)
 
 
 @pytest.mark.parametrize("c,cpg,d,h,w", TRAIN_STAGES)
