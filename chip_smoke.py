@@ -33,8 +33,25 @@ Phases, each of which exits non-zero on failure:
    versions (and through the library's grouped conv, which measures how far
    bf16 rounding alone moves them); 5 steps on one repeated batch, whose
    loss must fall;
+4c. the adversarial trainer: a 32-frame 320x960 day/night train pack and a
+   random IR-only ResNeXt-50 teacher checkpoint, trained by
+   ``heatnet_tpu_torch.cli.train_conf.main`` at the JAX bench's adversarial
+   operating point (ResNeXt-50 full depth and width, 6 ``cyclegan`` critics,
+   batch 16, 320x640 crop, ``--moddrop --irscale``, the teacher on,
+   ``--pretraining`` from phase 4b's checkpoint) for 8 steps, 4 of each
+   phase; the kernels' launch counts read around each step (a critic step:
+   32 forward, 0 dx, 0 fused; a seg step: 32 forward, 32 dx and 16 fused,
+   the teacher's), finite losses, seg- and critic-step p50/p95 and peak
+   memory; one seg step's loss and gradients and one critic step's loss
+   with the kernels against the plain versions (and the library's grouped
+   conv), and phase isolation on the card;
 5. one ``{"kernels": [...]}`` JSON line; the last line is
    ``{"ok": true, "device": {...}}``.
+
+Launch counts: the grouped-conv kernel has one count per entry point, the
+epilogue-free forward (``grouped_conv3x3``), the fused BN affine + act
+forward (``grouped_conv3x3_fused``) and the input gradient
+(``grouped_conv3x3_dx``).
 
 Without a card, or run from a directory that does not hold the package, it
 prints no result and exits non-zero.
@@ -42,6 +59,7 @@ prints no result and exits non-zero.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -68,6 +86,10 @@ DK_TOL = 1e-2       # relative L2 of dk (cuDNN's, bf16) against autograd of plai
 STEP_LOSS_TOL = 1e-2
 GRAD_TOL = 0.05     # per tensor of norm >= 1e-4 (tests/test_train_parity.py:226),
                     # or twice the library's distance (see phase 4b)
+# The adversarial operating point (tools/bench_train_step.py:140-170): batch
+# 16, 6 cyclegan critics; 32 day and 16 night frames, 2 steps per epoch
+N_ADV, ADV_EPOCHS = 16, 4
+ADV_FRAMES = (32, 16)
 
 
 def fail(msg: str) -> None:
@@ -81,6 +103,12 @@ def bound_ms(n_bytes: float, flops: float):
 
 
 def main() -> None:
+    with tempfile.TemporaryDirectory() as work:
+        run_phases(work)
+
+
+def run_phases(work: str) -> None:
+    """Every phase; ``work`` holds what one phase hands to the next."""
     import torch
 
     if not torch.cuda.is_available():
@@ -92,17 +120,19 @@ def main() -> None:
     import torch.nn.functional as F
 
     from heatnet_tpu_torch.cli import inference as cli
-    from heatnet_tpu_torch.cli import train_plain
+    from heatnet_tpu_torch.cli import train_conf, train_plain
     from heatnet_tpu_torch.data.loaders import DeviceAugment, batch_iterator
     from heatnet_tpu_torch.data.packed import (PackedFrameDataset,
                                                PackedFreiburgTrainDataset,
                                                write_pack, write_train_pack)
     from heatnet_tpu_torch.eval import validate
+    from heatnet_tpu_torch.io.checkpoint import save_checkpoint
     from heatnet_tpu_torch.kernels import build
-    from heatnet_tpu_torch.models import ResNeXtSeg, get_model
+    from heatnet_tpu_torch.models import ConfSegnet, ResNeXtSeg, get_model
     from heatnet_tpu_torch.models.layers import init_params, prepare_for_inference
     from heatnet_tpu_torch.ops import fused_preproc as fp
     from heatnet_tpu_torch.ops import grouped_conv as gc
+    from heatnet_tpu_torch.train import adversarial as adv
     from heatnet_tpu_torch.train.state import init_model
     from heatnet_tpu_torch.train.supervised import cross_entropy_ignore
 
@@ -206,16 +236,18 @@ def main() -> None:
         ingest_err = max(ingest_err, check(
             f"ir_normalize_fused {w_full}", fp.ir_normalize_fused(ir),
             fp.ir_plain(ir).to(torch.bfloat16), *tol[torch.bfloat16]))
-        k_ms = time_ms(lambda: fp.early_fusion_input(rgb, ir, lo, hi))
+        ingest = lambda: fp.early_fusion_input(rgb, ir, lo, hi)
+        k_ms, k_dev = time_ms(ingest), device_ms(ingest)
         p_ms = time_ms(lambda: torch.cat([fp.rgb_plain(rgb[..., lo:hi, :]),
                                           fp.ir_plain(ir[..., lo:hi, :])], -1)
                        .to(torch.bfloat16))
         n_pix = N_BATCH * H_IN * (hi - lo)
         b_ms, b_by = bound_ms(n_pix * (3 + 2) + n_pix * 4 * 2, n_pix * 4 * 4)
-        ingest_ms[(w_full, lo, hi)] = (k_ms, p_ms, b_ms, b_by)
+        ingest_ms[(w_full, lo, hi)] = (k_ms, p_ms, b_ms, b_by, k_dev)
         print(f"  early_fusion_input bf16 ({N_BATCH},{H_IN},{w_full}) window "
-              f"{lo}:{hi}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
-              f"bound_ms {b_ms:.4f} ({b_by})", flush=True)
+              f"{lo}:{hi}: kernel_ms {k_ms:.4f} (device {k_dev:.4f}) plain_ms "
+              f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); share of bound, eager "
+              f"{b_ms / k_ms:.3f} / card {b_ms / k_dev:.3f}", flush=True)
 
     # 3b. grouped conv, plain and fused with each act, at every stage shape.
     # Both sides round f32 sums to bf16 once; they differ only where the
@@ -323,7 +355,7 @@ def main() -> None:
         write_pack(pack, prng.randint(0, 256, (16, H_IN, W_IN, 3)).astype(np.uint8),
                    prng.randint(21000, 26000, (16, H_IN, W_IN, 1)).astype(np.uint16))
         argv = ["--data", pack, "--batch", str(N_BATCH), "--iters", str(iters)]
-        kernels = (fp.INGEST, gc.GROUPED_CONV3X3)
+        kernels = (fp.INGEST, gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_FUSED)
         for k in kernels:
             k.launches = 0
         t0 = time.perf_counter()
@@ -335,8 +367,9 @@ def main() -> None:
         print(f"  launches {launches} over {forwards} forwards "
               f"({wall:.1f} s wall, batch 1 network {run.network_seconds * 1e3:.2f} ms)",
               flush=True)
-        if launches["ingest"] < forwards or launches["grouped_conv3x3"] != 16 * forwards:
-            fail(f"expected >= {forwards} ingest and {16 * forwards} grouped-conv "
+        if (launches["ingest"] < forwards or launches["grouped_conv3x3"]
+                or launches["grouped_conv3x3_fused"] != 16 * forwards):
+            fail(f"expected >= {forwards} ingest and {16 * forwards} fused grouped-conv "
                  f"launches, got {launches}")
         maps = run.maps
         if maps.shape != (16, H_IN, W_IN) or maps.dtype != np.uint8 or maps.max() >= 13:
@@ -436,6 +469,7 @@ def main() -> None:
         served.load_state_dict(saved["state_dict"], strict=True)
         if saved["epoch"] != TRAIN_STEPS:
             fail(f"checkpoint epoch {saved['epoch']}")
+        plain_ckpt = shutil.copy(run.checkpoint, os.path.join(work, "train_plain.pth"))
 
         ds = PackedFreiburgTrainDataset(pack)
         raw = next(batch_iterator(ds, N_TRAIN, seed=0))
@@ -471,6 +505,45 @@ def main() -> None:
             (n, c, h, w_), w, dy.permute(0, 3, 1, 2), padding=dilation,
             dilation=dilation, groups=groups).permute(0, 2, 3, 1)
 
+    def group_of(name: str) -> str:
+        head = name.removeprefix("trgb_segnet.").split(".")[0]
+        if head.startswith("mod"):
+            return head[:4]
+        return "critics" if head.startswith("critics_") else "head"
+
+    def hold_step(what, losses, grads):
+        """Fail unless the kernels' loss is within STEP_LOSS_TOL of the plain
+        versions' and each gradient tensor within max(GRAD_TOL, 2x the
+        library's distance from the plain versions).
+
+        At random init, bf16 rounding taken in another order moves the deep
+        stages' gradients far more than GRAD_TOL (f32 gradients move up to
+        31 % under a 1e-4 input change, tools/grad_noise.py); another bf16
+        implementation (the library's grouped conv) measures how far."""
+        (loss_k, loss_p, loss_l), (grads_k, grads_p, grads_l) = losses, grads
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        rows = []
+        for k, gp in grads_p.items():
+            if float(gp.norm()) >= 1e-4:
+                rows.append((k, float((grads_k[k] - gp).norm() / gp.norm()),
+                             float((grads_l[k] - gp).norm() / gp.norm())))
+        within = sum(rk < GRAD_TOL for _, rk, _ in rows)
+        bad = [r for r in rows if r[1] > max(GRAD_TOL, 2.0 * r[2])]
+        print(f"  {what}, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f} "
+              f"(rel {loss_rel:.3g}, tolerance {STEP_LOSS_TOL}; library {loss_l:.6f}); "
+              f"{len(rows)} gradient tensors of norm >= 1e-4, {within} within rel L2 "
+              f"{GRAD_TOL}", flush=True)
+        for group in ("mod1", "mod2", "mod3", "mod4", "mod5", "head", "critics"):
+            sel = [r for r in rows if group_of(r[0]) == group]
+            if sel:
+                print(f"    {group}: {len(sel)} tensors, rel L2 kernel-plain max "
+                      f"{max(r[1] for r in sel):.3g}, library-plain max "
+                      f"{max(r[2] for r in sel):.3g}, largest ratio "
+                      f"{max(r[1] / max(r[2], 1e-12) for r in sel):.3g}", flush=True)
+        if not loss_rel <= STEP_LOSS_TOL or bad or len(rows) < 50:
+            fail(f"{what} with kernels disagrees with the plain versions: "
+                 f"loss rel {loss_rel:.3g}, {bad[:5]}")
+
     loss_k, grads_k = one_step_grads()
     for k in train_kernels:
         k.launches = 0
@@ -482,33 +555,7 @@ def main() -> None:
         loss_l, grads_l = one_step_grads()
     if any(k.launches for k in train_kernels):
         fail("the plain-version training step launched a kernel")
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    # at random init, bf16 rounding taken in another order moves the deep
-    # stages' gradients far more than GRAD_TOL (f32 gradients move up to 31 %
-    # under a 1e-4 input change, tools/grad_noise.py); each tensor is held
-    # to GRAD_TOL or to twice the distance of another bf16 implementation
-    # (the library's grouped conv) from the plain versions, whichever is larger
-    rows = []
-    for k, gp in grads_p.items():
-        if float(gp.norm()) >= 1e-4:
-            rows.append((k, float((grads_k[k] - gp).norm() / gp.norm()),
-                         float((grads_l[k] - gp).norm() / gp.norm())))
-    within = sum(rk < GRAD_TOL for _, rk, _ in rows)
-    bad = [r for r in rows if r[1] > max(GRAD_TOL, 2.0 * r[2])]
-    print(f"  one step, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f} "
-          f"(rel {loss_rel:.3g}, tolerance {STEP_LOSS_TOL}; library {loss_l:.6f}); "
-          f"{len(rows)} gradient tensors of norm >= 1e-4, {within} within rel L2 "
-          f"{GRAD_TOL}", flush=True)
-    for stage in ("mod1", "mod2", "mod3", "mod4", "mod5", "head"):
-        sel = [r for r in rows if r[0].startswith(stage) or (
-            stage == "head" and not r[0].startswith("mod"))]
-        print(f"    {stage}: {len(sel)} tensors, rel L2 kernel-plain max "
-              f"{max(r[1] for r in sel):.3g}, library-plain max "
-              f"{max(r[2] for r in sel):.3g}, largest ratio "
-              f"{max(r[1] / max(r[2], 1e-12) for r in sel):.3g}", flush=True)
-    if not loss_rel <= STEP_LOSS_TOL or bad or len(rows) < 50:
-        fail(f"the training step with kernels disagrees with the plain versions: "
-             f"{bad[:5]}")
+    hold_step("one step", (loss_k, loss_p, loss_l), (grads_k, grads_p, grads_l))
     del grads_k, grads_p, grads_l
 
     # 5 steps on one repeated batch: the loss must fall
@@ -528,8 +575,186 @@ def main() -> None:
     del model, state, start, batch
     torch.cuda.empty_cache()
 
+    # 4c. the adversarial trainer through the CLI
+    print(f"main path: cli.train_conf, ResNeXt-50 (3,4,6,3) + 6 cyclegan critics, "
+          f"batch {N_ADV}, {CROP[0]}x{CROP[1]} crop, --moddrop --irscale, IR teacher, "
+          f"--pretraining, {ADV_EPOCHS * (ADV_FRAMES[0] // N_ADV)} steps",
+          flush=True)
+    all_kernels = (fp.INGEST, gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_FUSED,
+                   gc.GROUPED_CONV3X3_DX)
+
+    def counts():
+        return {k.name: k.launches for k in all_kernels}
+
+    prng = np.random.RandomState(3)
+    (n_day, n_night), h_full, w_full = ADV_FRAMES, 320, 960
+    bands = (np.arange(h_full)[:, None] // 64 + np.arange(w_full)[None, :] // 192) % 13
+    adv_pack = os.path.join(work, "adv")
+    write_train_pack(
+        adv_pack, prng.randint(0, 256, (n_day, h_full, w_full, 3)).astype(np.uint8),
+        prng.randint(21000, 26000, (n_day, h_full, w_full)).astype(np.uint16),
+        np.broadcast_to(bands, (n_day, h_full, w_full)).astype(np.uint8),
+        prng.randint(0, 256, (n_night, h_full, w_full, 3)).astype(np.uint8),
+        prng.randint(21000, 26000, (n_night, h_full, w_full)).astype(np.uint16))
+    teacher_net = ResNeXtSeg(structure=(3, 4, 6, 3), input_channels=1)
+    init_params(teacher_net, torch.Generator().manual_seed(5))
+    teacher_ckpt = save_checkpoint(
+        {"epoch": 1, "state_dict": {"trgb_segnet." + k: v for k, v in
+                                    teacher_net.state_dict().items()}},
+        os.path.join(work, "teacher.pth"))
+    del teacher_net
+
+    # the launches of each step, read around it by wrapping the steps the CLI makes
+    per_step = []
+    make_steps = train_conf.make_adversarial_steps
+
+    def counted_steps(*args):
+        def wrap(step_fn, phase):
+            def step(*a):
+                before = counts()
+                metrics = step_fn(*a)
+                per_step.append((phase, {k: v - before[k] for k, v in counts().items()}))
+                return metrics
+            return step
+        seg_fn, critic_fn = make_steps(*args)
+        return wrap(seg_fn, "train_seg"), wrap(critic_fn, "train_critic")
+
+    argv = ["--dataroot", adv_pack, "--batch_size", str(N_ADV), "--discarch", "cyclegan",
+            "--num_critics", "6", "--moddrop", "--irscale",
+            "--night_supervision_model", teacher_ckpt,
+            "--pretraining", "--pretraining_path", plain_ckpt,
+            "--iter_initial_critic_phase", "2", "--iter_critic_phase", "2",
+            "--iter_seg_phase", "2", "--n_epochs", str(ADV_EPOCHS // 2),
+            "--checkpointname", os.path.join(work, "conf"),
+            "--log_dir", os.path.join(work, "runs")]
+    for k in all_kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_conf, "make_adversarial_steps", counted_steps):
+        adv_run = train_conf.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    adv_launches = counts()
+    adv_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want_step = {"train_critic": {"ingest": 0, "grouped_conv3x3": 32,
+                                  "grouped_conv3x3_fused": 0, "grouped_conv3x3_dx": 0},
+                 "train_seg": {"ingest": 0, "grouped_conv3x3": 32,
+                               "grouped_conv3x3_fused": 16, "grouped_conv3x3_dx": 32}}
+    print(f"  launches {adv_launches} over {len(adv_run.phases)} steps "
+          f"({adv_run.phases.count('train_critic')} critic, "
+          f"{adv_run.phases.count('train_seg')} seg; {wall:.1f} s wall)", flush=True)
+    for phase in ("train_critic", "train_seg"):
+        seen = [c for p, c in per_step if p == phase]
+        print(f"  per {phase} step: {seen[0] if seen else None} (want {want_step[phase]})",
+              flush=True)
+        if len(seen) < 2 or any(c != want_step[phase] for c in seen):
+            fail(f"{phase}: expected >= 2 steps of {want_step[phase]} launches, got {seen}")
+    if [p for p, _ in per_step] != adv_run.phases:
+        fail("the counted steps are not the run's steps")
+    step_stats = {}
+    for phase in ("train_critic", "train_seg"):
+        losses = adv_run.losses[phase]
+        ms = [t * 1e3 for t, p in zip(adv_run.step_seconds, adv_run.phases) if p == phase]
+        step_stats[phase] = (float(np.percentile(ms, 50)), float(np.percentile(ms, 95)))
+        print(f"  {phase}: losses {[round(v, 6) for v in losses]}; step ms (host, "
+              f"augmentation to loss) {[round(v, 2) for v in ms]}, p50 "
+              f"{step_stats[phase][0]:.2f} p95 {step_stats[phase][1]:.2f}", flush=True)
+        if not all(np.isfinite(losses)):
+            fail(f"non-finite {phase} loss {losses}")
+    print(f"  peak memory {adv_peak_gb:.2f} GB", flush=True)
+    saved = torch.load(adv_run.checkpoint, map_location="cpu", weights_only=True)
+    conf_net = ConfSegnet(disc_arch="cyclegan", num_critics=6)
+    conf_net.load_state_dict(saved["state_dict"], strict=True)
+    if saved["epoch"] != ADV_EPOCHS:
+        fail(f"checkpoint epoch {saved['epoch']}")
+    del conf_net, saved
+
+    # one seg step's loss and gradients and one critic step's loss, kernels
+    # against the plain versions, from the same weights and inputs
+    cfg = adv.AdversarialConfig(moddrop=True, irscale=True, night_supervision=True)
+    model = init_model(ConfSegnet(disc_arch="cyclegan", num_critics=6), 0, dev)
+    teacher = train_conf.load_teacher(teacher_ckpt, "ir", False, dev)
+    seg_loss_fn, critic_loss_fn = adv.make_adversarial_losses(model, cfg, teacher)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    raw = next(batch_iterator(PackedFreiburgTrainDataset(adv_pack), N_ADV, seed=0))
+    batch = DeviceAugment(CROP, dev)(torch.Generator().manual_seed(1), raw)
+    draws = adv.draw_seg_aug(torch.Generator().manual_seed(2))
+    draws.moddrop = draws.irscale = True  # both augmentations in the checked step
+
+    def adv_seg_grads():
+        model.load_state_dict(start)
+        loss, _ = seg_loss_fn(batch, draws)
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.float().clone()
+                                      for k, p in model.named_parameters()
+                                      if p.grad is not None}
+
+    def adv_critic_loss():
+        model.load_state_dict(start)
+        with torch.no_grad():
+            return float(critic_loss_fn(batch)[0])
+
+    def fused_library(x, w, scale, bias, groups, dilation=1, act="relu", slope=0.01):
+        y = fwd_library(x, w, groups, dilation).float() * scale + bias
+        return gc.apply_act(y, act, slope).to(x.dtype)
+
+    loss_k, grads_k = adv_seg_grads()
+    closs_k = adv_critic_loss()
+    for k in all_kernels:
+        k.launches = 0
+    with mock.patch.object(gc, "grouped_conv3x3", fwd_plain), \
+            mock.patch.object(gc, "grouped_conv3x3_dx", dx_plain), \
+            mock.patch.object(gc, "grouped_conv3x3_fused", conv_plain):
+        loss_p, grads_p = adv_seg_grads()
+        closs_p = adv_critic_loss()
+    with mock.patch.object(gc, "grouped_conv3x3", fwd_library), \
+            mock.patch.object(gc, "grouped_conv3x3_dx", dx_library), \
+            mock.patch.object(gc, "grouped_conv3x3_fused", fused_library):
+        loss_l, grads_l = adv_seg_grads()
+    if any(counts().values()):
+        fail("the plain-version adversarial steps launched a kernel")
+    hold_step("one seg step", (loss_k, loss_p, loss_l), (grads_k, grads_p, grads_l))
+    closs_rel = abs(closs_k - closs_p) / abs(closs_p)
+    print(f"  one critic step, kernels vs plain versions: loss {closs_k:.6f} vs "
+          f"{closs_p:.6f} (rel {closs_rel:.3g}, tolerance {STEP_LOSS_TOL})", flush=True)
+    if not closs_rel <= STEP_LOSS_TOL:
+        fail("the critic step's loss with kernels disagrees with the plain versions")
+    del grads_k, grads_p, grads_l
+
+    # phase isolation on the card: each step leaves the frozen side untouched
+    model.load_state_dict(start)
+    state = adv.make_phase_optimizers(model, lambda count: 1e-4)
+    seg_step, critic_step = adv.make_adversarial_steps(model, cfg, teacher)
+
+    def snapshot(prefix):
+        return {k: p.detach().clone() for k, p in model.named_parameters()
+                if k.startswith(prefix)}
+
+    for phase, frozen, trained in (("train_critic", "trgb_segnet.", "critics_"),
+                                   ("train_seg", "critics_", "trgb_segnet.")):
+        before, moved = snapshot(frozen), snapshot(trained)
+        if phase == "train_seg":
+            seg_step(state, batch, draws)
+        else:
+            critic_step(state, batch)
+        torch.cuda.synchronize()
+        kept = all(torch.equal(v, p) for v, p in zip(before.values(),
+                                                     snapshot(frozen).values()))
+        changed = sum(not torch.equal(v, p) for v, p in zip(moved.values(),
+                                                           snapshot(trained).values()))
+        print(f"  phase isolation, {phase} step: {len(before)} {frozen}* parameters "
+              f"{'unchanged' if kept else 'CHANGED'}; {changed} of {len(moved)} "
+              f"{trained}* parameters moved", flush=True)
+        if not kept or not changed:
+            fail(f"phase isolation broken in the {phase} step")
+    del model, teacher, state, start, batch
+    torch.cuda.empty_cache()
+
     # 5. the record
-    k_ms, p_ms, b_ms, b_by = ingest_ms[(W_IN, 0, W_IN)]
+    k_ms, p_ms, b_ms, b_by, k_dev = ingest_ms[(W_IN, 0, W_IN)]
+    per_seg = want_step["train_seg"]
+    per_critic = want_step["train_critic"]
     sums = [sum(r[1] * r[i] for r in gc_rows) for i in (2, 3, 4)]
     gc_bound, gc_by = bound_ms(sum(r[1] * r[6] for r in gc_rows),
                                sum(r[1] * r[7] for r in gc_rows))
@@ -549,13 +774,22 @@ def main() -> None:
                      "heatnet_tpu/ops/pallas_preproc.py:68 (_rgb_kernel)",
          "launches": launches["ingest"], "max_abs_err": ingest_err,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-         "library_ms": None,
+         "library_ms": None, "device_ms": k_dev,
+         "device_share_of_bound": b_ms / k_dev,
          "work": f"early-fusion input, bf16, batch {N_BATCH} x {H_IN}x{W_IN}"},
         {"name": "grouped_conv3x3", "route": "cuda",
          "source": "heatnet_tpu_torch/csrc/grouped_conv3x3.cu",
          "replaces": "heatnet_tpu/ops/pallas_grouped_conv.py:141 (_kernel_fused), "
                      "heatnet_tpu/ops/pallas_grouped_conv.py:121 (_kernel)",
-         "launches": launches["grouped_conv3x3"], "max_abs_err": gc_err,
+         "launches": launches["grouped_conv3x3"] + launches["grouped_conv3x3_fused"],
+         "max_abs_err": gc_err,
+         "train_conf_launches": {
+             "forward": adv_launches["grouped_conv3x3"],
+             "fused": adv_launches["grouped_conv3x3_fused"],
+             "per_critic_step": {"forward": per_critic["grouped_conv3x3"],
+                                 "fused": per_critic["grouped_conv3x3_fused"]},
+             "per_seg_step": {"forward": per_seg["grouped_conv3x3"],
+                              "fused": per_seg["grouped_conv3x3_fused"]}},
          "ms": sums[0], "plain_ms": sums[1], "bound_ms": gc_bound,
          "bound_by": gc_by, "library_ms": sums[2],
          "stages": stage_list(gc_rows, {"ms": 2, "plain_ms": 3, "library_ms": 4,
@@ -570,6 +804,9 @@ def main() -> None:
          "ms": dx_sums[0], "plain_ms": dx_sums[1], "bound_ms": dx_bound,
          "bound_by": dx_by, "library_ms": dx_sums[2],
          "train_forward_launches": train_launches["grouped_conv3x3"],
+         "train_conf_launches": {"dx": adv_launches["grouped_conv3x3_dx"],
+                                 "per_critic_step": per_critic["grouped_conv3x3_dx"],
+                                 "per_seg_step": per_seg["grouped_conv3x3_dx"]},
          "train_forward_ms": dx_sums[3], "train_forward_library_ms": dx_sums[5],
          "train_forward_plain_ms": dx_sums[6], "dk_library_ms": dx_sums[4],
          "stages": stage_list(dx_rows, {"ms": 2, "plain_ms": 3, "library_ms": 4,
@@ -582,6 +819,11 @@ def main() -> None:
          "work": f"one training step's 16 dx launches (3/4/6/3 per stage), batch "
                  f"{N_TRAIN}, {CROP[0]}x{CROP[1]} crop; library: conv2d_input"},
     ]}
+    record["train_conf"] = {
+        "steps": dict(zip(("critic", "seg"), (adv_run.phases.count("train_critic"),
+                                              adv_run.phases.count("train_seg")))),
+        "critic_step_ms_p50_p95": step_stats["train_critic"],
+        "seg_step_ms_p50_p95": step_stats["train_seg"], "peak_memory_gb": adv_peak_gb}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

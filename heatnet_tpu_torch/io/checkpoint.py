@@ -40,3 +40,42 @@ def restore_partial(model: nn.Module, saved: Mapping[str, torch.Tensor],
     if verbose:
         print(f"Updated : {len(match)} entries (restore_partial)")
     return len(match)
+
+
+def restore_renamed(model: nn.Module, saved: Mapping[str, torch.Tensor],
+                    to_rename: str, rename: str, verbose: bool = True) -> int:
+    """Prefix-rewrite restore (``initModelRenamed``, checkpoint.py:128-144):
+    ``to_rename`` → ``rename`` in every saved key, then the entries whose
+    name and shape match the model's. Raises if none does."""
+    renamed = {k.replace(to_rename, rename): v for k, v in saved.items()}
+    n = restore_partial(model, renamed, verbose=False)
+    if verbose:
+        print(f"Loaded dict with {n} entries...")
+    if n == 0:
+        raise KeyError(f"renamed restore ({to_rename!r} -> {rename!r}) matched "
+                       "zero keys")
+    return n
+
+
+def resolve_auto_resume(resume: str, default_path: str) -> str:
+    """``--resume auto``: this run's own checkpoint if it exists, else a fresh
+    start (checkpoint.py:72-84); any other value passes through."""
+    if resume != "auto":
+        return resume
+    p = os.path.abspath(default_path)
+    return p if os.path.exists(p) else ""
+
+
+def best_iou_tracker(initial: float = 0.0):
+    """The best-IoU checkpointing decision (checkpoint.py:151-162):
+    ``update(miou)`` says whether ``miou`` is a new best and keeps it."""
+    state = {"best": initial}
+
+    def update(miou: float) -> bool:
+        is_best = miou > state["best"]
+        if is_best:
+            state["best"] = miou
+        return is_best
+
+    update.state = state
+    return update

@@ -7,9 +7,11 @@ The inverse of ``heatnet_tpu/io/torch_import.py``'s layout rules
   included: ``I`` is the channels per group in both layouts);
 - ConvTranspose kernel ``(kh, kw, I, O)`` → ``np.flip(k, (0, 1))
   .transpose(2, 3, 0, 1)``, i.e. ``(I, O, kh, kw)`` spatially flipped;
-- BN ``scale``/``bias`` → ``weight``/``bias``; batch_stats ``mean``/``var``
-  → ``running_mean``/``running_var`` (plus ``num_batches_tracked`` = 0, a
-  buffer of ``nn.BatchNorm2d``).
+- Dense kernel ``(in, out)`` → ``Linear.weight`` ``(out, in)``;
+- BN ``scale``/``bias`` → ``weight``/``bias``, whatever the BN module is
+  named (``bn``, ``bn1``, ``downsample_bn``: only a BatchNorm has a
+  ``scale``); batch_stats ``mean``/``var`` → ``running_mean``/``running_var``
+  (plus ``num_batches_tracked`` = 0, a buffer of ``nn.BatchNorm2d``).
 
 Port module names are the JAX tree's, so a key is the tree path joined with
 ``.``. A transposed conv is recognised by its module name, with the same
@@ -48,13 +50,16 @@ def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
     for path, leaf in _leaves(params):
         mods, name = list(path[:-1]), path[-1]
         a = np.asarray(leaf, np.float32)
-        if mods and mods[-1] == "bn" and name in ("scale", "bias"):
-            name = "weight" if name == "scale" else "bias"
+        if name == "scale":  # a BatchNorm's, whatever its module is named
+            name = "weight"
         elif name == "kernel" and a.ndim == 4:
             if mods and mods[-1].startswith(TRANSPOSE_NAMES):
                 a = np.flip(a, (0, 1)).transpose(2, 3, 0, 1)
             else:
                 a = a.transpose(3, 2, 0, 1)
+            name = "weight"
+        elif name == "kernel" and a.ndim == 2:  # Dense (in, out) → Linear (out, in)
+            a = a.T
             name = "weight"
         sd[".".join(mods + [name])] = _tensor(a)
     for path, leaf in _leaves(batch_stats or {}):

@@ -1,11 +1,13 @@
 """Building blocks of ``ResNeXtSeg``, eval and train mode, PyTorch.
 
 Counterpart of the parts of ``heatnet_tpu/models/layers.py`` that the RGB+thermal
-serving and supervised training paths run: ``NormAct``/``ABN`` with
-``StatNamedBatchNorm``'s train-mode statistics (:38-198, :288-319), ``conv``
-(:897-962), the grouped conv, ``deconv``, the pools (:1153-1188), and
-``IdentityResidualBlock``, ``ConvABN``, ``ASPP``, ``FuseModule``, ``InitBlock``
-and ``stride_dilation`` (:1230-1435).
+serving, supervised and adversarial training paths run: ``NormAct``/``ABN``
+with ``StatNamedBatchNorm``'s train-mode statistics (:38-198, :288-319), flax's
+``BatchNorm`` rule on its own (``BatchNorm``), ``conv`` (:897-962), the grouped
+conv, ``deconv``, the pools (:1153-1188), ``resize_bilinear``,
+``instance_norm`` and ``normal002`` (:1191-1222), and ``IdentityResidualBlock``,
+``ConvABN``, ``ASPP``, ``FuseModule``, ``InitBlock`` and ``stride_dilation``
+(:1230-1435).
 
 Only functions are ported, not XLA lowering choices: ``GroupedConvDense``'s
 dense/native/int8 dispatch is the grouped conv of ``ops/grouped_conv.py``,
@@ -48,41 +50,51 @@ class NormAct:
         return gc.apply_act(x, self.activation, self.leaky_slope)
 
 
-class ABN(nn.Module):
-    """BatchNorm then activation (segnet.py:20-41).
+class BatchNorm(nn.BatchNorm2d):
+    """flax's ``nn.BatchNorm(momentum=m)`` with PyTorch's parameter names.
 
-    Eval mode normalises with the running statistics. Train mode is flax's
-    ``BatchNorm`` (layers.py:173-198): it normalises with the batch mean and
-    the *biased* batch variance and updates the running statistics as
-    ``m * running + (1 - m) * batch``, biased variance included. PyTorch's
-    own update stores the unbiased variance, so the normalisation runs with
-    no running statistics and the update is made here, without gradient.
-    The statistics and affine stay float32 whatever the activation dtype:
-    the batch-norm kernels compute in f32 and return the input's dtype.
+    Eval mode normalises with the running statistics. Train mode (flax,
+    layers.py:173-198) normalises with the batch mean and the *biased* batch
+    variance and updates the running statistics as ``m * running + (1 - m)
+    * batch``, biased variance included. PyTorch's own update stores the
+    unbiased variance, so the normalisation runs with no running statistics
+    and the update is made here, without gradient. The statistics and
+    affine stay float32 whatever the activation dtype: the batch-norm
+    kernels compute in f32 and return the input's dtype.
     """
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
+        super().__init__(channels, eps=eps)
+        self.flax_momentum = momentum
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        x, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            # invstd = 1 / sqrt(var + eps): the kernel's biased variance
+            var = (invstd.float().pow(-2) - self.eps).clamp_(min=0.0)
+            m = self.flax_momentum
+            self.running_mean.mul_(m).add_(mean.float(), alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        return x
+
+
+class ABN(nn.Module):
+    """BatchNorm then activation (segnet.py:20-41); ``bn`` is a
+    ``BatchNorm``, flax's train-mode rule."""
 
     def __init__(self, channels: int, norm_act: NormAct = NormAct()):
         super().__init__()
         self.norm_act = norm_act
-        self.bn = nn.BatchNorm2d(channels, eps=norm_act.bn_epsilon)
+        self.bn = BatchNorm(channels, norm_act.bn_epsilon, norm_act.bn_momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bn = self.bn
-        if not self.training:
-            x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                             bn.bias, False, 0.0, bn.eps)
-            return self.norm_act.act(x)
-        if self.norm_act.bn_groups != 1:
+        if self.training and self.norm_act.bn_groups != 1:
             raise NotImplementedError("train-mode bn_groups > 1 is not ported")
-        x, mean, invstd = torch.native_batch_norm(
-            x, bn.weight, bn.bias, None, None, True, 0.0, bn.eps)
-        with torch.no_grad():
-            # invstd = 1 / sqrt(var + eps): the kernel's biased variance
-            var = (invstd.float().pow(-2) - bn.eps).clamp_(min=0.0)
-            m = self.norm_act.bn_momentum
-            bn.running_mean.mul_(m).add_(mean.float(), alpha=1.0 - m)
-            bn.running_var.mul_(m).add_(var, alpha=1.0 - m)
-        return self.norm_act.act(x)
+        return self.norm_act.act(self.bn(x))
 
     def affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The eval BN as ``x * scale + bias``, float32 (layers.py:1287-1309)."""
@@ -92,12 +104,57 @@ class ABN(nn.Module):
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` with its weight cast to the input's dtype per call."""
+    """``nn.Conv2d`` with its weight cast to the input's dtype per call.
+
+    ``init_std`` set: ``init_params`` draws the weight from N(0, init_std)
+    (the critics' ``normal002``) instead of flax's lecun_normal.
+    """
+
+    init_std: Optional[float] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(
             x, self.weight.to(x.dtype),
             None if self.bias is None else self.bias.to(x.dtype))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` (flax ``Dense``) with its weight cast to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
+
+
+# the reference's weights_init_normal (confusion_maximization/utils.py:126-132),
+# the JAX package's ``normal002`` initialiser (layers.py:1222)
+NORMAL002 = 0.02
+
+
+def normal002_conv(*args, **kw) -> Conv2d:
+    """A ``Conv2d`` whose random init is N(0, 0.02)."""
+    c = Conv2d(*args, **kw)
+    c.init_std = NORMAL002
+    return c
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of NCHW ``x``, half-pixel centres and no antialiasing
+    (layers.py:1191-1205): ``F.interpolate(align_corners=False)``, 0.5x
+    downscales included."""
+    if tuple(x.shape[2:]) == tuple(out_hw):
+        return x
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                         align_corners=False)
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``InstanceNorm2d`` without affine (layers.py:1213-1217): per sample
+    and channel over H, W, biased variance. The statistics are taken in
+    f32 and the result returns in x's dtype."""
+    xf = x.float()
+    var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, correction=0)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -325,18 +382,20 @@ def stride_dilation(mod_id: int, block_id: int, dilation) -> Tuple[int, int]:
 
 
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from ``generator``: convolution weights ~ N(0, 1/fan_in)
-    (flax's lecun_normal, untruncated), biases 0, BN identity."""
+    """Random weights from ``generator``: convolution and dense weights ~
+    N(0, 1/fan_in) (flax's lecun_normal, untruncated), or N(0, init_std)
+    where a conv sets it, biases 0, BN identity."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, GroupedConv)):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, GroupedConv, nn.Linear)):
                 w = m.weight
                 # flax's fan_in: the kernel's input channels (ConvTranspose
                 # in (I, O, kh, kw) included) times its window
-                fan_in = w.shape[1 if not isinstance(m, nn.ConvTranspose2d)
-                                 else 0] * w.shape[2] * w.shape[3]
-                w.copy_(torch.randn(w.shape, generator=generator)
-                        / math.sqrt(fan_in))
+                fan_in = (w.shape[0] if isinstance(m, nn.ConvTranspose2d)
+                          else w.shape[1]) * (1 if w.dim() == 2 else w.shape[2] * w.shape[3])
+                draw = torch.randn(w.shape, generator=generator)
+                std = getattr(m, "init_std", None)
+                w.copy_(draw * std if std else draw / math.sqrt(fan_in))
                 if getattr(m, "bias", None) is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
@@ -352,7 +411,7 @@ def _prepare(module: nn.Module, device: torch.device, cast_weights: bool) -> Non
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             m.to(dtype=weight_dtype, memory_format=torch.channels_last)
-        elif isinstance(m, GroupedConv):
+        elif isinstance(m, (GroupedConv, nn.Linear)):
             m.to(dtype=weight_dtype)
         if hasattr(m, "compute_dtype"):
             m.compute_dtype = dtype

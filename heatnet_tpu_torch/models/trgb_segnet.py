@@ -1,10 +1,10 @@
 """ResNeXt-ASPP segmentation network, HeatNet RGB+thermal variant.
 
 Counterpart of ``heatnet_tpu/models/trgb_segnet.py`` (``_Stage``,
-``ResNeXtSeg``, ``net_resnext50``). Ported so far: early fusion (RGB and IR
+``ResNeXtSeg``, ``net_resnext50``, ``tap_channels``). Ported so far: early fusion (RGB and IR
 concatenated into one stem, or one pre-fused input), the 3x3 ``InitBlock``
-stem, eval and train mode. Late fusion, the certainty branch, the Vistas 7x7
-stem and ResNeXt-101/152 raise ``NotImplementedError``.
+stem, the certainty branch (:276-291), eval and train mode. Late fusion, the
+Vistas 7x7 stem and ResNeXt-101/152 raise ``NotImplementedError``.
 
 Mixed precision as in the JAX module (:115-117): the input is cast to
 ``compute_dtype`` (bf16 on the card, set by ``prepare_for_inference`` /
@@ -18,10 +18,11 @@ saves are of the order of 10 GB (about 0.6 GB per frame in bf16, more with
 the float32 BN statistics), well inside the H100's 80 GB.
 
 ``forward`` takes and returns NHWC, like the JAX module, and returns
-``(seg, [seg, cat(fusion, skip_down), out_4, out_3, out_2, out_1], None)``
-(trgb_segnet.py:248-258); seg is float32 whatever the compute dtype. The
-outputs are views of channels_last tensors, so the layout change costs no
-copy.
+``(seg, [seg, cat(fusion, skip_down), out_4, out_3, out_2, out_1], cert)``
+(trgb_segnet.py:248-258); seg is float32 whatever the compute dtype, and
+cert is None, or with ``cert_branch`` the float32 sigmoid ``(N, H, W, 1)``
+of ``fuse_seg_cert``. The outputs are views of channels_last tensors, so
+the layout change costs no copy.
 """
 
 from __future__ import annotations
@@ -68,10 +69,11 @@ class ResNeXtSeg(nn.Module):
                  late_fusion: bool = False, input_3x3: bool = True,
                  norm_act: NormAct = NormAct()):
         super().__init__()
-        if late_fusion or cert_branch or not input_3x3:
+        if late_fusion or not input_3x3:
             raise NotImplementedError(
-                "late fusion, the cert branch and the 7x7 stem are not ported yet")
+                "late fusion and the 7x7 stem are not ported yet (ROADMAP item 4)")
         self.classes = classes
+        self.cert_branch = cert_branch
         ch = [list(base_channels)]
         for _ in range(3):
             ch.append([c * 2 for c in ch[-1]])
@@ -88,6 +90,9 @@ class ResNeXtSeg(nn.Module):
         self.aspp = ASPP(in_ch, classes, cert_head=True, norm_act=norm_act)
         self.up_seg_2 = deconv(classes, classes, 4, 2, 1)
         self.fuse_seg = FuseModule(classes + ch[0][-1], classes, norm_act)
+        if cert_branch:
+            self.up_seg_2_cert = deconv(1, 1, 4, 2, 1)
+            self.fuse_seg_cert = FuseModule(1 + ch[0][-1], 1, norm_act)
         # the activations' dtype (bf16 on the card, see prepare_for_inference)
         self.compute_dtype = torch.float32
 
@@ -105,17 +110,29 @@ class ResNeXtSeg(nn.Module):
         out_4 = self.mod4_1(out_3)
         seg5 = self.mod5_1(out_4)
 
-        seg, fusion, _ = self.aspp(self.bn_out_1(seg5))
+        seg, fusion, seg_cf = self.aspp(self.bn_out_1(seg5))
         seg = self.up_seg_2(seg)
         seg = self.fuse_seg(torch.cat([seg, out_2], dim=1))
         seg = seg.float()
+        cert = None
+        if self.cert_branch:
+            cert = self.up_seg_2_cert(seg_cf)
+            cert = self.fuse_seg_cert(torch.cat([cert, out_2], dim=1))
+            cert = torch.sigmoid(cert.float()).permute(0, 2, 3, 1)
 
         skip_down = adaptive_avg_pool(out_2, tuple(fusion.shape[2:]))
         taps = [seg, torch.cat([fusion, skip_down], dim=1), out_4, out_3,
                 out_2, out_1]
         nhwc = [t.permute(0, 2, 3, 1) for t in taps]
-        return nhwc[0], nhwc, None
+        return nhwc[0], nhwc, cert
 
 
 def net_resnext50(**kw) -> ResNeXtSeg:
     return ResNeXtSeg(structure=(3, 4, 6, 3), **kw)
+
+
+def tap_channels(classes: int = 13, late_fusion: bool = False) -> list:
+    """Channel counts of the 6 critic taps (trgb_segnet.py:306-310)."""
+    if late_fusion:
+        return [classes, 768, 1024, 512, 512, 128]
+    return [classes, 512, 1024, 512, 256, 64]

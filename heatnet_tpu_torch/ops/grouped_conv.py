@@ -35,8 +35,11 @@ from ..kernels.build import Kernel
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+# One C entry, three counts: the epilogue-free forward (training), the
+# forward with the fused BN affine + act (serving, and the adversarial
+# trainer's teacher), and the input gradient
 GROUPED_CONV3X3 = Kernel("grouped_conv3x3", "hn_grouped_conv3x3", _ARGTYPES)
-# The same kernel launched for the input gradient, counted on its own
+GROUPED_CONV3X3_FUSED = Kernel("grouped_conv3x3_fused", "hn_grouped_conv3x3", _ARGTYPES)
 GROUPED_CONV3X3_DX = Kernel("grouped_conv3x3_dx", "hn_grouped_conv3x3", _ARGTYPES)
 
 # Activation copies the Function makes to give the kernel contiguous NHWC
@@ -192,7 +195,8 @@ def grouped_conv3x3_fused(x: torch.Tensor, w: torch.Tensor,
                           dilation: int = 1, act: str = "relu",
                           slope: float = 0.01) -> torch.Tensor:
     """``act(grouped_conv3x3(x, w) * scale + bias)``, the epilogue in f32."""
-    return _conv(x, w, groups, dilation, scale, bias, act, slope)
+    return _conv(x, w, groups, dilation, scale, bias, act, slope,
+                 GROUPED_CONV3X3_FUSED)
 
 
 def dx_weight(w: torch.Tensor, groups: int) -> torch.Tensor:

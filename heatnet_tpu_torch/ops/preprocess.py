@@ -1,11 +1,14 @@
 """Image preprocessing, plain PyTorch (NHWC): eval ingest and train augmentation.
 
-Counterpart of ``heatnet_tpu/ops/preprocess.py:29-57,120-216,242-250,289-353``
+Counterpart of ``heatnet_tpu/ops/preprocess.py:29-57,120-281,289-353``
 and of ``heatnet_tpu/eval/validate.py:52-68`` (``_device_normalize``). The
 eval chain is the reference loader's (thermal_loader.py:633-659, :711-728):
 window crop → radiometric IR clamp [21800, 25000] → [0, 1] → normalise (mean
 .5, std .5). The train chain (``train_sample_preprocess``) adds a shared
-random crop and independent day/night flips and rotations.
+random crop and independent day/night flips and rotations. The adversarial
+trainer's seg phase adds ``rect_drop``, ``ir_scale_aug`` and
+``(maybe_)smart_augment`` on the batch (:224-281), each draw an argument
+(``draw_ir_scale``, ``draw_smart_augment``).
 
 The train functions work on batches with per-sample parameters. Drawing the
 parameters (``draw_train_params``, from an explicit ``torch.Generator``) is
@@ -282,3 +285,52 @@ def train_sample_preprocess(params: TrainAugParams, rgb_day, ir_day, label_day,
         "ir_night": normalize(ir_night, (0.5,), (0.5,)),
         "mod_drop_params": params.mod_drop,
     }
+
+
+# ---------------------------------------------------------------------------
+# Seg-phase batch augmentations of the adversarial trainer (preprocess.py:224-281)
+# ---------------------------------------------------------------------------
+
+
+def rect_drop(batch: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """Zero one rectangle per sample of an NHWC batch (rectDropTensor, conf
+    trainer :82-86); ``params`` is (N, 4) int [i, j, h, w]."""
+    n, h, w, _ = batch.shape
+    p = params.to(device=batch.device, dtype=torch.int64)
+    rows = torch.arange(h, device=batch.device).view(1, h, 1)
+    cols = torch.arange(w, device=batch.device).view(1, 1, w)
+    i, j, hh, ww = (p[:, k].view(n, 1, 1) for k in range(4))
+    inside = (rows >= i) & (rows < i + hh) & (cols >= j) & (cols < j + ww)
+    return torch.where(inside[..., None], 0.0, batch)
+
+
+def ir_scale_aug(ir: torch.Tensor, do: bool, scale: float) -> torch.Tensor:
+    """Where ``do``, the whole IR batch times ``scale`` (:253-258; the draws
+    are p = 0.5 and U(0.1, 1), ``draw_ir_scale``)."""
+    return ir * scale if do else ir
+
+
+def smart_augment(ir: torch.Tensor, label: torch.Tensor,
+                  factors: torch.Tensor) -> torch.Tensor:
+    """Per-class IR intensity scaling (smartAugment, :261-274): each pixel
+    times the factor of its label, labels clipped to the factors' range."""
+    lbl = label.long().clamp(0, factors.shape[0] - 1)
+    f = factors.to(device=ir.device, dtype=ir.dtype)[lbl]
+    return ir * (f[..., None] if ir.dim() == 4 else f)
+
+
+def maybe_smart_augment(ir: torch.Tensor, label: torch.Tensor, do: bool,
+                        factors: torch.Tensor) -> torch.Tensor:
+    return smart_augment(ir, label, factors) if do else ir
+
+
+def draw_ir_scale(generator: torch.Generator):
+    """(do, scale): p = 0.5, scale ~ U(0.1, 1)."""
+    do = bool(torch.rand((), generator=generator) > 0.5)
+    return do, float(0.1 + 0.9 * torch.rand((), generator=generator))
+
+
+def draw_smart_augment(generator: torch.Generator, num_classes: int = 14):
+    """(do, factors): p = 0.5, one factor ~ U(0.1, 1) per class id."""
+    do = bool(torch.rand((), generator=generator) > 0.5)
+    return do, 0.1 + 0.9 * torch.rand(num_classes, generator=generator)

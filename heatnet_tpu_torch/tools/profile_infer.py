@@ -37,6 +37,8 @@ def _family(name: str) -> str:
         return "cuDNN/cuBLAS conv"
     if "batch_norm" in n:
         return "batch norm"
+    if "upsample" in n:
+        return "bilinear resize"
     if "multi_tensor" in n:
         return "optimizer"
     if "memcpy" in n:

@@ -150,3 +150,27 @@ def create_optimizer(optimizer_config: Dict[str, Any], params: Iterable[torch.Te
         opt.register_step_pre_hook(
             lambda optimizer, args, kwargs: clip_by_global_norm(params, clip))
     return opt, with_schedule(opt, sched)
+
+
+def masked_optimizer(named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                     trainable: Callable[[str], bool], make: Callable,
+                     schedule: Callable) -> Tuple[torch.optim.Optimizer, LambdaLR]:
+    """An optimizer over the parameters whose name ``trainable`` accepts,
+    with its own schedule (optim.py:161-179, ``masked_optimizer``).
+
+    The functional counterpart of ``requires_grad`` phase flips in the JAX
+    package is an optax ``multi_transform``: the masked-out leaves get no
+    update and their moments stay untouched, and the inner schedule counts
+    only the updates it is called for. Here the masked-out parameters are
+    simply not in this optimizer, and ``LambdaLR`` counts this optimizer's
+    steps. A parameter may sit in two such optimizers, each with its own
+    moments. ``make(params)`` builds the optimizer at a base rate of 1.
+    """
+    opt = make([p for name, p in named_params if trainable(name)])
+    return opt, with_schedule(opt, schedule)
+
+
+def rmsprop(params) -> torch.optim.RMSprop:
+    """torch's RMSprop (alpha .99, eps 1e-8 outside the square root), the
+    reference's and optax's ``rmsprop(eps_in_sqrt=False)``, at rate 1."""
+    return torch.optim.RMSprop(params, lr=1.0, alpha=0.99, eps=1e-8)

@@ -109,15 +109,15 @@ def test_grouped_conv_kernel_tile_edges(dev, cpg, d):
     b = (torch.randn(c, generator=g) * 0.1).to(dev)
     for n, h, wd in EDGE_SHAPES:
         x = torch.randn((n, h, wd, c), generator=g).to(dev, torch.bfloat16)
-        counts = (gc.GROUPED_CONV3X3.launches, gc.GROUPED_CONV3X3_DX.launches)
+        kernels = (gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_FUSED, gc.GROUPED_CONV3X3_DX)
+        counts = [k.launches for k in kernels]
         _close(gc.grouped_conv3x3(x, w, groups, d), gc.grouped_conv3x3_plain(x, w, groups, d))
         _close(gc.grouped_conv3x3_fused(x, w, s, b, groups, d, "leaky_relu", 0.1),
                gc.grouped_conv3x3_plain(x, w, groups, d, s, b, "leaky_relu", 0.1))
         _close(gc.grouped_conv3x3_dx(x, w, groups, d),
                gc.grouped_conv3x3_plain(x, gc.dx_weight(w, groups), groups, d))
-        # one launch per call, forward and fused on one count, dx on its own
-        assert (gc.GROUPED_CONV3X3.launches, gc.GROUPED_CONV3X3_DX.launches) == \
-            (counts[0] + 2, counts[1] + 1)
+        # one launch per call, each entry point on its own count
+        assert [k.launches for k in kernels] == [c + 1 for c in counts]
 
 
 # (N, C, cpg, d, H, W): the serving stages at batch 2 and the training ones
@@ -195,3 +195,34 @@ def test_grouped_conv_gradients_match_autograd_of_plain(dev, c, cpg, d, h, w):
     assert bool(((dx - dx_ref).abs() <= 2.0 ** -7 * dx_ref.abs() + 1e-3).all())
     rel = float((wk.grad - wr.grad).norm() / wr.grad.norm())
     assert rel <= 1e-2, rel
+
+
+def test_adversarial_steps_launch_each_entry_point_as_the_phase_needs(dev):
+    """A critic step runs the frozen segnet without a graph (forward only);
+    a seg step runs dx for both forwards and the IR teacher on the fused
+    kernel. Structure (1,1,1,1): 4 grouped convs per forward."""
+    from heatnet_tpu_torch.models import ConfSegnet, ResNeXtSeg
+    from heatnet_tpu_torch.models.layers import init_params, prepare_for_inference
+    from heatnet_tpu_torch.train import adversarial as adv
+    from heatnet_tpu_torch.train.state import init_model
+
+    model = init_model(ConfSegnet(disc_arch="cyclegan", num_critics=6,
+                                  structure=(1, 1, 1, 1)), 0, dev)
+    teacher = ResNeXtSeg(structure=(1, 1, 1, 1), input_channels=1)
+    init_params(teacher, torch.Generator().manual_seed(1))
+    teacher = prepare_for_inference(teacher, dev)
+    cfg = adv.AdversarialConfig(moddrop=True, irscale=True, night_supervision=True)
+    state = adv.make_phase_optimizers(model, lambda count: 1e-4)
+    seg_step, critic_step = adv.make_adversarial_steps(model, cfg, teacher)
+    g = torch.Generator().manual_seed(2)
+    batch = {k: torch.rand((2, 256, 256, c), generator=g).to(dev)
+             for k, c in (("rgb_day", 3), ("ir_day", 1), ("rgb_night", 3), ("ir_night", 1))}
+    batch["label_day"] = torch.randint(0, 13, (2, 256, 256), generator=g).to(dev)
+    batch["mod_drop_params"] = torch.tensor([[5, 5, 100, 100], [0, 0, 50, 50]])
+    kernels = (gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_FUSED, gc.GROUPED_CONV3X3_DX)
+    for step, want in ((lambda: critic_step(state, batch), [8, 0, 0]),
+                       (lambda: seg_step(state, batch, adv.draw_seg_aug(g)), [8, 4, 8])):
+        before = [k.launches for k in kernels]
+        metrics = step()
+        assert [k.launches - b for k, b in zip(kernels, before)] == want
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())

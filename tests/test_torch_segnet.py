@@ -95,10 +95,12 @@ def test_state_dict_round_trip_hits_every_jax_leaf(small):
 def test_registry_and_unported_variants():
     m = get_model("net_resnext50")
     assert [len(getattr(m, f"mod{i}_1")) for i in (2, 3, 4, 5)] == [3, 4, 6, 3]
-    for kw in ({"late_fusion": True}, {"cert_branch": True},
-               {"input_3x3": False}):
+    for kw in ({"late_fusion": True}, {"input_3x3": False}):
         with pytest.raises(NotImplementedError):
             ResNeXtSeg(structure=(1, 1, 1, 1), **kw)
+    # the cert branch is ported (tests/test_torch_critics.py holds it to JAX)
+    assert hasattr(ResNeXtSeg(structure=(1, 1, 1, 1), cert_branch=True),
+                   "fuse_seg_cert")
     with pytest.raises(KeyError):
         get_model("net_resnext101")
 
