@@ -45,8 +45,23 @@ Phases, each of which exits non-zero on failure:
    memory; one seg step's loss and gradients and one critic step's loss
    with the kernels against the plain versions (and the library's grouped
    conv), and phase isolation on the card;
-5. one ``{"kernels": [...]}`` JSON line; the last line is
-   ``{"ok": true, "device": {...}}``.
+5. the slice's later paths, each with its launches read around it:
+   5a. late-fusion ResNeXt-50 served at batch 8 from a 320x704 pack through
+       ``eval.validate.inference``: 1 ingest launch (its two-output mode) and
+       19 fused grouped-conv launches per forward, class maps against the
+       plain versions, forward p50/p95;
+   5b. PSPNet-ResNet-50, RGB only, served the same way: 1 ingest launch and
+       no grouped conv per forward;
+   5c. ``cli.train_conf --late_fusion`` at phase 4c's operating point for 8
+       steps (38 forward grouped-conv launches per critic step; 38 forward,
+       38 dx and 16 fused per seg step), step p50/p95 and peak memory, and a
+       seg and a critic step against the plain versions as in 4c;
+   5d. ``cli.train_conf --arch pspnet`` with an IR-only PSPNet teacher for
+       8 steps (no port kernel on this path), step p50/p95, peak memory, and
+       a seg step's loss under two dropout draws (dropout is live);
+   5e. ``cli.inference --arch resnext101``: 33 fused launches per forward;
+6. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
+   launches on every path); the last line is ``{"ok": true, "device": {...}}``.
 
 Launch counts: the grouped-conv kernel has one count per entry point, the
 epilogue-free forward (``grouped_conv3x3``), the fused BN affine + act
@@ -57,6 +72,7 @@ Without a card, or run from a directory that does not hold the package, it
 prints no result and exits non-zero.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -139,6 +155,7 @@ def run_phases(work: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -403,8 +420,8 @@ def run_phases(work: str) -> None:
         batch, _ = next(validate.batched((ds[i] for i in range(N_BATCH)), N_BATCH,
                                          ["rgb", "ir"]))
         with torch.no_grad():
-            seg, taps, cert = model(validate.ingest(batch, "ir_rgb", dev,
-                                                    model.compute_dtype))
+            seg, taps, cert = model(*validate.ingest(batch, "ir_rgb", dev,
+                                                     model.compute_dtype))
         want = [(N_BATCH, H_IN, W_IN, 13), (N_BATCH, 40, 88, 512), (N_BATCH, 40, 88, 1024),
                 (N_BATCH, 40, 88, 512), (N_BATCH, 80, 176, 256), (N_BATCH, 80, 176, 64)]
         got = [tuple(t.shape) for t in taps]
@@ -673,57 +690,66 @@ def run_phases(work: str) -> None:
     # one seg step's loss and gradients and one critic step's loss, kernels
     # against the plain versions, from the same weights and inputs
     cfg = adv.AdversarialConfig(moddrop=True, irscale=True, night_supervision=True)
-    model = init_model(ConfSegnet(disc_arch="cyclegan", num_critics=6), 0, dev)
-    teacher = train_conf.load_teacher(teacher_ckpt, "ir", False, dev)
-    seg_loss_fn, critic_loss_fn = adv.make_adversarial_losses(model, cfg, teacher)
-    start = {k: v.clone() for k, v in model.state_dict().items()}
     raw = next(batch_iterator(PackedFreiburgTrainDataset(adv_pack), N_ADV, seed=0))
     batch = DeviceAugment(CROP, dev)(torch.Generator().manual_seed(1), raw)
     draws = adv.draw_seg_aug(torch.Generator().manual_seed(2))
     draws.moddrop = draws.irscale = True  # both augmentations in the checked step
 
-    def adv_seg_grads():
-        model.load_state_dict(start)
-        loss, _ = seg_loss_fn(batch, draws)
-        loss.backward()
-        return float(loss.detach()), {k: p.grad.float().clone()
-                                      for k, p in model.named_parameters()
-                                      if p.grad is not None}
-
-    def adv_critic_loss():
-        model.load_state_dict(start)
-        with torch.no_grad():
-            return float(critic_loss_fn(batch)[0])
-
     def fused_library(x, w, scale, bias, groups, dilation=1, act="relu", slope=0.01):
         y = fwd_library(x, w, groups, dilation).float() * scale + bias
         return gc.apply_act(y, act, slope).to(x.dtype)
 
-    loss_k, grads_k = adv_seg_grads()
-    closs_k = adv_critic_loss()
-    for k in all_kernels:
-        k.launches = 0
-    with mock.patch.object(gc, "grouped_conv3x3", fwd_plain), \
-            mock.patch.object(gc, "grouped_conv3x3_dx", dx_plain), \
-            mock.patch.object(gc, "grouped_conv3x3_fused", conv_plain):
-        loss_p, grads_p = adv_seg_grads()
-        closs_p = adv_critic_loss()
-    with mock.patch.object(gc, "grouped_conv3x3", fwd_library), \
-            mock.patch.object(gc, "grouped_conv3x3_dx", dx_library), \
-            mock.patch.object(gc, "grouped_conv3x3_fused", fused_library):
-        loss_l, grads_l = adv_seg_grads()
-    if any(counts().values()):
-        fail("the plain-version adversarial steps launched a kernel")
-    hold_step("one seg step", (loss_k, loss_p, loss_l), (grads_k, grads_p, grads_l))
-    closs_rel = abs(closs_k - closs_p) / abs(closs_p)
-    print(f"  one critic step, kernels vs plain versions: loss {closs_k:.6f} vs "
-          f"{closs_p:.6f} (rel {closs_rel:.3g}, tolerance {STEP_LOSS_TOL})", flush=True)
-    if not closs_rel <= STEP_LOSS_TOL:
-        fail("the critic step's loss with kernels disagrees with the plain versions")
-    del grads_k, grads_p, grads_l
+    def hold_adv_steps(what, model, teacher):
+        """One seg step's loss and gradients and one critic step's loss with
+        the kernels against the plain versions (and the library's grouped
+        conv), from the same weights, batch and draws."""
+        seg_loss_fn, critic_loss_fn = adv.make_adversarial_losses(model, cfg, teacher)
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+
+        def adv_seg_grads():
+            model.load_state_dict(start)
+            loss, _ = seg_loss_fn(batch, draws)
+            loss.backward()
+            return float(loss.detach()), {k: p.grad.float().clone()
+                                          for k, p in model.named_parameters()
+                                          if p.grad is not None}
+
+        def adv_critic_loss():
+            model.load_state_dict(start)
+            with torch.no_grad():
+                return float(critic_loss_fn(batch)[0])
+
+        loss_k, grads_k = adv_seg_grads()
+        closs_k = adv_critic_loss()
+        for k in all_kernels:
+            k.launches = 0
+        with mock.patch.object(gc, "grouped_conv3x3", fwd_plain), \
+                mock.patch.object(gc, "grouped_conv3x3_dx", dx_plain), \
+                mock.patch.object(gc, "grouped_conv3x3_fused", conv_plain):
+            loss_p, grads_p = adv_seg_grads()
+            closs_p = adv_critic_loss()
+        with mock.patch.object(gc, "grouped_conv3x3", fwd_library), \
+                mock.patch.object(gc, "grouped_conv3x3_dx", dx_library), \
+                mock.patch.object(gc, "grouped_conv3x3_fused", fused_library):
+            loss_l, grads_l = adv_seg_grads()
+        if any(counts().values()):
+            fail(f"the plain-version {what} steps launched a kernel")
+        hold_step(f"one {what} seg step", (loss_k, loss_p, loss_l),
+                  (grads_k, grads_p, grads_l))
+        closs_rel = abs(closs_k - closs_p) / abs(closs_p)
+        print(f"  one {what} critic step, kernels vs plain versions: loss {closs_k:.6f} "
+              f"vs {closs_p:.6f} (rel {closs_rel:.3g}, tolerance {STEP_LOSS_TOL})",
+              flush=True)
+        if not closs_rel <= STEP_LOSS_TOL:
+            fail(f"the {what} critic step's loss with kernels disagrees with the "
+                 "plain versions")
+        model.load_state_dict(start)
+
+    model = init_model(ConfSegnet(disc_arch="cyclegan", num_critics=6), 0, dev)
+    teacher = train_conf.load_teacher(teacher_ckpt, "ir", False, dev)
+    hold_adv_steps("adversarial", model, teacher)
 
     # phase isolation on the card: each step leaves the frozen side untouched
-    model.load_state_dict(start)
     state = adv.make_phase_optimizers(model, lambda count: 1e-4)
     seg_step, critic_step = adv.make_adversarial_steps(model, cfg, teacher)
 
@@ -748,10 +774,233 @@ def run_phases(work: str) -> None:
               f"{trained}* parameters moved", flush=True)
         if not kept or not changed:
             fail(f"phase isolation broken in the {phase} step")
-    del model, teacher, state, start, batch
+    del model, teacher, state
     torch.cuda.empty_cache()
 
-    # 5. the record
+    # 5. the slice's later paths: late fusion and PSPNet, served and trained,
+    # and the deeper ResNeXt. Each is driven with the counts set to 0 just
+    # before it and read just after.
+    serve_pack = os.path.join(work, "serve")
+    prng = np.random.RandomState(4)
+    write_pack(serve_pack, prng.randint(0, 256, (16, H_IN, W_IN, 3)).astype(np.uint8),
+               prng.randint(21000, 26000, (16, H_IN, W_IN, 1)).astype(np.uint16))
+    serve_frames = [PackedFrameDataset(serve_pack)[i] for i in range(16)]
+    n_serve = -(-len(serve_frames) // N_BATCH)
+
+    def ingest_pair_plain(rgb, ir, lo=148, hi=852, out_dtype=torch.bfloat16):
+        return (fp.rgb_plain(rgb[..., lo:hi, :]).to(out_dtype),
+                fp.ir_plain(ir[..., lo:hi, :]).to(out_dtype))
+
+    def serve_path(what, model, modalities, per_forward, plain_patches):
+        """Serve the 16 frames at batch 8 through ``validate.inference`` with
+        the counts read around it; again through the plain versions for the
+        class-map agreement; then p50/p95 of ``validate.predict`` on one
+        batch (host clock: H2D, ingest, forward, argmax)."""
+        t0 = time.perf_counter()
+        for k in all_kernels:
+            k.launches = 0
+        maps = validate.inference(model, iter(serve_frames), N_BATCH, dev, modalities)
+        torch.cuda.synchronize()
+        got = counts()
+        want = {k: v * n_serve for k, v in per_forward.items()}
+        print(f"  launches {got} over {n_serve} forwards (want {want})", flush=True)
+        if got != want:
+            fail(f"{what}: expected {want} launches, got {got}")
+        if maps.shape != (16, H_IN, W_IN) or maps.dtype != np.uint8 or maps.max() >= 13:
+            fail(f"{what}: class maps {maps.shape} {maps.dtype} max {maps.max()}")
+        with contextlib.ExitStack() as stack:
+            for obj, name, fn in plain_patches:
+                stack.enter_context(mock.patch.object(obj, name, fn))
+            plain_maps = validate.inference(model, iter(serve_frames), N_BATCH, dev,
+                                            modalities)
+        if any(counts()[k] != want[k] for k in want):
+            fail(f"{what}: the plain-version run launched a kernel")
+        agree = float((plain_maps == maps).mean())
+        keys = validate.modality_keys(modalities)
+        batch, _ = next(validate.batched(iter(serve_frames), N_BATCH, keys))
+        times = []
+        for _ in range(13):
+            t1 = time.perf_counter()
+            validate.predict(model, batch, modalities, dev)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        p50, p95 = (float(np.percentile(times[3:], q)) for q in (50, 95))
+        print(f"  class-map agreement with the plain versions: {agree:.6f} (need >= "
+              f"{MIN_AGREEMENT}); batch-{N_BATCH} forward (host clock, H2D to argmax) "
+              f"p50 {p50:.2f} p95 {p95:.2f} ms; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if agree < MIN_AGREEMENT:
+            fail(f"{what}: class-map agreement {agree} < {MIN_AGREEMENT}")
+        return {"launches": got, "agreement": agree, "forward_ms_p50_p95": (p50, p95)}
+
+    # 5a. late-fusion ResNeXt-50 serving: RGB and IR from one ingest launch,
+    # 19 fused grouped convs (mod2_1 and mod2_2 3 each, 4, 6, 3)
+    print(f"main path: eval.validate.inference, late-fusion ResNeXt-50 (3,4,6,3), "
+          f"batch {N_BATCH}, {H_IN}x{W_IN}", flush=True)
+    lf_net = get_model("net_resnext50", classes=13, input_channels=4, late_fusion=True)
+    init_params(lf_net, torch.Generator().manual_seed(0))
+    lf_net = prepare_for_inference(lf_net, dev)
+    later = {"late_fusion_serving": serve_path(
+        "late-fusion serving", lf_net, "ir_rgb",
+        {"ingest": 1, "grouped_conv3x3": 0, "grouped_conv3x3_fused": 19,
+         "grouped_conv3x3_dx": 0},
+        [(fp, "inference_preprocess_fused", ingest_pair_plain),
+         (gc, "grouped_conv3x3_fused", conv_plain)])}
+    rgb_n, ir_n = validate.ingest(serve_frames[0], "ir_rgb", dev, lf_net.compute_dtype,
+                                  late_fusion=True)
+    with torch.no_grad():
+        seg, taps, _ = lf_net(rgb_n, ir_n)
+    got = [t.shape[-1] for t in taps]
+    if got != [13, 768, 1024, 512, 512, 128] or not all(
+            bool(torch.isfinite(t).all()) for t in taps):
+        fail(f"late-fusion forward: taps {got}, or non-finite values")
+    del lf_net, seg, taps, rgb_n, ir_n
+    torch.cuda.empty_cache()
+
+    # 5b. PSPNet-ResNet-50 serving, RGB only (tools/bench_pspnet.py:52-64):
+    # one ingest launch per forward, no grouped conv
+    print(f"main path: eval.validate.inference, PSPNet-ResNet-50, RGB only, batch "
+          f"{N_BATCH}, {H_IN}x{W_IN}", flush=True)
+    psp_net = get_model("pspnet", backend="resnet50", in_channels=3)
+    init_params(psp_net, torch.Generator().manual_seed(0))
+    psp_net = prepare_for_inference(psp_net, dev)
+    later["pspnet_serving"] = serve_path(
+        "PSPNet serving", psp_net, "rgb",
+        {"ingest": 1, "grouped_conv3x3": 0, "grouped_conv3x3_fused": 0,
+         "grouped_conv3x3_dx": 0},
+        [(fp, "rgb_normalize_fused", lambda x, d: fp.rgb_plain(x).to(d))])
+    (x,) = validate.ingest(serve_frames[0], "rgb", dev, psp_net.compute_dtype)
+    with torch.no_grad():
+        seg, taps, _ = psp_net(x)
+    got = [tuple(t.shape) for t in taps]
+    if got != [(1, H_IN, W_IN, 13), (1, 40, 88, 2048), (1, 40, 88, 1024),
+               (1, 40, 88, 512), (1, 80, 176, 256), (1, 80, 176, 64)] or \
+            seg.dtype != torch.float32 or not bool(torch.isfinite(seg).all()):
+        fail(f"PSPNet forward: {seg.dtype} taps {got}, or non-finite logits")
+    del psp_net, seg, taps, x
+    torch.cuda.empty_cache()
+
+    def train_conf_path(what, flags, teacher_path, want):
+        """``cli.train_conf`` for 4 critic and 4 seg steps at the adversarial
+        operating point, the launches of each step read around it."""
+        per_step.clear()
+        argv = ["--dataroot", adv_pack, "--batch_size", str(N_ADV), "--discarch",
+                "cyclegan", "--num_critics", "6", "--moddrop", "--irscale",
+                "--night_supervision_model", teacher_path, *flags,
+                "--iter_initial_critic_phase", "2", "--iter_critic_phase", "2",
+                "--iter_seg_phase", "2", "--n_epochs", str(ADV_EPOCHS // 2),
+                "--checkpointname", os.path.join(work, f"conf_{len(later)}"),
+                "--log_dir", os.path.join(work, "runs")]
+        for k in all_kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(train_conf, "make_adversarial_steps", counted_steps):
+            run = train_conf.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, peak = counts(), torch.cuda.max_memory_allocated() / 1e9
+        print(f"  launches {got} over {len(run.phases)} steps ({wall:.1f} s wall)",
+              flush=True)
+        out = {"launches": got, "peak_memory_gb": peak}
+        for phase in ("train_critic", "train_seg"):
+            seen = [c for p, c in per_step if p == phase]
+            print(f"  per {phase} step: {seen[0] if seen else None} (want "
+                  f"{want[phase]})", flush=True)
+            if len(seen) < 2 or any(c != want[phase] for c in seen):
+                fail(f"{what} {phase}: expected >= 2 steps of {want[phase]} launches, "
+                     f"got {seen}")
+            losses = run.losses[phase]
+            ms = [t * 1e3 for t, p in zip(run.step_seconds, run.phases) if p == phase]
+            out[phase + "_ms_p50_p95"] = (float(np.percentile(ms, 50)),
+                                          float(np.percentile(ms, 95)))
+            print(f"  {phase}: losses {[round(v, 6) for v in losses]}; step ms (host, "
+                  f"augmentation to loss) {[round(v, 2) for v in ms]}, p50 "
+                  f"{out[phase + '_ms_p50_p95'][0]:.2f} p95 "
+                  f"{out[phase + '_ms_p50_p95'][1]:.2f}", flush=True)
+            if not all(np.isfinite(losses)):
+                fail(f"{what}: non-finite {phase} loss {losses}")
+        print(f"  peak memory {peak:.2f} GB", flush=True)
+        return out
+
+    # 5c. train_conf --late_fusion: 38 grouped convs per train-mode forward
+    # pair (mod2_2 adds 3 to each of day and night)
+    print(f"main path: cli.train_conf --late_fusion, ResNeXt-50 + 6 cyclegan critics, "
+          f"batch {N_ADV}, {CROP[0]}x{CROP[1]} crop, --moddrop --irscale, IR teacher, "
+          f"{ADV_EPOCHS * 2} steps", flush=True)
+    later["train_conf_late_fusion"] = train_conf_path(
+        "train_conf --late_fusion", ["--late_fusion"], teacher_ckpt,
+        {"train_critic": {"ingest": 0, "grouped_conv3x3": 38, "grouped_conv3x3_fused": 0,
+                          "grouped_conv3x3_dx": 0},
+         "train_seg": {"ingest": 0, "grouped_conv3x3": 38, "grouped_conv3x3_fused": 16,
+                       "grouped_conv3x3_dx": 38}})
+    model = init_model(ConfSegnet(disc_arch="cyclegan", num_critics=6, late_fusion=True),
+                       0, dev)
+    teacher = train_conf.load_teacher(teacher_ckpt, "ir", False, dev)
+    hold_adv_steps("late-fusion", model, teacher)
+    del model, teacher
+    torch.cuda.empty_cache()
+
+    # 5d. train_conf --arch pspnet with an IR-only PSPNet teacher: no port
+    # kernel on this path (dense convs only); dropout live in both phases
+    print(f"main path: cli.train_conf --arch pspnet, PSPNet-ResNet-50 + 6 cyclegan "
+          f"critics, batch {N_ADV}, {CROP[0]}x{CROP[1]} crop, --moddrop --irscale, "
+          f"IR PSPNet teacher, {ADV_EPOCHS * 2} steps", flush=True)
+    psp_teacher = get_model("pspnet", backend="resnet50", in_channels=1)
+    init_params(psp_teacher, torch.Generator().manual_seed(0))
+    psp_teacher_ckpt = save_checkpoint(
+        {"epoch": 1, "state_dict": {"trgb_segnet." + k: v for k, v in
+                                    psp_teacher.state_dict().items()}},
+        os.path.join(work, "psp_teacher.pth"))
+    del psp_teacher
+    none = {k.name: 0 for k in all_kernels}
+    later["train_conf_pspnet"] = train_conf_path(
+        "train_conf --arch pspnet", ["--arch", "pspnet"], psp_teacher_ckpt,
+        {"train_critic": none, "train_seg": none})
+    model = init_model(ConfSegnet(disc_arch="cyclegan", num_critics=6, arch="pspnet"),
+                       0, dev)
+    teacher = train_conf.load_teacher(psp_teacher_ckpt, "ir", False, dev, "pspnet")
+    seg_loss_fn, _ = adv.make_adversarial_losses(model, cfg, teacher)
+    drop_losses = []
+    for seed in (10, 10, 11):
+        draws.dropout = model.draw_dropout(N_ADV, torch.Generator().manual_seed(seed))
+        with torch.no_grad():
+            drop_losses.append(float(seg_loss_fn(batch, draws)[0]))
+    print(f"  seg-step loss from one state under dropout masks of generator seeds "
+          f"10, 10, 11: {drop_losses}", flush=True)
+    if not all(np.isfinite(drop_losses)) or drop_losses[2] == drop_losses[0]:
+        fail(f"PSPNet dropout is not live in the seg step: {drop_losses}")
+    draws.dropout = None
+    del model, teacher, seg_loss_fn
+    torch.cuda.empty_cache()
+
+    # 5e. cli.inference --arch resnext101: 33 fused grouped convs per forward
+    print(f"main path: cli.inference --arch resnext101 (3,4,23,3), batch {N_BATCH}",
+          flush=True)
+    for k in all_kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    r101 = cli.main(["--data", serve_pack, "--batch", str(N_BATCH), "--iters", "1",
+                     "--arch", "resnext101"])
+    torch.cuda.synchronize()
+    forwards = 1 + 1 + n_serve  # warm-up, one timing iteration, the batches
+    got = counts()
+    want = {"ingest": forwards, "grouped_conv3x3": 0, "grouped_conv3x3_fused": 33 * forwards,
+            "grouped_conv3x3_dx": 0}
+    print(f"  launches {got} over {forwards} forwards (want {want}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if got != want or r101.maps.shape != (16, H_IN, W_IN) or r101.maps.max() >= 13:
+        fail(f"cli.inference --arch resnext101: launches {got}, maps {r101.maps.shape}")
+    later["resnext101_serving"] = {"launches": got}
+    torch.cuda.empty_cache()
+
+    # 6. the record: each kernel's launches on every path, read around it
+    paths = {"serving": launches, "train_plain": train_launches, "train_conf": adv_launches,
+             **{name: r["launches"] for name, r in later.items()}}
+
+    def by_path(*names):
+        return {path: sum(c.get(n, 0) for n in names) for path, c in paths.items()}
+
     k_ms, p_ms, b_ms, b_by, k_dev = ingest_ms[(W_IN, 0, W_IN)]
     per_seg = want_step["train_seg"]
     per_critic = want_step["train_critic"]
@@ -772,7 +1021,8 @@ def run_phases(work: str) -> None:
          "source": "heatnet_tpu_torch/csrc/ingest.cu",
          "replaces": "heatnet_tpu/ops/pallas_preproc.py:60 (_ir_kernel), "
                      "heatnet_tpu/ops/pallas_preproc.py:68 (_rgb_kernel)",
-         "launches": launches["ingest"], "max_abs_err": ingest_err,
+         "launches": sum(by_path("ingest").values()),
+         "launches_by_path": by_path("ingest"), "max_abs_err": ingest_err,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
          "library_ms": None, "device_ms": k_dev,
          "device_share_of_bound": b_ms / k_dev,
@@ -781,7 +1031,9 @@ def run_phases(work: str) -> None:
          "source": "heatnet_tpu_torch/csrc/grouped_conv3x3.cu",
          "replaces": "heatnet_tpu/ops/pallas_grouped_conv.py:141 (_kernel_fused), "
                      "heatnet_tpu/ops/pallas_grouped_conv.py:121 (_kernel)",
-         "launches": launches["grouped_conv3x3"] + launches["grouped_conv3x3_fused"],
+         "launches": sum(by_path("grouped_conv3x3", "grouped_conv3x3_fused").values()),
+         "launches_by_path": {"forward": by_path("grouped_conv3x3"),
+                              "fused": by_path("grouped_conv3x3_fused")},
          "max_abs_err": gc_err,
          "train_conf_launches": {
              "forward": adv_launches["grouped_conv3x3"],
@@ -800,7 +1052,8 @@ def run_phases(work: str) -> None:
          "source": "heatnet_tpu_torch/csrc/grouped_conv3x3.cu",
          "replaces": "heatnet_tpu/ops/pallas_grouped_conv.py:297 (grouped_conv3x3 "
                      "custom VJP: forward _kernel :121, dx of _bwd :313)",
-         "launches": train_launches["grouped_conv3x3_dx"], "max_abs_err": dx_err,
+         "launches": sum(by_path("grouped_conv3x3_dx").values()),
+         "launches_by_path": by_path("grouped_conv3x3_dx"), "max_abs_err": dx_err,
          "ms": dx_sums[0], "plain_ms": dx_sums[1], "bound_ms": dx_bound,
          "bound_by": dx_by, "library_ms": dx_sums[2],
          "train_forward_launches": train_launches["grouped_conv3x3"],
@@ -824,6 +1077,10 @@ def run_phases(work: str) -> None:
                                               adv_run.phases.count("train_seg")))),
         "critic_step_ms_p50_p95": step_stats["train_critic"],
         "seg_step_ms_p50_p95": step_stats["train_seg"], "peak_memory_gb": adv_peak_gb}
+    record.update({name: {k: v for k, v in r.items() if k != "launches"}
+                   for name, r in later.items()})
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,9 @@ directory (``data/packed.py``), which serves frames with no decode step. It
 prints the same ``Network took %f seconds`` (one frame, averaged over
 ``--iters``) and ``Ran inference on N frames`` lines.
 
-Weights are random from seed 0 unless ``--resume`` names a PyTorch
+``--arch`` is ``resnext50``, ``resnext101`` or ``resnext152`` (the registry's
+``net_<arch>``, ``heatnet_tpu/cli/inference.py:161-162``). Weights are
+random from seed 0 unless ``--resume`` names a PyTorch
 ``state_dict`` file or a ``{"epoch", "state_dict"}`` checkpoint of
 ``cli/train_plain.py`` (``io/from_jax.py`` converts JAX trees). Runs on the card
 unless ``--device cpu``. Not ported yet: orbax checkpoints, PNG capture trees

@@ -1,9 +1,10 @@
 """HeatNet's adversarial trainer, the ``train_trgb_segnet_conf.py`` surface.
 
 Counterpart of ``heatnet_tpu/cli/train_conf.py:23-466``: a ``ConfSegnet``
-(the ResNeXt-ASPP segnet, ``--num_critics`` critics on its feature taps,
-optional ``--feedback_seg`` downscale nets and ``--train_input_adapter``
-UNet), trained in two phases that a ``PhaseMachine`` alternates
+(the ResNeXt-ASPP segnet or, with ``--arch pspnet``, PSPNet on the dilated
+ResNet-50, early or ``--late_fusion``; ``--num_critics`` critics on its
+feature taps, optional ``--feedback_seg`` downscale nets and
+``--train_input_adapter`` UNet), trained in two phases that a ``PhaseMachine`` alternates
 (``--iter_initial_critic_phase`` critic iterations, then
 ``--iter_critic_phase`` critic and ``--iter_seg_phase`` seg iterations in
 turn), one RMSprop with a StepLR(gamma .5) schedule per phase. With conf
@@ -13,20 +14,21 @@ frames) → numpy batches → augmentation on the device → the phase's step
 (``train/adversarial.py``) → ``Current loss``.
 
 ``--pretraining`` loads a ``cli.train_plain`` checkpoint (``--pretraining_path``)
-into ``trgb_segnet``; ``--night_supervision_model`` loads an IR-only
-ResNeXt-50 teacher with the ``trgb_segnet.`` prefix stripped, in eval mode
-(its grouped convs run the fused kernel on the card); ``--resume`` (or
-``auto``) restores a checkpoint of this trainer. Checkpoints are
+into ``trgb_segnet``; ``--night_supervision_model`` loads the teacher with
+the ``trgb_segnet.`` prefix stripped, in eval mode: a ResNeXt-50 (its
+grouped convs run the fused kernel on the card) or, with ``--arch pspnet``,
+a PSPNet-ResNet-50, late fusion when it takes RGB and IR (:168-190).
+PSPNet's channel dropout draws its masks from the run's generator in both
+phases. ``--resume`` (or ``auto``) restores a checkpoint of this trainer. Checkpoints are
 ``torch.save({"epoch", "state_dict", "best_iou"})`` files,
 ``<checkpointname>.pth``, one per epoch: the JAX trainer writes one after
 each periodic eval, which is not ported yet. Weights are random from seed 0
 otherwise. Runs on the card unless ``--device cpu``.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``--late_fusion`` (4), ``--arch pspnet`` (10), ``--bn_groups > 1`` (7),
-``--trainsetname MF`` (9), ``--eval``/``--infer`` and the periodic eval of
-``--testroot_*`` (5: the validators and the PNG trees, whose loader needs
-cv2), ``--vis`` (12).
+``--bn_groups > 1`` (7), ``--trainsetname MF`` (9), ``--eval``/``--infer``
+and the periodic eval of ``--testroot_*`` (5: the validators and the PNG
+trees, whose loader needs cv2), ``--vis`` (12).
 
 Usage::
 
@@ -48,7 +50,7 @@ from ..device import resolve
 from ..io.checkpoint import (best_iou_tracker, load_state_dict, restore_partial,
                              restore_renamed, resolve_auto_resume, save_checkpoint)
 from ..io.logging import AverageMeter, RunLogger
-from ..models import ConfSegnet, ResNeXtSeg
+from ..models import ConfSegnet, ResNeXtSeg, build_network
 from ..models.conf_segnet import num_input_channels
 from ..models.layers import prepare_for_inference
 from ..train.adversarial import (AdversarialConfig, PhaseMachine, draw_seg_aug,
@@ -138,8 +140,6 @@ class TrainConfRun:
 
 def _refuse_unported(opt: argparse.Namespace) -> None:
     unported = [
-        (opt.late_fusion, "--late_fusion", 4),
-        (opt.arch == "pspnet", "--arch pspnet", 10),
         (opt.bn_groups > 1, "--bn_groups > 1", 7),
         (opt.trainsetname == "MF", "--trainsetname MF", 9),
         (bool(opt.eval), "--eval", 5),
@@ -157,13 +157,17 @@ def _refuse_unported(opt: argparse.Namespace) -> None:
 
 
 def load_teacher(path: str, modalities: str, cert_branch: bool,
-                 device: torch.device) -> ResNeXtSeg:
-    """The frozen night-supervision model (train_conf.py:168-190): a
-    ResNeXt-50 over ``modalities``, its checkpoint read with the
+                 device: torch.device, arch: str = "custom") -> torch.nn.Module:
+    """The frozen night-supervision model (train_conf.py:168-190) over
+    ``modalities``: a ResNeXt-50, or for arch ``pspnet`` a PSPNet-ResNet-50
+    (late fusion over RGB and IR), its checkpoint read with the
     ``trgb_segnet.`` prefix stripped, prepared for inference."""
-    teacher = ResNeXtSeg(structure=(3, 4, 6, 3),
-                         input_channels=num_input_channels(modalities),
-                         cert_branch=cert_branch)
+    n_in = num_input_channels(modalities)
+    if arch == "pspnet":
+        teacher = build_network("resnet50", in_channels=n_in, late_fusion=n_in >= 4)
+    else:
+        teacher = ResNeXtSeg(structure=(3, 4, 6, 3), input_channels=n_in,
+                             cert_branch=cert_branch)
     restore_renamed(teacher, load_state_dict(path), "trgb_segnet.", "")
     return prepare_for_inference(teacher, device)
 
@@ -191,7 +195,7 @@ def main(argv=None) -> TrainConfRun:
     ns_mod = opt.night_supervision_model_modalities or "ir"
     if opt.night_supervision_model:
         teacher = load_teacher(opt.night_supervision_model, ns_mod,
-                               opt.cert_branch, device)
+                               opt.cert_branch, device, opt.arch)
 
     cfg = AdversarialConfig(
         adv_loss=opt.adv_loss, conf_weight=opt.conf_weight,
@@ -242,10 +246,13 @@ def main(argv=None) -> TrainConfRun:
             t0 = time.perf_counter()
             batch = augment(generator, raw)
             phase = pm.tick()
+            n = batch["label_day"].shape[0]
             if phase == "train_seg":
-                m = seg_step(state, batch, draw_seg_aug(generator, cfg.num_classes))
+                draws = draw_seg_aug(generator, cfg.num_classes)
+                draws.dropout = model.draw_dropout(n, generator)
+                m = seg_step(state, batch, draws)
             else:
-                m = critic_step(state, batch)
+                m = critic_step(state, batch, model.draw_dropout(n, generator))
             total = float(m["total_loss"])  # waits for the step
             run.step_seconds.append(time.perf_counter() - t0)
             run.losses[phase].append(total)

@@ -2,9 +2,13 @@
 
 Counterpart of ``heatnet_tpu/eval/validate.py:71-108,142-181,331-373``
 (``_forward_factory``, ``_batched``, ``inference``) for label-free serving.
-Frames arrive as the loaders ship them, uint8 RGB and uint16 IR; the fused
-ingest kernel normalises them on the device and, for RGB+IR, writes the
-early-fusion input directly. The class map returns to the host as uint8.
+Frames arrive as the loaders ship them, uint8 RGB and uint16 IR; one launch
+of the fused ingest kernel per batch normalises them on the device. For
+RGB+IR it writes the early-fusion input directly, or, for a late-fusion
+model (``model.late_fusion``), RGB and IR as two tensors; an RGB-only model
+(PSPNet, ``--modalities rgb``) gets the normalised RGB. The JAX package
+normalises in plain jnp (``_device_normalize``, :52-68); the function is the
+same. The class map returns to the host as uint8.
 """
 
 from __future__ import annotations
@@ -53,13 +57,15 @@ def modality_keys(modalities: str):
     return keys
 
 
-def ingest(batch: Dict[str, np.ndarray], modalities: str,
-           device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """Host uint8/uint16 frames → the model's NHWC input on ``device``.
+def ingest(batch: Dict[str, np.ndarray], modalities: str, device: torch.device,
+           dtype: torch.dtype, late_fusion: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Host uint8/uint16 frames → the model's NHWC inputs on ``device``, in
+    one kernel launch.
 
-    RGB+IR becomes the 4-channel early-fusion tensor in one kernel launch.
-    IR crosses as int16 bytes (uint16 has thin PyTorch support) and is
-    viewed back as uint16 on the device.
+    RGB+IR becomes the 4-channel early-fusion tensor, or with
+    ``late_fusion`` the pair ``(rgb_n, ir_n)``. IR crosses as int16 bytes
+    (uint16 has thin PyTorch support) and is viewed back as uint16 on the
+    device.
     """
     rgb = ir = None
     if "rgb" in modalities:
@@ -68,17 +74,22 @@ def ingest(batch: Dict[str, np.ndarray], modalities: str,
         ir16 = np.array(batch["ir"], order="C").view(np.int16)
         ir = torch.from_numpy(ir16).to(device).view(torch.uint16)
     if rgb is not None and ir is not None:
-        return fused_preproc.early_fusion_input(rgb, ir, 0, rgb.shape[-2], dtype)
+        if late_fusion:
+            return fused_preproc.inference_preprocess_fused(rgb, ir, 0, rgb.shape[-2],
+                                                            dtype)
+        return (fused_preproc.early_fusion_input(rgb, ir, 0, rgb.shape[-2], dtype),)
     if rgb is not None:
-        return fused_preproc.rgb_normalize_fused(rgb, dtype)
-    return fused_preproc.ir_normalize_fused(ir, dtype)
+        return (fused_preproc.rgb_normalize_fused(rgb, dtype),)
+    return (fused_preproc.ir_normalize_fused(ir, dtype),)
 
 
 def predict(model: torch.nn.Module, batch: Dict[str, np.ndarray],
             modalities: str, device: torch.device) -> torch.Tensor:
-    """One batch through ingest → model → argmax; a uint8 map on ``device``."""
+    """One batch through ingest → model → argmax; a uint8 map on ``device``.
+    The model's own ``late_fusion`` picks the ingest's outputs."""
     with torch.no_grad():
-        seg, _, _ = model(ingest(batch, modalities, device, model.compute_dtype))
+        seg, _, _ = model(*ingest(batch, modalities, device, model.compute_dtype,
+                                  getattr(model, "late_fusion", False)))
         return seg.argmax(dim=-1).to(torch.uint8)
 
 

@@ -8,6 +8,8 @@ The inverse of ``heatnet_tpu/io/torch_import.py``'s layout rules
 - ConvTranspose kernel ``(kh, kw, I, O)`` → ``np.flip(k, (0, 1))
   .transpose(2, 3, 0, 1)``, i.e. ``(I, O, kh, kw)`` spatially flipped;
 - Dense kernel ``(in, out)`` → ``Linear.weight`` ``(out, in)``;
+- PReLU's scalar ``negative_slope`` → ``weight`` of shape ``(1,)``
+  (``torch_import.py:233-236`` in the other direction);
 - BN ``scale``/``bias`` → ``weight``/``bias``, whatever the BN module is
   named (``bn``, ``bn1``, ``downsample_bn``: only a BatchNorm has a
   ``scale``); batch_stats ``mean``/``var`` → ``running_mean``/``running_var``
@@ -15,7 +17,9 @@ The inverse of ``heatnet_tpu/io/torch_import.py``'s layout rules
 
 Port module names are the JAX tree's, so a key is the tree path joined with
 ``.``. A transposed conv is recognised by its module name, with the same
-rule as ``torch_import.convert_state_dict``.
+rule as ``torch_import.convert_state_dict``: the last module name starts
+with one of ``TRANSPOSE_NAMES`` (PSPNet's ``up_1/conv`` ends in ``conv`` and
+is a plain conv).
 """
 
 from __future__ import annotations
@@ -60,6 +64,9 @@ def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
             name = "weight"
         elif name == "kernel" and a.ndim == 2:  # Dense (in, out) → Linear (out, in)
             a = a.T
+            name = "weight"
+        elif name == "negative_slope":  # flax PReLU's scalar → nn.PReLU's (1,)
+            a = a.reshape(1)
             name = "weight"
         sd[".".join(mods + [name])] = _tensor(a)
     for path, leaf in _leaves(batch_stats or {}):

@@ -2,8 +2,10 @@
 
 from .conf_segnet import ConfSegnet
 from .layers import NormAct
-from .registry import MODELS, get_model
-from .trgb_segnet import ResNeXtSeg, net_resnext50
+from .pspnet import PSPNet
+from .registry import MODELS, build_network, get_model
+from .trgb_segnet import ResNeXtSeg, net_resnext50, net_resnext101, net_resnext152
 
-__all__ = ["MODELS", "ConfSegnet", "NormAct", "ResNeXtSeg", "get_model",
-           "net_resnext50"]
+__all__ = ["MODELS", "ConfSegnet", "NormAct", "PSPNet", "ResNeXtSeg",
+           "build_network", "get_model", "net_resnext50", "net_resnext101",
+           "net_resnext152"]

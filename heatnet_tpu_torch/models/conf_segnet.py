@@ -10,9 +10,16 @@ tap sets, and returns the JAX module's dict.
 
 Submodule names are the flax tree's (``trgb_segnet``, ``critics_0``,
 ``downscale_nets_0``, ``input_adapter_net``, ``adapter_disc``), so a
-``state_dict`` key is the flax path joined with ``.``. Arch ``custom``
-(ResNeXt-ASPP) only: ``pspnet`` raises until ROADMAP item 10, late fusion
-until item 4, per-GPU BN statistics (``bn_groups > 1``) until item 7.
+``state_dict`` key is the flax path joined with ``.``. The segnet is arch
+``custom`` (ResNeXt-ASPP) or ``pspnet`` (always on the ``resnet50``
+backend, :76-83), early or late fusion; the critics' widths follow its taps
+(``tap_channels`` / ``pspnet_tap_channels``). Per-GPU BN statistics
+(``bn_groups > 1``) raise until ROADMAP item 7.
+
+PSPNet's channel dropout draws from an explicit generator:
+``draw_dropout(n, generator)`` returns the keep masks of one dual forward
+(day, then night; None for arch ``custom``), and ``forward`` takes them
+as ``dropout``.
 
 Phases are PyTorch's own idiom, the reference's ``setPhase``
 (conf_segnet.py:90-104): ``set_phase`` turns ``requires_grad`` off on the
@@ -25,13 +32,15 @@ statistics still update, and no graph is built through it.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from .critics import DownNet, create_critic
 from .layers import NormAct
+from .pspnet import DropoutMasks, pspnet_tap_channels
+from .registry import build_network
 from .trgb_segnet import ResNeXtSeg, tap_channels
 from .unet import UNetAdapter
 
@@ -53,22 +62,24 @@ class ConfSegnet(nn.Module):
                  late_fusion: bool = False, classes: int = 13,
                  structure: Sequence[int] = (3, 4, 6, 3), bn_groups: int = 1):
         super().__init__()
-        if arch == "pspnet":
-            raise NotImplementedError(
-                "arch pspnet is not ported yet (ROADMAP item 10)")
-        if arch != "custom":
-            raise ValueError(f"unsupported arch {arch}")
-        if late_fusion:
-            raise NotImplementedError("late fusion is not ported yet (ROADMAP item 4)")
         if bn_groups != 1:
             raise NotImplementedError(
                 "bn_groups > 1 (per-GPU BN statistics) is not ported yet (ROADMAP item 7)")
         n_in = num_input_channels(modalities)
         self.feedback_seg, self.no_conf = feedback_seg, no_conf
         self.input_adapter, self.num_critics = input_adapter, num_critics
-        self.trgb_segnet = ResNeXtSeg(structure=tuple(structure), input_channels=n_in,
-                                      cert_branch=cert_branch, classes=classes,
-                                      norm_act=NormAct(bn_groups=bn_groups))
+        if arch == "custom":
+            self.trgb_segnet = ResNeXtSeg(structure=tuple(structure), input_channels=n_in,
+                                          cert_branch=cert_branch, classes=classes,
+                                          late_fusion=late_fusion,
+                                          norm_act=NormAct(bn_groups=bn_groups))
+            chans = tap_channels(classes, self.trgb_segnet.late_fusion)
+        elif arch == "pspnet":
+            self.trgb_segnet = build_network("resnet50", n_classes=classes,
+                                             in_channels=n_in, late_fusion=late_fusion)
+            chans = pspnet_tap_channels("resnet50", classes, self.trgb_segnet.late_fusion)
+        else:
+            raise ValueError(f"unsupported arch {arch}")
         if input_adapter:
             self.input_adapter_net = UNetAdapter(n_in, n_in)
             self.adapter_disc = create_critic(disc_arch, n_in)
@@ -78,7 +89,6 @@ class ConfSegnet(nn.Module):
                 # that run
                 for i, n in enumerate(NUM_DOWNSCALE[:num_critics - 1]):
                     self.add_module(f"downscale_nets_{i}", DownNet(n, classes))
-            chans = tap_channels(classes, late_fusion)
             for i in range(num_critics):
                 extra = classes if feedback_seg and i > 0 else 0
                 self.add_module(f"critics_{i}", create_critic(disc_arch, chans[i] + extra))
@@ -104,16 +114,25 @@ class ConfSegnet(nn.Module):
         """An input list → (modal_1, modal_2), as the trainer packs it."""
         return (inputs[0], inputs[1]) if len(inputs) == 2 else (inputs[0], None)
 
-    def _segnet(self, inputs):
+    def draw_dropout(self, n: int, generator: torch.Generator
+                     ) -> Optional[tuple]:
+        """The segnet's dropout keep masks for the day and the night forward
+        of batch ``n``, or None when it has no dropout (arch ``custom``)."""
+        draw = getattr(self.trgb_segnet, "draw_dropout", None)
+        return None if draw is None else (draw(n, generator), draw(n, generator))
+
+    def _segnet(self, inputs, dropout: Optional[DropoutMasks]):
         m1, m2 = self._split(inputs)
         needs_graph = not self._segnet_frozen or any(
             t is not None and t.requires_grad for t in (m1, m2))
+        kw = {} if dropout is None else {"dropout": dropout}
         with torch.set_grad_enabled(torch.is_grad_enabled() and needs_graph):
-            return self.trgb_segnet(m1, m2)
+            return self.trgb_segnet(m1, m2, **kw)
 
-    def forward(self, input_a: Sequence[torch.Tensor],
-                input_b: Sequence[torch.Tensor]) -> Dict[str, Any]:
-        """Dual forward (day = a, night = b) over NHWC input lists."""
+    def forward(self, input_a: Sequence[torch.Tensor], input_b: Sequence[torch.Tensor],
+                dropout: Optional[tuple] = None) -> Dict[str, Any]:
+        """Dual forward (day = a, night = b) over NHWC input lists;
+        ``dropout`` is ``draw_dropout``'s pair, needed by a train-mode PSPNet."""
         output: Dict[str, Any] = {}
         if self.input_adapter:
             cat_a, cat_b = (torch.cat(list(i), -1) for i in (input_a, input_b))
@@ -127,8 +146,9 @@ class ConfSegnet(nn.Module):
             else:
                 input_a, input_b = [adapted_a], [adapted_b]
 
-        pred_a, taps_a, cert_a = self._segnet(input_a)
-        pred_b, taps_b, cert_b = self._segnet(input_b)
+        drop_a, drop_b = dropout if dropout is not None else (None, None)
+        pred_a, taps_a, cert_a = self._segnet(input_a, drop_a)
+        pred_b, taps_b, cert_b = self._segnet(input_b, drop_b)
 
         if not self.no_conf:
             output["critics_a"], output["critics_b"] = [], []

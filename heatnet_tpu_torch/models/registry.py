@@ -1,16 +1,45 @@
-"""Model registry: ``get_model(name, **kw)`` (``heatnet_tpu/models/registry.py``).
+"""Model registry: ``get_model(name, **kw)`` and the PSPNet factory
+``build_network`` (``heatnet_tpu/models/registry.py:23-68``).
 
-Holds what the port has so far; other names raise ``KeyError``.
+Holds what the port has so far; other names (mfnet, rtfnet, the cyclegan
+nets, ...) raise ``KeyError``.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
-from .trgb_segnet import net_resnext50
+from .pspnet import PSPNet
+from .trgb_segnet import net_resnext50, net_resnext101, net_resnext152
+
+_PSP_BACKENDS = {
+    # psp_size per backend (build_net.py:7-16)
+    "squeezenet": 512,
+    "densenet": 1024,
+    "resnet18": 512,
+    "resnet34": 512,
+    "resnet50": 2048,
+    "resnet101": 2048,
+    "resnet152": 2048,
+}
+
+
+def build_network(backend: str = "resnet50", n_classes: int = 13,
+                  in_channels: int = 3, late_fusion: bool = False) -> PSPNet:
+    """PSPNet on any of the 7 backends (build_net.py:7-28; snapshot loading
+    is the caller's)."""
+    backend = backend.lower()
+    if backend not in _PSP_BACKENDS:
+        raise KeyError(f"unknown PSPNet backend {backend}")
+    return PSPNet(n_classes=n_classes, psp_size=_PSP_BACKENDS[backend],
+                  backend=backend, in_channels=in_channels, late_fusion=late_fusion)
+
 
 MODELS: Dict[str, Callable] = {
     "net_resnext50": net_resnext50,
+    "net_resnext101": net_resnext101,
+    "net_resnext152": net_resnext152,
+    "pspnet": build_network,
 }
 
 

@@ -1,14 +1,17 @@
 """Where the adversarial trainer's time goes on the card: seg and critic steps.
 
     python -m heatnet_tpu_torch.tools.profile_adversarial [--batch 16] [--iters 10]
+        [--arch custom|pspnet] [--late_fusion]
 
 The JAX bench's adversarial operating point (``tools/bench_train_step.py:140-170``):
-ResNeXt-50 (3,4,6,3), groups 64, dilation (1,1,2,4), early fusion, 6
-``cyclegan`` critics, batch ``--batch`` of 320x640 crops from random 320x960
-frames, ``--moddrop --irscale``, and a random IR-only ResNeXt-50 teacher (the
-night supervision; random weights from seeds). Each step goes through the
-trainer's own pieces: ``DeviceAugment`` (host frames → the card →
-augmentation) and ``train.adversarial``'s ``seg_step`` / ``critic_step``.
+ResNeXt-50 (3,4,6,3), groups 64, dilation (1,1,2,4), early fusion (or
+``--late_fusion``; or ``--arch pspnet``, PSPNet on the dilated ResNet-50),
+6 ``cyclegan`` critics, batch ``--batch`` of 320x640 crops from random
+320x960 frames, ``--moddrop --irscale``, and a random IR-only teacher of the
+same arch (the night supervision; random weights from seeds). Each step
+goes through the trainer's own pieces: ``DeviceAugment`` (host frames → the
+card → augmentation), ``ConfSegnet.draw_dropout`` (PSPNet's masks) and
+``train.adversarial``'s ``seg_step`` / ``critic_step``.
 Reports, for each phase:
 
 - ``step_ms``: CUDA-event time of augmentation + step, median and p95 of
@@ -34,7 +37,7 @@ import torch
 
 def main(argv=None) -> None:
     from ..data.loaders import DeviceAugment
-    from ..models import ConfSegnet, ResNeXtSeg
+    from ..models import ConfSegnet, ResNeXtSeg, build_network
     from ..models.layers import init_params, prepare_for_inference
     from ..train import adversarial as adv
     from ..train.state import init_model
@@ -43,6 +46,8 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, default=16)
     p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--arch", choices=("custom", "pspnet"), default="custom")
+    p.add_argument("--late_fusion", action="store_true")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_adversarial needs a CUDA card")
@@ -51,8 +56,10 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()[0])
 
-    model = init_model(ConfSegnet(disc_arch="cyclegan", num_critics=6), 0, dev)
-    teacher = ResNeXtSeg(structure=(3, 4, 6, 3), input_channels=1)
+    model = init_model(ConfSegnet(disc_arch="cyclegan", num_critics=6, arch=args.arch,
+                                  late_fusion=args.late_fusion), 0, dev)
+    teacher = (build_network("resnet50", in_channels=1) if args.arch == "pspnet"
+               else ResNeXtSeg(structure=(3, 4, 6, 3), input_channels=1))
     init_params(teacher, torch.Generator().manual_seed(1))
     teacher = prepare_for_inference(teacher, dev)
     cfg = adv.AdversarialConfig(moddrop=True, irscale=True, night_supervision=True)
@@ -70,10 +77,16 @@ def main(argv=None) -> None:
            "rgb_night": rng.randint(0, 256, (n, h, w, 3)).astype(np.uint8),
            "ir_night": rng.randint(21000, 26000, (n, h, w)).astype(np.uint16)}
 
+    def seg():
+        batch = augment(generator, raw)
+        draws = adv.draw_seg_aug(generator)
+        draws.dropout = model.draw_dropout(n, generator)
+        return seg_step(state, batch, draws)
+
     steps = {
-        "seg": lambda: seg_step(state, augment(generator, raw),
-                                adv.draw_seg_aug(generator)),
-        "critic": lambda: critic_step(state, augment(generator, raw)),
+        "seg": seg,
+        "critic": lambda: critic_step(state, augment(generator, raw),
+                                      model.draw_dropout(n, generator)),
     }
 
     def timed(fn, iters):
@@ -88,8 +101,9 @@ def main(argv=None) -> None:
             times.append(start.elapsed_time(end))
         return times
 
-    out = {"batch": n, "crop": "320x640", "frames": "320x960", "critics": "6 cyclegan",
-           "teacher": "IR-only ResNeXt-50, eval", "profile_steps": 3}
+    out = {"arch": args.arch + (" late fusion" if args.late_fusion else ""), "batch": n,
+           "crop": "320x640", "frames": "320x960", "critics": "6 cyclegan",
+           "teacher": f"IR-only {args.arch}, eval", "profile_steps": 3}
     for phase, fn in steps.items():
         for _ in range(3):
             fn()

@@ -1,10 +1,14 @@
 """Where a forward's time goes on the card: the main path at batch 1 and 8.
 
     python -m heatnet_tpu_torch.tools.profile_infer [--batches 1 8] [--iters 20]
+        [--arch resnext50|pspnet] [--late_fusion]
 
-For each batch size, ResNeXt-50 (random weights, seed 0) serves random
+For each batch size, the model (random weights, seed 0) serves random
 320x704 uint8/uint16 frames already on the card through the same
-``ingest → model → argmax`` as ``eval.validate.predict``:
+``ingest → model → argmax`` as ``eval.validate.predict``. The model is
+ResNeXt-50, early fusion (one 4-channel input) or ``--late_fusion`` (RGB and
+IR from one two-output ingest launch), or ``--arch pspnet``: PSPNet on the
+dilated ResNet-50, RGB only (``tools/bench_pspnet.py:52-64``).
 
 - ``forward_ms``: CUDA-event time per call, median and p95 of ``--iters``;
 - a ``torch.profiler`` window of 5 calls: device time summed by kernel name
@@ -49,13 +53,15 @@ def _family(name: str) -> str:
 
 
 def main(argv=None) -> None:
-    from ..models import get_model
+    from ..models import build_network, get_model
     from ..models.layers import init_params, prepare_for_inference
     from ..ops import fused_preproc as fp
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batches", nargs="+", type=int, default=[1, 8])
     p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--arch", choices=("resnext50", "pspnet"), default="resnext50")
+    p.add_argument("--late_fusion", action="store_true")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_infer needs a CUDA card")
@@ -64,7 +70,11 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()[0])
 
-    model = get_model("net_resnext50", classes=13, input_channels=4)
+    if args.arch == "pspnet":
+        model = build_network("resnet50", in_channels=3, late_fusion=args.late_fusion)
+    else:
+        model = get_model("net_resnext50", classes=13, input_channels=4,
+                          late_fusion=args.late_fusion)
     init_params(model, torch.Generator().manual_seed(0))
     model = prepare_for_inference(model, dev)
     rng = np.random.RandomState(0)
@@ -75,9 +85,15 @@ def main(argv=None) -> None:
         ir = torch.from_numpy(ir.view(np.int16)).to(dev).view(torch.uint16)
 
         def step():
+            dtype = model.compute_dtype
             with torch.no_grad():
-                x = fp.early_fusion_input(rgb, ir, 0, 704, model.compute_dtype)
-                return model(x)[0].argmax(dim=-1).to(torch.uint8)
+                if args.arch == "pspnet":
+                    ins = (fp.rgb_normalize_fused(rgb, dtype),)
+                elif model.late_fusion:
+                    ins = fp.inference_preprocess_fused(rgb, ir, 0, 704, dtype)
+                else:
+                    ins = (fp.early_fusion_input(rgb, ir, 0, 704, dtype),)
+                return model(*ins)[0].argmax(dim=-1).to(torch.uint8)
 
         for _ in range(3):
             step()
@@ -110,6 +126,7 @@ def main(argv=None) -> None:
         p50 = float(np.median(times))
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
         print(json.dumps({
+            "model": args.arch + (" late fusion" if args.late_fusion else ""),
             "batch": b, "frames": "320x704",
             "forward_ms_p50": p50,
             "forward_ms_p95": float(np.percentile(times, 95)),

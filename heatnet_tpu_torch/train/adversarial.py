@@ -31,7 +31,14 @@ only with ``multidir`` (:197), the certainty loss is weighted x10 (:320),
 and BN statistics update on both forwards (day, then night) of each step.
 Every random draw of the seg phase's augmentation is explicit
 (``SegAugDraws``, from a ``torch.Generator`` by ``draw_seg_aug``), so that
-the tests can feed in the draws of the JAX key.
+the tests can feed in the draws of the JAX key. So are the keep masks of a
+PSPNet segnet's channel dropout, which runs in train mode in both phases
+(the reference never switches the segnet to eval between phases):
+``ConfSegnet.draw_dropout`` draws them, ``SegAugDraws.dropout`` carries the
+seg step's and ``critic_step`` takes the critic step's. The JAX steps take
+theirs from the step key (seg) and from ``fold_in(PRNGKey(1), step)``
+(critic) (adversarial.py:284-289, :339-343); the port's stream differs, the
+distribution is the same.
 """
 
 from __future__ import annotations
@@ -178,6 +185,7 @@ class SegAugDraws:
     irscale_factor: float     # by U(0.1, 1)
     smart: bool               # per-class IR scaling (p = .5)
     smart_factors: torch.Tensor  # (num_classes + 1,) U(0.1, 1)
+    dropout: Optional[tuple] = None  # a PSPNet's keep masks (ConfSegnet.draw_dropout)
 
 
 def draw_seg_aug(generator: torch.Generator, num_classes: int = 13) -> SegAugDraws:
@@ -214,9 +222,9 @@ def make_adversarial_losses(model: nn.Module, cfg: AdversarialConfig,
     forward and returns ``(loss, metrics)``, the loss not yet backpropagated.
 
     ``seg_loss(batch, draws)`` augments the day inputs with ``draws`` first;
-    ``critic_loss(batch)``. ``teacher`` is the frozen night-supervision model,
-    in eval mode (``prepare_for_inference``); its pseudo-labels supervise
-    the night branch.
+    ``critic_loss(batch, dropout=None)``. ``teacher`` is the frozen
+    night-supervision model, in eval mode (``prepare_for_inference``); its
+    pseudo-labels supervise the night branch.
     """
     criterion = conf_criterion(cfg.adv_loss)
 
@@ -226,16 +234,16 @@ def make_adversarial_losses(model: nn.Module, cfg: AdversarialConfig,
                                                   day=False))
         return torch.softmax(out.float(), dim=-1), t_cert
 
-    def forward(batch, phase: str):
+    def forward(batch, phase: str, dropout):
         model.train()
         model.set_phase(phase)
         model.zero_grad(set_to_none=True)
         return model(pack_inputs(batch, cfg.modalities, day=True),
-                     pack_inputs(batch, cfg.modalities, day=False))
+                     pack_inputs(batch, cfg.modalities, day=False), dropout)
 
     def seg_loss_fn(batch, draws: SegAugDraws):
         batch = augment_day(batch, draws, cfg)
-        out = forward(batch, "train_seg")
+        out = forward(batch, "train_seg", draws.dropout)
         label_day = batch["label_day"].long()
         seg_loss = cross_entropy_ignore(out["pred_label_a"], label_day,
                                         ignore_index=-1)
@@ -277,8 +285,8 @@ def make_adversarial_losses(model: nn.Module, cfg: AdversarialConfig,
         metrics.update(conf_loss=conf, seg_loss=seg_loss, total_loss=total)
         return total, metrics
 
-    def critic_loss_fn(batch):
-        loss = critic_loss(forward(batch, "train_critic"), criterion)
+    def critic_loss_fn(batch, dropout=None):
+        loss = critic_loss(forward(batch, "train_critic", dropout), criterion)
         return loss, {"critic_loss": loss, "total_loss": loss}
 
     return seg_loss_fn, critic_loss_fn
@@ -287,9 +295,9 @@ def make_adversarial_losses(model: nn.Module, cfg: AdversarialConfig,
 def make_adversarial_steps(model: nn.Module, cfg: AdversarialConfig,
                            teacher: Optional[nn.Module] = None):
     """``(seg_step, critic_step)``: ``seg_step(state, batch, draws)`` and
-    ``critic_step(state, batch)`` each run one step in place (forward,
-    backward, the phase's optimizer and schedule) and return the step's
-    detached metrics."""
+    ``critic_step(state, batch, dropout=None)`` each run one step in place
+    (forward, backward, the phase's optimizer and schedule) and return the
+    step's detached metrics."""
     seg_loss_fn, critic_loss_fn = make_adversarial_losses(model, cfg, teacher)
 
     def run(loss_fn, phase_state, state, *args):
@@ -302,8 +310,8 @@ def make_adversarial_steps(model: nn.Module, cfg: AdversarialConfig,
     def seg_step(state: AdversarialTrainState, batch, draws: SegAugDraws):
         return run(seg_loss_fn, lambda s: s.seg, state, batch, draws)
 
-    def critic_step(state: AdversarialTrainState, batch):
-        return run(critic_loss_fn, lambda s: s.critic, state, batch)
+    def critic_step(state: AdversarialTrainState, batch, dropout=None):
+        return run(critic_loss_fn, lambda s: s.critic, state, batch, dropout)
 
     return seg_step, critic_step
 

@@ -173,10 +173,13 @@ def test_critic_factory_and_unported_modes():
     assert isinstance(tc.create_critic("cyclegan", 5), tc.FCDiscriminator)
     with pytest.raises(ValueError):
         tc.create_critic("vgg", 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        tx.make_resnet("resnet50", in_channels=4)  # extractor mode
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        tx.make_extractor("densenet")
+    # the extractor modes are ported (tests/test_torch_pspnet.py holds them
+    # to JAX): five taps, deepest first, and no late-fusion DenseNet
+    taps = tx.make_resnet("resnet18", in_channels=4).eval()(torch.zeros(1, 32, 32, 4))
+    assert [t.shape[-1] for t in taps] == tx.feature_channels("resnet18")
+    assert isinstance(tx.make_extractor("densenet"), tx.DenseNetExtractor)
+    with pytest.raises(ValueError, match="late-fusion"):
+        tx.make_extractor("densenet", late_fusion=True)
 
 
 # -- the input adapter -----------------------------------------------------------

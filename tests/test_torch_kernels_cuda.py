@@ -226,3 +226,73 @@ def test_adversarial_steps_launch_each_entry_point_as_the_phase_needs(dev):
         metrics = step()
         assert [k.launches - b for k, b in zip(kernels, before)] == want
         assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+def test_late_fusion_serving_and_steps_launch_the_kernels(dev):
+    """Late fusion at structure (1,1,1,1): 5 grouped convs per forward
+    (mod2_1 and mod2_2, mod3-mod5). Serving takes RGB and IR from one ingest
+    launch; a critic step runs 10 forward launches, a seg step 10 forward,
+    10 dx and the teacher's 4 fused."""
+    from heatnet_tpu_torch.eval import validate
+    from heatnet_tpu_torch.models import ConfSegnet, ResNeXtSeg
+    from heatnet_tpu_torch.models.layers import init_params, prepare_for_inference
+    from heatnet_tpu_torch.train import adversarial as adv
+    from heatnet_tpu_torch.train.state import init_model
+
+    kernels = (fp.INGEST, gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_FUSED,
+               gc.GROUPED_CONV3X3_DX)
+    net = ResNeXtSeg(structure=(1, 1, 1, 1), input_channels=4, late_fusion=True)
+    init_params(net, torch.Generator().manual_seed(0))
+    net = prepare_for_inference(net, dev)
+    rgb, ir = _frames(3, 2, 64, 96)
+    batch = {"rgb": rgb.numpy(), "ir": ir.numpy()}
+    before = [k.launches for k in kernels]
+    maps = validate.predict(net, batch, "ir_rgb", dev)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 0, 5, 0]
+    assert maps.shape == (2, 64, 96) and maps.dtype == torch.uint8
+
+    model = init_model(ConfSegnet(disc_arch="cyclegan", num_critics=6,
+                                  structure=(1, 1, 1, 1), late_fusion=True), 0, dev)
+    teacher = ResNeXtSeg(structure=(1, 1, 1, 1), input_channels=1)
+    init_params(teacher, torch.Generator().manual_seed(1))
+    teacher = prepare_for_inference(teacher, dev)
+    cfg = adv.AdversarialConfig(moddrop=True, irscale=True, night_supervision=True)
+    state = adv.make_phase_optimizers(model, lambda count: 1e-4)
+    seg_step, critic_step = adv.make_adversarial_steps(model, cfg, teacher)
+    g = torch.Generator().manual_seed(2)
+    batch = {k: torch.rand((2, 256, 256, c), generator=g).to(dev)
+             for k, c in (("rgb_day", 3), ("ir_day", 1), ("rgb_night", 3), ("ir_night", 1))}
+    batch["label_day"] = torch.randint(0, 13, (2, 256, 256), generator=g).to(dev)
+    batch["mod_drop_params"] = torch.tensor([[5, 5, 100, 100], [0, 0, 50, 50]])
+    for step, want in ((lambda: critic_step(state, batch), [0, 10, 0, 0]),
+                       (lambda: seg_step(state, batch, adv.draw_seg_aug(g)), [0, 10, 4, 10])):
+        before = [k.launches for k in kernels]
+        metrics = step()
+        assert [k.launches - b for k, b in zip(kernels, before)] == want
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+def test_pspnet_serves_from_the_rgb_ingest_and_trains_with_live_dropout(dev):
+    """RGB-only PSPNet (SqueezeNet backend, small): one ingest launch per
+    forward and no grouped conv; in train mode two dropout draws give two
+    outputs, one draw twice the same output."""
+    from heatnet_tpu_torch.eval import validate
+    from heatnet_tpu_torch.models import build_network
+    from heatnet_tpu_torch.models.layers import init_params, prepare_for_inference
+
+    net = build_network("squeezenet")
+    init_params(net, torch.Generator().manual_seed(0))
+    net = prepare_for_inference(net, dev)
+    rgb, _ = _frames(4, 2, 64, 96)
+    before = (fp.INGEST.launches, gc.GROUPED_CONV3X3_FUSED.launches)
+    maps = validate.predict(net, {"rgb": rgb.numpy()}, "rgb", dev)
+    assert (fp.INGEST.launches, gc.GROUPED_CONV3X3_FUSED.launches) == \
+        (before[0] + 1, before[1])
+    assert maps.shape == (2, 64, 96)
+    x = fp.rgb_normalize_fused(rgb.to(dev), net.compute_dtype)
+    net.train()
+    with torch.no_grad():
+        outs = [net(x, dropout=net.draw_dropout(2, torch.Generator().manual_seed(s)))[0]
+                for s in (0, 0, 1)]
+    assert torch.isfinite(outs[0]).all() and not torch.equal(outs[0], outs[2])
+    assert (outs[0] - outs[1]).abs().max() <= 1e-2 * outs[0].abs().max()

@@ -95,14 +95,19 @@ def test_state_dict_round_trip_hits_every_jax_leaf(small):
 def test_registry_and_unported_variants():
     m = get_model("net_resnext50")
     assert [len(getattr(m, f"mod{i}_1")) for i in (2, 3, 4, 5)] == [3, 4, 6, 3]
-    for kw in ({"late_fusion": True}, {"input_3x3": False}):
-        with pytest.raises(NotImplementedError):
-            ResNeXtSeg(structure=(1, 1, 1, 1), **kw)
+    # late fusion and the 7x7 stem are ported (tests/test_torch_late_fusion.py
+    # holds them to JAX): two stems and two mod2 stages, or a BN-free stem
+    late = ResNeXtSeg(structure=(1, 1, 1, 1), late_fusion=True)
+    assert late.mod1_2.conv1.in_channels == 1 and hasattr(late, "mod2_2")
+    assert late.mod3_1.block1.bn1.bn.num_features == 512
+    vistas = ResNeXtSeg(structure=(1, 1, 1, 1), input_3x3=False)
+    assert vistas.mod1.conv1.kernel_size == (7, 7) and not hasattr(vistas.mod1, "bn1")
     # the cert branch is ported (tests/test_torch_critics.py holds it to JAX)
     assert hasattr(ResNeXtSeg(structure=(1, 1, 1, 1), cert_branch=True),
                    "fuse_seg_cert")
+    assert len(get_model("net_resnext101").mod4_1) == 23
     with pytest.raises(KeyError):
-        get_model("net_resnext101")
+        get_model("mfnet")
 
 
 @pytest.mark.slow

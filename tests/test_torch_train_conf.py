@@ -6,9 +6,11 @@ phases with moddrop, IR scaling, a ``--pretraining`` checkpoint written as
 ``cli.train_plain`` writes one, and an IR-only ResNeXt-50 teacher whose
 checkpoint carries the ``trgb_segnet.`` prefix; the checkpoint reloads
 strictly into a fresh ``ConfSegnet`` and ``--resume auto`` continues from
-it. Every flag that is not ported raises ``NotImplementedError`` with its
-ROADMAP item. The step-level numerics are held against JAX in
-tests/test_torch_adversarial.py.
+it. ``--late_fusion`` and ``--arch pspnet`` (with a PSPNet IR teacher) run
+through both phases. Every flag that is not ported raises
+``NotImplementedError`` with its ROADMAP item. The step-level numerics are
+held against JAX in tests/test_torch_adversarial.py,
+tests/test_torch_late_fusion.py and tests/test_torch_pspnet.py.
 """
 
 import numpy as np
@@ -18,7 +20,7 @@ import torch
 from heatnet_tpu_torch.cli import train_conf
 from heatnet_tpu_torch.data.packed import write_train_pack
 from heatnet_tpu_torch.io.checkpoint import save_checkpoint
-from heatnet_tpu_torch.models import ConfSegnet, ResNeXtSeg
+from heatnet_tpu_torch.models import ConfSegnet, ResNeXtSeg, build_network
 from heatnet_tpu_torch.models.layers import init_params
 
 torch.set_num_threads(2)
@@ -45,6 +47,11 @@ def pack(tmp_path_factory):
     save_checkpoint({"epoch": 1, "state_dict": {
         "trgb_segnet." + k: v for k, v in teacher.state_dict().items()}},
         str(d / "teacher.pth"))
+    psp_teacher = build_network("resnet50", in_channels=1)
+    init_params(psp_teacher, torch.Generator().manual_seed(5))
+    save_checkpoint({"epoch": 1, "state_dict": {
+        "trgb_segnet." + k: v for k, v in psp_teacher.state_dict().items()}},
+        str(d / "psp_teacher.pth"))
     return d
 
 
@@ -91,10 +98,36 @@ def test_train_conf_no_conf_trains_the_segnet_only(pack):
     assert not any(k.startswith("critics_") for k in saved)
 
 
+@pytest.mark.parametrize("flags,teacher", [
+    (["--late_fusion"], "teacher.pth"),
+    (["--arch", "pspnet"], "psp_teacher.pth"),
+    (["--arch", "pspnet", "--late_fusion"], "psp_teacher.pth")],
+    ids=["late_fusion", "pspnet", "pspnet_late_fusion"])
+def test_train_conf_late_fusion_and_pspnet_run_both_phases(pack, capsys, flags, teacher):
+    run = train_conf.main(_argv(
+        pack, *flags, "--n_epochs", "1", "--max_iters_per_epoch", "1",
+        "--iter_initial_critic_phase", "1", "--iter_seg_phase", "1", "--moddrop",
+        "--irscale", "--night_supervision_model", str(pack / teacher),
+        "--checkpointname", str(pack / f"ck_{teacher}{len(flags)}")))
+    out = capsys.readouterr().out
+    t_net = (build_network("resnet50", in_channels=1) if "pspnet" in flags
+             else ResNeXtSeg(structure=(3, 4, 6, 3), input_channels=1))
+    assert f"Loaded dict with {len(t_net.state_dict())} entries" in out
+    assert run.phases == ["train_critic", "train_seg"]
+    assert all(np.isfinite(v) for vs in run.losses.values() for v in vs)
+    kw = dict(disc_arch="resnet18", num_critics=2, structure=(1, 1, 1, 1),
+              late_fusion="--late_fusion" in flags,
+              arch="pspnet" if "pspnet" in flags else "custom")
+    saved = torch.load(run.checkpoint, weights_only=True)["state_dict"]
+    ConfSegnet(**kw).load_state_dict(saved, strict=True)
+    assert ("trgb_segnet.mod1_2.conv1.weight" in saved) == (flags == ["--late_fusion"])
+    assert ("trgb_segnet.feats.conv1_2.weight" in saved) == (len(flags) == 3)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--late_fusion"], 4), (["--arch", "pspnet"], 10), (["--bn_groups", "4"], 7),
-    (["--trainsetname", "MF"], 9), (["--eval", "FR_day"], 5), (["--infer", "x"], 5),
-    (["--testroot_day", "d", "--testroot_night", "n"], 5), (["--vis"], 12)])
+    (["--bn_groups", "4"], 7), (["--trainsetname", "MF"], 9), (["--eval", "FR_day"], 5),
+    (["--infer", "x"], 5), (["--testroot_day", "d", "--testroot_night", "n"], 5),
+    (["--vis"], 12)])
 def test_unported_flags_raise_with_their_roadmap_item(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}\\b"):
         train_conf.main(["--dataroot", "-", *flags])
