@@ -44,7 +44,10 @@ Phases, each of which exits non-zero on failure:
    the teacher's), finite losses, seg- and critic-step p50/p95 and peak
    memory; one seg step's loss and gradients and one critic step's loss
    with the kernels against the plain versions (and the library's grouped
-   conv), and phase isolation on the card;
+   conv), and phase isolation on the card. The run has ``--testroot_day``
+   and ``--testroot_night`` (8-frame trees): its periodic eval every 2
+   epochs logs ``combined_Test mean IoU`` twice and leaves a ``_best``
+   checkpoint, the steps' launches unchanged;
 5. the slice's later paths, each with its launches read around it:
    5a. late-fusion ResNeXt-50 served at batch 8 from a 320x704 pack through
        ``eval.validate.inference``: 1 ingest launch (its two-output mode) and
@@ -60,6 +63,21 @@ Phases, each of which exits non-zero on failure:
        8 steps (no port kernel on this path), step p50/p95, peak memory, and
        a seg step's loss under two dropout draws (dropout is live);
    5e. ``cli.inference --arch resnext101``: 33 fused launches per forward;
+   5f. evaluation on trees the phase writes with the port's PNG writer (no
+       cv2 needed): first the ingest kernel and the fused grouped conv at the
+       eval shapes (batch 16; stages at 80x176/40x88 and, for MFNet's
+       480x640, 120x160/60x80) against their plain versions, then
+       ``cli.train_conf --eval FR_day``, ``FR_night`` (320x960
+       Freiburg trees of 18 and 13 frames) and ``MF_day`` (9 RGBA 480x640
+       frames) with phase 4c's checkpoint, the launches read around each
+       (1 ingest and 16 fused per batch of 16 for Freiburg, 0 and 16 for
+       MFNet's host-normalised frames), IoU vectors, frames/s on the host
+       clock beside the decode time per frame and the card time per batch;
+       the same evaluations through the plain versions (class maps agree on
+       >= 0.99 of pixels, IoU vectors side by side); ``--infer`` with
+       ``--im_save_dir`` on a capture tree, its ``pred_*.png`` decoded and
+       held against the palette-coded class maps; ``cli.inference --batch 8``
+       on that tree;
 6. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
    launches on every path); the last line is ``{"ok": true, "device": {...}}``.
 
@@ -106,6 +124,63 @@ GRAD_TOL = 0.05     # per tensor of norm >= 1e-4 (tests/test_train_parity.py:226
 # 16, 6 cyclegan critics; 32 day and 16 night frames, 2 steps per epoch
 N_ADV, ADV_EPOCHS = 16, 4
 ADV_FRAMES = (32, 16)
+# Evaluation (phase 5f): Freiburg day/night trees at the source size
+# 320x960 (frame counts not multiples of the eval batch, 16), an MFNet tree
+# at 480x640, and 8-frame trees for phase 4c's periodic eval
+EVAL_BATCH, N_EVAL_DAY, N_EVAL_NIGHT, N_EVAL_MF, N_PERIODIC = 16, 18, 13, 9, 8
+
+
+def write_fr_tree(root: str, n: int, seed: int) -> str:
+    """A Freiburg test tree (ImagesRGB/ImagesIR/SegmentationClass, the
+    getPaths layout) of ``n`` 320x960 frames: 8-bit RGB, 16-bit IR in
+    [21000, 26000), ``.npy`` labels 0-13, written with the port's writer."""
+    from heatnet_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    for d in ("ImagesRGB", "ImagesIR", "SegmentationClass"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for i in range(n):
+        stamp = f"{1700000000 + 1000 * seed + i}_{100 * i:09d}"
+        write_png(os.path.join(root, "ImagesRGB", f"{stamp}_rgb.png"),
+                  rng.randint(0, 256, (320, 960, 3)).astype(np.uint8), level=1)
+        write_png(os.path.join(root, "ImagesIR", f"{stamp}_ir.png"),
+                  rng.randint(21000, 26000, (320, 960)).astype(np.uint16), level=1)
+        np.save(os.path.join(root, "SegmentationClass", f"{stamp}.npy"),
+                rng.randint(0, 14, (320, 960)).astype(np.uint8))
+    return root
+
+
+def write_mfnet_tree(root: str, n: int, seed: int) -> str:
+    """An MFNet tree: ``n`` RGBA 480x640 images (alpha = IR), labels 0-8,
+    ``test_day.txt``."""
+    from heatnet_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    for d in ("images", "labels"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    names = [f"{i:05d}D" for i in range(n)]
+    for name in names:
+        write_png(os.path.join(root, "images", name + ".png"),
+                  rng.randint(0, 256, (480, 640, 4)).astype(np.uint8), level=1)
+        write_png(os.path.join(root, "labels", name + ".png"),
+                  rng.randint(0, 9, (480, 640)).astype(np.uint8), level=1)
+    with open(os.path.join(root, "test_day.txt"), "w") as f:
+        f.write("\n".join(names))
+    return root
+
+
+def capture_tree_from(fr_root: str, root: str) -> str:
+    """The frames of a Freiburg test tree as a capture tree (fl_rgb/ +
+    fl_ir_aligned/, stamped names), as ``--infer`` and ``cli.inference`` read."""
+    for d in ("fl_rgb", "fl_ir_aligned"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for name in sorted(os.listdir(os.path.join(fr_root, "ImagesRGB"))):
+        stamp = name[:-len("_rgb.png")]
+        shutil.copy(os.path.join(fr_root, "ImagesRGB", name),
+                    os.path.join(root, "fl_rgb", f"fl_rgb_{stamp}.png"))
+        shutil.copy(os.path.join(fr_root, "ImagesIR", stamp + "_ir.png"),
+                    os.path.join(root, "fl_ir_aligned", f"fl_ir_aligned_{stamp}.png"))
+    return root
 
 
 def fail(msg: str) -> None:
@@ -607,12 +682,19 @@ def run_phases(work: str) -> None:
     (n_day, n_night), h_full, w_full = ADV_FRAMES, 320, 960
     bands = (np.arange(h_full)[:, None] // 64 + np.arange(w_full)[None, :] // 192) % 13
     adv_pack = os.path.join(work, "adv")
+    # random frames: none is a frame of the test trees below
     write_train_pack(
         adv_pack, prng.randint(0, 256, (n_day, h_full, w_full, 3)).astype(np.uint8),
         prng.randint(21000, 26000, (n_day, h_full, w_full)).astype(np.uint16),
         np.broadcast_to(bands, (n_day, h_full, w_full)).astype(np.uint8),
         prng.randint(0, 256, (n_night, h_full, w_full, 3)).astype(np.uint8),
-        prng.randint(21000, 26000, (n_night, h_full, w_full)).astype(np.uint16))
+        prng.randint(21000, 26000, (n_night, h_full, w_full)).astype(np.uint16),
+        test_stamps_filtered=True)
+    t0 = time.perf_counter()
+    periodic_day = write_fr_tree(os.path.join(work, "periodic_day"), N_PERIODIC, 1)
+    periodic_night = write_fr_tree(os.path.join(work, "periodic_night"), N_PERIODIC, 2)
+    print(f"  test trees for the periodic eval: 2 x {N_PERIODIC} frames written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     teacher_net = ResNeXtSeg(structure=(3, 4, 6, 3), input_channels=1)
     init_params(teacher_net, torch.Generator().manual_seed(5))
     teacher_ckpt = save_checkpoint(
@@ -642,8 +724,9 @@ def run_phases(work: str) -> None:
             "--pretraining", "--pretraining_path", plain_ckpt,
             "--iter_initial_critic_phase", "2", "--iter_critic_phase", "2",
             "--iter_seg_phase", "2", "--n_epochs", str(ADV_EPOCHS // 2),
-            "--checkpointname", os.path.join(work, "conf"),
-            "--log_dir", os.path.join(work, "runs")]
+            "--testroot_day", periodic_day, "--testroot_night", periodic_night,
+            "--eval_everyn", "2", "--checkpointname", os.path.join(work, "conf"),
+            "--log_dir", os.path.join(work, "runs_4c")]
     for k in all_kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -680,11 +763,30 @@ def run_phases(work: str) -> None:
         if not all(np.isfinite(losses)):
             fail(f"non-finite {phase} loss {losses}")
     print(f"  peak memory {adv_peak_gb:.2f} GB", flush=True)
+    # the periodic eval: epochs 0 and 2 of 4, each night then day through the
+    # validators (one padded batch of 16 per 8-frame tree), outside the steps
+    step_sum = {k: sum(c[k] for _, c in per_step) for k in adv_launches}
+    periodic_launches = {k: adv_launches[k] - step_sum[k] for k in adv_launches}
+    logged = [json.loads(line) for name in os.listdir(os.path.join(work, "runs_4c"))
+              for line in open(os.path.join(work, "runs_4c", name))]
+    combined = [r["combined_Test mean IoU"] for r in logged if "combined_Test mean IoU" in r]
+    best = os.path.join(work, "conf_best.pth")
+    want_periodic = {"ingest": 4, "grouped_conv3x3": 0, "grouped_conv3x3_fused": 64,
+                     "grouped_conv3x3_dx": 0}
+    print(f"  periodic eval: combined_Test mean IoU {combined} (run.evals {adv_run.evals}); "
+          f"launches outside the steps {periodic_launches} (want {want_periodic}); "
+          f"_best checkpoint {'written' if os.path.exists(best) else 'MISSING'}", flush=True)
+    # best_iou starts at 0, so a first eval of mean IoU 0 is no new best
+    if (len(combined) != 2 or combined != adv_run.evals
+            or os.path.exists(best) != (max(combined) > 0)
+            or periodic_launches != want_periodic):
+        fail("phase 4c's periodic eval did not run as expected")
     saved = torch.load(adv_run.checkpoint, map_location="cpu", weights_only=True)
     conf_net = ConfSegnet(disc_arch="cyclegan", num_critics=6)
     conf_net.load_state_dict(saved["state_dict"], strict=True)
-    if saved["epoch"] != ADV_EPOCHS:
-        fail(f"checkpoint epoch {saved['epoch']}")
+    # written after the last eval, at the end of epoch 2 of 0-3
+    if saved["epoch"] != ADV_EPOCHS - 1 or saved["best_iou"] != max(combined):
+        fail(f"checkpoint epoch {saved['epoch']}, best_iou {saved['best_iou']}")
     del conf_net, saved
 
     # one seg step's loss and gradients and one critic step's loss, kernels
@@ -992,6 +1094,183 @@ def run_phases(work: str) -> None:
     if got != want or r101.maps.shape != (16, H_IN, W_IN) or r101.maps.max() >= 13:
         fail(f"cli.inference --arch resnext101: launches {got}, maps {r101.maps.shape}")
     later["resnext101_serving"] = {"launches": got}
+    torch.cuda.empty_cache()
+
+    # 5f. evaluation: the validators through cli.train_conf --eval / --infer on
+    # trees written here with the port's PNG writer, phase 4c's weights
+    print(f"main path: evaluation, cli.train_conf --eval FR_day / FR_night / MF_day and "
+          f"--infer, ResNeXt-50 (3,4,6,3) early fusion, phase 4c's checkpoint, batch "
+          f"{EVAL_BATCH}", flush=True)
+    t_5f = time.perf_counter()
+    from heatnet_tpu_torch.data import loaders
+    from heatnet_tpu_torch.data.png import read_png
+    from heatnet_tpu_torch.utils.vis import color_code_labels
+
+    t0 = time.perf_counter()
+    fr_day = write_fr_tree(os.path.join(work, "fr_day"), N_EVAL_DAY, 3)
+    fr_night = write_fr_tree(os.path.join(work, "fr_night"), N_EVAL_NIGHT, 4)
+    mf_root = write_mfnet_tree(os.path.join(work, "mfnet"), N_EVAL_MF, 5)
+    capture = capture_tree_from(fr_day, os.path.join(work, "capture"))
+    print(f"  trees written in {time.perf_counter() - t0:.1f} s: Freiburg day "
+          f"{N_EVAL_DAY} and night {N_EVAL_NIGHT} frames (320x960), MFNet "
+          f"{N_EVAL_MF} (480x640), a capture tree of the day frames", flush=True)
+    # the kernels at the shapes evaluation gives them, against their plain
+    # versions: ingest at batch 16 of 320x960 frames (the 148:852 window), the
+    # fused grouped conv at batch 16 on the 320x704 and the 480x640 stages
+    rgb, ir = frames(EVAL_BATCH, H_IN, 960)
+    ingest_err = max(ingest_err, check(
+        f"early_fusion_input ({EVAL_BATCH},{H_IN},960)[148:852] bf16",
+        fp.early_fusion_input(rgb, ir, 148, 852, torch.bfloat16),
+        torch.cat([fp.rgb_plain(rgb[..., 148:852, :]), fp.ir_plain(ir[..., 148:852, :])],
+                  -1).to(torch.bfloat16), *tol[torch.bfloat16]))
+    del rgb, ir
+    for geo, (h2, w2) in (("320x704", (80, 176)), ("480x640", (120, 160))):
+        for name, c, cpg, d, _, _, _ in STAGES:
+            h, w = (h2, w2) if name == "mod2" else (h2 // 2, w2 // 2)
+            g = torch.Generator(device="cpu").manual_seed(c + h)
+            x = torch.randn((EVAL_BATCH, h, w, c), generator=g).to(dev, torch.bfloat16)
+            wt = (torch.randn((c, cpg, 3, 3), generator=g) / (9 * cpg) ** 0.5
+                  ).to(dev, torch.bfloat16)
+            scale = (torch.rand(c, generator=g) + 0.5).to(dev)
+            bias = (torch.randn(c, generator=g) * 0.1).to(dev)
+            gc_err = max(gc_err, check(
+                f"grouped_conv3x3_fused {name} {geo} ({EVAL_BATCH},{h},{w},{c})",
+                gc.grouped_conv3x3_fused(x, wt, scale, bias, c // cpg, d),
+                gc.grouped_conv3x3_plain(x, wt, c // cpg, d, scale, bias, "relu"), *gc_tol))
+    del x, wt, scale, bias
+    torch.cuda.empty_cache()
+    eval_argv =["--resume", adv_run.checkpoint, "--discarch", "cyclegan",
+                 "--num_critics", "6", "--log_dir", os.path.join(work, "runs_5f")]
+    recorded = {}
+
+    def recording(fn, what):
+        """``fn`` with its frames counted and its wall time (decode ahead on
+        threads, H2D, ingest, forward, counts) taken on the host clock."""
+        def run(model, frames, *a, **kw):
+            seen = []
+
+            def counted():
+                for f in frames:
+                    seen.append(1)
+                    yield f
+            t1 = time.perf_counter()
+            ious = fn(model, counted(), *a, **kw)
+            torch.cuda.synchronize()
+            recorded[what] = (ious, len(seen), time.perf_counter() - t1)
+            return ious
+        return run
+
+    eval_results = {}
+    for what, flags, fn_name, n_frames, per_batch in (
+            ("FR_day", ["--testroot_day", fr_day], "validate_model", N_EVAL_DAY,
+             {"ingest": 1, "grouped_conv3x3_fused": 16}),
+            ("FR_night", ["--testroot_night", fr_night], "validate_model", N_EVAL_NIGHT,
+             {"ingest": 1, "grouped_conv3x3_fused": 16}),
+            ("MF_day", ["--testroot_mfnet", mf_root], "validate_model_mfnet", N_EVAL_MF,
+             {"ingest": 0, "grouped_conv3x3_fused": 16})):
+        batches = -(-n_frames // EVAL_BATCH)
+        want = {k.name: per_batch.get(k.name, 0) * batches for k in all_kernels}
+        for k in all_kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(train_conf, fn_name,
+                               recording(getattr(train_conf, fn_name), what)):
+            miou = train_conf.main(["--eval", what, *flags, *eval_argv])
+        wall = time.perf_counter() - t0
+        got = counts()
+        ious, n_seen, secs = recorded[what]
+        print(f"  --eval {what}: IoUs {np.round(ious, 6).tolist()} mean {miou:.6f}; "
+              f"launches {got} over {batches} batches (want {want}); {n_seen} frames in "
+              f"{secs:.3f} s, {n_seen / secs:.1f} frames/s (host clock, decode ahead + "
+              f"H2D + forward + counts; CLI call {wall:.1f} s)", flush=True)
+        ok = (ious.shape == (12,) and np.all((ious >= 0) | np.isnan(ious))
+              and np.all((ious <= 1) | np.isnan(ious)) and np.isfinite(miou)
+              and abs(miou - float(np.nanmean(ious))) < 1e-12)
+        if got != want or n_seen != n_frames or not ok:
+            fail(f"--eval {what}: launches {got}, {n_seen} frames, IoUs {ious}")
+        eval_results[what] = {"launches": got, "ious": ious.tolist(), "mean_iou": miou,
+                              "frames": n_seen, "seconds": secs,
+                              "frames_per_s": n_seen / secs}
+
+    # the same evaluations through the plain versions, from the same weights;
+    # the decode time per frame (one thread) and the card time per batch
+    conf_net = ConfSegnet(disc_arch="cyclegan", num_critics=6)
+    conf_net.load_state_dict(torch.load(adv_run.checkpoint, map_location="cpu",
+                                        weights_only=True)["state_dict"], strict=True)
+    seg_net = train_conf.eval_copy(conf_net.trgb_segnet, dev)
+    del conf_net
+    for what, ds, modalities, validator, patches in (
+            ("FR_day", loaders.FreiburgThermalTestDataset(*loaders.get_test_paths([fr_day])),
+             "ir_rgb", validate.validate_model,
+             [(fp, "early_fusion_input", ingest_plain), (gc, "grouped_conv3x3_fused", conv_plain)]),
+            ("MF_day", loaders.MFNetDataset(mf_root, "day"), "ir_rgb",
+             validate.validate_model_mfnet, [(gc, "grouped_conv3x3_fused", conv_plain)])):
+        t0 = time.perf_counter()
+        frames_ = [ds[i] for i in range(len(ds))]
+        decode_ms = (time.perf_counter() - t0) * 1e3 / len(ds)
+        maps_k = validate.inference(seg_net, frames_, EVAL_BATCH, dev, modalities)
+        ious_k = validator(seg_net, frames_, modalities, device=dev)
+        with contextlib.ExitStack() as stack:
+            for obj, name, fn in patches:
+                stack.enter_context(mock.patch.object(obj, name, fn))
+            maps_p = validate.inference(seg_net, frames_, EVAL_BATCH, dev, modalities)
+            ious_p = validator(seg_net, frames_, modalities, device=dev)
+        agree = float((maps_k == maps_p).mean())
+        batch, _ = next(validate.batched(iter(frames_), EVAL_BATCH,
+                                         validate.modality_keys(modalities)))
+        card_ms = time_ms(lambda: validate.predict(seg_net, batch, modalities, dev), reps=5)
+        print(f"  {what}, kernels vs plain versions: class-map agreement {agree:.6f} "
+              f"(need >= {MIN_AGREEMENT}); IoUs kernels {np.round(ious_k, 6).tolist()}, "
+              f"plain {np.round(ious_p, 6).tolist()}; CLI pass equal to this pass: "
+              f"{np.allclose(ious_k, eval_results[what]['ious'], equal_nan=True)}",
+              flush=True)
+        print(f"  {what}: decode {decode_ms:.2f} ms per frame (one thread: PNG decode, "
+              f"resize, crop); batch of {EVAL_BATCH} {card_ms:.2f} ms on the card clock "
+              f"(H2D, ingest, forward, argmax; CUDA events)", flush=True)
+        if agree < MIN_AGREEMENT:
+            fail(f"{what}: class-map agreement {agree} < {MIN_AGREEMENT}")
+        eval_results[what].update(agreement_with_plain=agree, plain_ious=ious_p.tolist(),
+                                  decode_ms_per_frame=decode_ms, batch_card_ms=card_ms)
+
+    # --infer with --im_save_dir: the dumps against the palette-coded maps
+    dumps = os.path.join(work, "dumps")
+    n_cap = len(os.listdir(os.path.join(capture, "fl_rgb")))
+    batches = -(-n_cap // EVAL_BATCH)
+    for k in all_kernels:
+        k.launches = 0
+    train_conf.main(["--infer", capture, "--im_save_dir", dumps, *eval_argv])
+    got = counts()
+    want = {"ingest": batches, "grouped_conv3x3": 0, "grouped_conv3x3_fused": 16 * batches,
+            "grouped_conv3x3_dx": 0}
+    infer_ds = loaders.FreiburgInferDataset(capture)
+    maps = validate.inference(seg_net, [infer_ds[i] for i in range(n_cap)], EVAL_BATCH, dev)
+    same = np.mean([(read_png(os.path.join(dumps, f"pred_{i}.png"))
+                     == (np.clip(color_code_labels(maps[i]), 0, 1) * 255).astype(np.uint8)
+                     ).all(-1).mean() for i in range(n_cap)])
+    print(f"  --infer: launches {got} (want {want}); {n_cap} pred_*.png decoded, "
+          f"{same:.6f} of pixels equal to the palette-coded class maps", flush=True)
+    if got != want or same < MIN_AGREEMENT:
+        fail(f"--infer: launches {got}, dump agreement {same}")
+    eval_results["infer"] = {"launches": got, "dump_agreement": float(same)}
+    del seg_net
+
+    # cli.inference on the capture tree, batch 8, decode ahead on threads
+    for k in all_kernels:
+        k.launches = 0
+    served = cli.main(["--data", capture, "--batch", str(N_BATCH), "--iters", "1"])
+    torch.cuda.synchronize()
+    forwards = 1 + 1 + -(-n_cap // N_BATCH)  # warm-up, one timing iteration, batches
+    got = counts()
+    want = {"ingest": forwards, "grouped_conv3x3": 0, "grouped_conv3x3_fused": 16 * forwards,
+            "grouped_conv3x3_dx": 0}
+    print(f"  cli.inference --data <capture tree> --batch {N_BATCH}: launches {got} (want "
+          f"{want}); {served.frames_per_second:.1f} frames/s end to end; phase "
+          f"{time.perf_counter() - t_5f:.1f} s", flush=True)
+    if got != want or served.maps.shape != (n_cap, H_IN, W_IN):
+        fail(f"cli.inference on a capture tree: launches {got}, maps {served.maps.shape}")
+    eval_results["cli_inference_png"] = {"launches": got,
+                                         "frames_per_s": served.frames_per_second}
+    later.update({f"eval_{k}": v for k, v in eval_results.items()})
     torch.cuda.empty_cache()
 
     # 6. the record: each kernel's launches on every path, read around it

@@ -20,15 +20,20 @@ Conventions:
 Package map:
 
 - ``ops``     ingest normalisers, the grouped 3x3 conv and its autograd
-              Function (kernels + plain), train augmentation, IoU
+              Function (kernels + plain), train augmentation, IoU counts
 - ``models``  layers (eval and train mode), ``ResNeXtSeg`` and the registry
 - ``kernels`` the nvcc build and ctypes binding of ``csrc/*.cu``
 - ``io``      JAX parameter trees → ``state_dict``; checkpoints; run logs
-- ``data``    inference and train packs, batches, augmentation on the device
+- ``data``    inference and train packs, a PNG codec (zlib + numpy), eval
+              loaders of PNG trees, batches, augmentation on the device
 - ``train``   loss, train/eval steps, optimizers and schedules, train state
-- ``eval``    batched inference to uint8 class maps
-- ``cli``     the ``inference`` and ``train_plain`` entry points
-- ``tools``   profilers of the forward and the training step on the card
+- ``eval``    the validators (per-class IoU) and batched inference to
+              uint8 class maps
+- ``utils``   label colour coding and PNG dumps
+- ``cli``     the ``inference``, ``train_plain`` and ``train_conf`` entry
+              points (``train_conf`` also evaluates and infers)
+- ``tools``   profilers of the forward and the training steps on the card,
+              the PNG decoder's timing
 """
 
 __version__ = "0.1.0"

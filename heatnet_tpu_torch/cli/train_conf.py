@@ -19,34 +19,59 @@ the ``trgb_segnet.`` prefix stripped, in eval mode: a ResNeXt-50 (its
 grouped convs run the fused kernel on the card) or, with ``--arch pspnet``,
 a PSPNet-ResNet-50, late fusion when it takes RGB and IR (:168-190).
 PSPNet's channel dropout draws its masks from the run's generator in both
-phases. ``--resume`` (or ``auto``) restores a checkpoint of this trainer. Checkpoints are
-``torch.save({"epoch", "state_dict", "best_iou"})`` files,
-``<checkpointname>.pth``, one per epoch: the JAX trainer writes one after
-each periodic eval, which is not ported yet. Weights are random from seed 0
-otherwise. Runs on the card unless ``--device cpu``.
+phases. ``--resume`` (or ``auto``) restores a checkpoint of this trainer.
+Weights are random from seed 0 otherwise. Runs on the card unless
+``--device cpu``.
+
+Evaluation (:266-314, :447-464) runs a copy of the live ``trgb_segnet``,
+prepared for inference, so the training state is untouched:
+
+- ``--eval FR_day|FR_night|MF_day|MF_night|BDD`` validates on the
+  ``--testroot_day``, ``--testroot_night`` (+ ``--testroot_fence``),
+  ``--testroot_mfnet`` or ``--bdd_dir`` tree, prints the IoU vector, its
+  mean and ``Eval successfull!``, and returns the mean; ``--infer DIR``
+  serves a capture tree, with ``--im_save_dir`` for PNG dumps (also of
+  ``--eval``). BDD's JPEGs need cv2.
+- With ``--testroot_day`` and ``--testroot_night`` the trainer validates
+  night and day every ``--eval_everyn`` epochs (2 for FR), logs
+  ``combined_Test mean IoU`` and writes ``<checkpointname>.pth`` with
+  ``best_iou``, and ``<checkpointname>_best.pth`` at a new best. Without
+  them it writes ``<checkpointname>.pth`` after every epoch, where the JAX
+  trainer writes none.
+
+Checkpoints are ``torch.save({"epoch", "state_dict", "best_iou"})`` files.
+The logged loss averages take the losses of the log points only, as the
+JAX trainer's do.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``--bn_groups > 1`` (7), ``--trainsetname MF`` (9), ``--eval``/``--infer``
-and the periodic eval of ``--testroot_*`` (5: the validators and the PNG
-trees, whose loader needs cv2), ``--vis`` (12).
+``--bn_groups > 1`` (4), ``--trainsetname MF`` (3), ``--vis`` (8).
 
 Usage::
 
     python -m heatnet_tpu_torch.cli.train_conf --dataroot TRAIN_PACK --moddrop --irscale
+    python -m heatnet_tpu_torch.cli.train_conf --eval FR_day --testroot_day TREE --resume CK
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
+import json
+import os
 import time
 from typing import Dict, List
 
+import numpy as np
 import torch
 
-from ..data.loaders import DeviceAugment, batch_iterator
+from ..data.loaders import (BDDValDataset, DeviceAugment, FreiburgInferDataset,
+                            FreiburgThermalTestDataset, MFNetDataset, batch_iterator,
+                            get_test_paths, get_test_stamps, prefetch_items)
 from ..data.packed import PackedFreiburgTrainDataset, is_train_pack_dir
 from ..device import resolve
+from ..eval.validate import (eval_batch_size, inference, validate_model,
+                             validate_model_bdd, validate_model_mfnet)
 from ..io.checkpoint import (best_iou_tracker, load_state_dict, restore_partial,
                              restore_renamed, resolve_auto_resume, save_checkpoint)
 from ..io.logging import AverageMeter, RunLogger
@@ -63,8 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="HeatNet adversarial trainer (PyTorch/CUDA)")
     p.add_argument('--epoch', type=int, default=0, help='starting epoch')
     p.add_argument('--n_epochs', type=int, default=100)
-    p.add_argument('--dataroot', type=str, required=True,
-                   help='heatnet-train-pack-v1 directory')
+    p.add_argument('--dataroot', type=str, default='',
+                   help='heatnet-train-pack-v1 directory (needed to train)')
     p.add_argument('--testroot_day', type=str, default='')
     p.add_argument('--testroot_night', type=str, default='')
     p.add_argument('--testroot_fence', type=str, default='')
@@ -136,17 +161,14 @@ class TrainConfRun:
     phases: List[str]               # the phase of each iteration
     step_seconds: List[float]       # each step, augmentation to loss on the host
     checkpoint: str                 # the last checkpoint written
+    evals: List[float] = dataclasses.field(default_factory=list)  # combined mean IoUs
 
 
 def _refuse_unported(opt: argparse.Namespace) -> None:
     unported = [
-        (opt.bn_groups > 1, "--bn_groups > 1", 7),
-        (opt.trainsetname == "MF", "--trainsetname MF", 9),
-        (bool(opt.eval), "--eval", 5),
-        (bool(opt.infer), "--infer", 5),
-        (bool(opt.testroot_day or opt.testroot_night or opt.testroot_fence
-              or opt.testroot_mfnet), "the periodic eval of --testroot_*", 5),
-        (opt.vis, "--vis", 12),
+        (opt.bn_groups > 1, "--bn_groups > 1", 4),
+        (opt.trainsetname == "MF", "--trainsetname MF", 3),
+        (opt.vis, "--vis", 8),
     ]
     for hit, flag, item in unported:
         if hit:
@@ -154,6 +176,63 @@ def _refuse_unported(opt: argparse.Namespace) -> None:
                 f"{flag} is not ported to heatnet_tpu_torch yet (ROADMAP item {item})")
     if opt.trainsetname != "FR":
         raise SystemExit(f"Dataset {opt.trainsetname} not known")
+
+
+def open_train_pack(path: str, test_stamps) -> PackedFreiburgTrainDataset:
+    """The train pack, refused where training on it could include eval
+    frames: a pack of another split, or one packed without test-stamp
+    filtering while test trees are given (``open_freiburg_train``,
+    ``heatnet_tpu/data/loaders.py:159-194``)."""
+    if not is_train_pack_dir(path):
+        raise SystemExit(f"{path!r} is not a heatnet-train-pack-v1 directory "
+                         "(PNG training trees are not read by the port yet)")
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    if meta.get("split", "train") != "train":
+        raise ValueError(f"train pack {path} was packed with split={meta['split']!r}, "
+                         "not 'train'")
+    if test_stamps and not meta.get("test_stamps_filtered", False):
+        raise ValueError(f"train pack {path} was packed without test-stamp filtering "
+                         "but --testroot_* trees were given; training on it would "
+                         "include eval frames")
+    return PackedFreiburgTrainDataset(path)
+
+
+def eval_copy(segnet: torch.nn.Module, device: torch.device) -> torch.nn.Module:
+    """A copy of ``segnet`` prepared for inference; ``prepare_for_inference``
+    casts weights in place and sets eval mode, which must not reach the
+    network that trains."""
+    return prepare_for_inference(copy.deepcopy(segnet), device)
+
+
+def _fr_test_set(roots) -> FreiburgThermalTestDataset:
+    return FreiburgThermalTestDataset(*get_test_paths([r for r in roots if r]))
+
+
+def run_eval(opt: argparse.Namespace, segnet: torch.nn.Module, device: torch.device,
+             logger: RunLogger) -> float:
+    """``--eval`` (train_conf.py:280-314): the IoU vector of one test set."""
+    print('Starting evaluation on: %s....' % opt.eval)
+    night = "night" in opt.eval
+    mode = "night" if night else "day"
+    kw = dict(logger=logger, save_dir=opt.im_save_dir, device=device)
+    if "FR" in opt.eval:
+        roots = [opt.testroot_night, opt.testroot_fence] if night else [opt.testroot_day]
+        ious = validate_model(segnet, prefetch_items(_fr_test_set(roots)),
+                              opt.modalities, mode=mode, **kw)
+    elif "MF" in opt.eval:
+        ds = MFNetDataset(opt.testroot_mfnet, split=mode)
+        ious = validate_model_mfnet(segnet, prefetch_items(ds), opt.modalities,
+                                    mode=mode, **kw)
+    elif "BDD" in opt.eval:
+        ious = validate_model_bdd(segnet, prefetch_items(BDDValDataset(opt.bdd_dir)), **kw)
+    else:
+        print('Eval dataset %s not known... exiting' % opt.eval)
+        return 0.0
+    print(ious)
+    print(np.nanmean(ious))
+    print('Eval successfull!')
+    return float(np.nanmean(ious))
 
 
 def load_teacher(path: str, modalities: str, cert_branch: bool,
@@ -172,13 +251,22 @@ def load_teacher(path: str, modalities: str, cert_branch: bool,
     return prepare_for_inference(teacher, device)
 
 
-def main(argv=None) -> TrainConfRun:
+def main(argv=None):
+    """Train and return a ``TrainConfRun``; with ``--eval`` return the mean
+    IoU, with ``--infer`` 0.0, as the JAX trainer returns."""
     opt = build_parser().parse_args(argv)
     _refuse_unported(opt)
     device = resolve(opt.device)
-    if not is_train_pack_dir(opt.dataroot):
-        raise SystemExit(f"{opt.dataroot} is not a heatnet-train-pack-v1 directory "
-                         "(PNG training trees are not read by the port yet)")
+    if opt.eval != "":
+        print('##############EVALUATING MODE##############')
+    if opt.infer != "":
+        print('##############INFERENCE MODE##############')
+    training = not (opt.eval or opt.infer)
+    test_roots = [r for r in (opt.testroot_night, opt.testroot_day) if r]
+    if training:
+        ds = open_train_pack(opt.dataroot,
+                             get_test_stamps(get_test_paths(test_roots)[2]) if test_roots
+                             else None)
     logger = RunLogger("hotnet", log_dir=opt.log_dir)
 
     model = init_model(ConfSegnet(
@@ -190,6 +278,35 @@ def main(argv=None) -> TrainConfRun:
     if opt.pretraining:
         # the supervised segnet into trgb_segnet (conf_segnet.py:80-81)
         restore_partial(model.trgb_segnet, load_state_dict(opt.pretraining_path))
+
+    # n_epochs and the halving period double when both nets train (:204-208)
+    n_epochs, half_every = opt.n_epochs, opt.half_lr_every_epoch
+    if not opt.no_conf:
+        n_epochs *= 2
+        half_every *= 2
+
+    best_track = best_iou_tracker()
+    start_epoch = opt.epoch
+    resume = resolve_auto_resume(opt.resume, opt.checkpointname + ".pth")
+    if resume:
+        saved = torch.load(resume, map_location="cpu", weights_only=True)
+        restore_partial(model, saved["state_dict"])
+        start_epoch = int(saved.get("epoch", 0))
+        best_track.state["best"] = float(saved.get("best_iou", 0.0))
+
+    # --infer and --eval run the bare segnet (:266-314)
+    if opt.infer != "":
+        print('Starting inference on: %s....' % opt.infer)
+        inference(eval_copy(model.trgb_segnet, device),
+                  prefetch_items(FreiburgInferDataset(opt.infer)), eval_batch_size(),
+                  device, opt.modalities, save_dir=opt.im_save_dir)
+        print('Inference successfull !!!!')
+        logger.finish()
+        return 0.0
+    if opt.eval != "":
+        miou = run_eval(opt, eval_copy(model.trgb_segnet, device), device, logger)
+        logger.finish()
+        return miou
 
     teacher = None
     ns_mod = opt.night_supervision_model_modalities or "ir"
@@ -207,22 +324,6 @@ def main(argv=None) -> TrainConfRun:
         iter_critic_phase=opt.iter_critic_phase,
         iter_initial_critic_phase=opt.iter_initial_critic_phase)
 
-    # n_epochs and the halving period double when both nets train (:204-208)
-    n_epochs, half_every = opt.n_epochs, opt.half_lr_every_epoch
-    if not opt.no_conf:
-        n_epochs *= 2
-        half_every *= 2
-
-    best_track = best_iou_tracker()
-    start_epoch = opt.epoch
-    resume = resolve_auto_resume(opt.resume, opt.checkpointname + ".pth")
-    if resume:
-        saved = torch.load(resume, map_location="cpu", weights_only=True)
-        restore_partial(model, saved["state_dict"])
-        start_epoch = int(saved.get("epoch", 0))
-        best_track.state["best"] = float(saved.get("best_iou", 0.0))
-
-    ds = PackedFreiburgTrainDataset(opt.dataroot)
     augment = DeviceAugment(crop_hw=(opt.crop_height, opt.crop_width), device=device)
     steps_per_epoch = max(len(ds) // opt.batch_size, 1)
     if opt.max_iters_per_epoch:
@@ -233,6 +334,7 @@ def main(argv=None) -> TrainConfRun:
                        steps_per_epoch=steps_per_epoch))
     seg_step, critic_step = make_adversarial_steps(model, cfg, teacher)
     pm = PhaseMachine(cfg, no_conf=opt.no_conf)
+    eval_everyn = opt.eval_everyn or 2  # FR's period (:349)
     log_everyn = max(opt.log_everyn, 1)
     meters = {k: AverageMeter() for k in
               ("total_phase1", "total_phase2", "seg", "conf", "critic")}
@@ -257,28 +359,44 @@ def main(argv=None) -> TrainConfRun:
             run.step_seconds.append(time.perf_counter() - t0)
             run.losses[phase].append(total)
             run.phases.append(phase)
-            if phase == "train_seg":
-                meters["total_phase1"].update(total)
-                meters["seg"].update(float(m["seg_loss"]))
-                meters["conf"].update(float(m["conf_loss"]))
-            else:
-                meters["total_phase2"].update(total)
-                meters["critic"].update(float(m["critic_loss"]))
+            # the meters average the log points' losses only (:425-443)
             if (i % log_everyn) == 0 or i == steps_per_epoch - 1:
                 if phase == "train_seg":
+                    meters["total_phase1"].update(total)
+                    meters["seg"].update(float(m["seg_loss"]))
+                    meters["conf"].update(float(m["conf_loss"]))
                     logger.log({"epoch": epoch,
                                 "total_loss_phase1": meters["total_phase1"].avg,
                                 "seg_loss": meters["seg"].avg,
                                 "conf_loss": float(m["conf_loss"])})
                 else:
+                    meters["total_phase2"].update(total)
+                    meters["critic"].update(float(m["critic_loss"]))
                     logger.log({"epoch": epoch,
                                 "total_loss_phase2": meters["total_phase2"].avg,
                                 "critic_loss": meters["critic"].avg})
                 print("Current loss: %f " % meters[
                     "total_phase1" if phase == "train_seg" else "total_phase2"].avg)
-        run.checkpoint = save_checkpoint(
-            {"epoch": epoch + 1, "state_dict": model.state_dict(),
-             "best_iou": best_track.state["best"]}, opt.checkpointname + ".pth")
+
+        bundle = lambda: {"epoch": epoch + 1, "state_dict": model.state_dict(),
+                          "best_iou": best_track.state["best"]}
+        if not (opt.testroot_night and opt.testroot_day):
+            run.checkpoint = save_checkpoint(bundle(), opt.checkpointname + ".pth")
+        elif epoch % eval_everyn == 0:  # the periodic eval (:447-464)
+            segnet = eval_copy(model.trgb_segnet, device)
+            ious_night = validate_model(
+                segnet, prefetch_items(_fr_test_set([opt.testroot_night, opt.testroot_fence])),
+                opt.modalities, mode="night", logger=logger, device=device)
+            ious_day = validate_model(
+                segnet, prefetch_items(_fr_test_set([opt.testroot_day])),
+                opt.modalities, mode="day", logger=logger, device=device)
+            del segnet
+            iou_mean = float(np.nanmean((ious_day + ious_night) / 2))
+            logger.log({"combined_Test mean IoU": iou_mean})
+            run.evals.append(iou_mean)
+            is_best = best_track(iou_mean)
+            run.checkpoint = save_checkpoint(bundle(), opt.checkpointname + ".pth",
+                                             is_best=is_best)
     logger.finish()
     return run
 

@@ -1,1 +1,1 @@
-"""Frame packs (inference and train), batches, augmentation on the device."""
+"""Frame packs, PNG files, eval loaders, batches, augmentation on the device."""

@@ -1,23 +1,314 @@
-"""Training batches: a numpy batch iterator and the augmentation on the card.
+"""Eval loaders of PNG trees, training batches, and the augmentation on the card.
 
-Counterpart of ``heatnet_tpu/data/loaders.py:494-591``. ``batch_iterator`` is
-a copy (numpy and a prefetch thread). ``DeviceAugment`` moves a raw batch to
-the device and runs ``ops.preprocess.train_sample_preprocess`` over it,
-batched, with every sample's random parameters drawn from the caller's
-``torch.Generator`` (the JAX version vmaps the chain over per-sample keys).
+Counterpart of ``heatnet_tpu/data/loaders.py:43-67,216-339,426-591``.
+
+The eval loaders (``FreiburgThermalTestDataset``, ``FreiburgInferDataset``,
+``MFNetDataset``, ``BDDValDataset``) return the JAX loaders' items: same
+keys, dtypes and shapes. They decode PNGs with ``data.png`` and resize with
+``resize``, a numpy copy of ``cv2.resize`` as the JAX loaders call it, so
+that the port does not depend on cv2. Only ``BDDValDataset`` needs cv2, for
+JPEG.
+
+``batch_iterator`` and ``prefetch_items`` are copies (numpy and threads).
+``DeviceAugment`` moves a raw batch to the device and runs
+``ops.preprocess.train_sample_preprocess`` over it, batched, with every
+sample's random parameters drawn from the caller's ``torch.Generator`` (the
+JAX version vmaps the chain over per-sample keys).
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
-from typing import Dict, Iterator, Optional, Tuple, Union
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from glob import glob
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..device import resolve
 from ..ops.preprocess import TRAIN_WINDOW, draw_train_params, train_sample_preprocess
+from .png import read_png
+
+IR_RES = (960, 320)  # (W, H), thermal_loader.py:622
+_COEF_BITS = 11      # cv2's INTER_RESIZE_COEF_BITS
+
+
+def _scale(n_in: int, n_out: int) -> float:
+    return 1.0 / (n_out / n_in)  # cv2's 1/inv_scale, which can round off in/out
+
+
+def _linear_taps(n_in: int, n_out: int, fraction_in_float32: bool):
+    """Source index and fraction per output position, half-pixel centres
+    (``cv2.resize``'s INTER_LINEAR); the fraction is taken in float32 (its
+    fixed-point path) or in float64 (its 16-bit path)."""
+    f = (np.arange(n_out) + 0.5) * _scale(n_in, n_out) - 0.5
+    if fraction_in_float32:
+        f = f.astype(np.float32)
+    s = np.floor(f).astype(np.intp)
+    return s, (f - s).astype(np.float32)
+
+
+def resize(img: np.ndarray, wh: Tuple[int, int], nearest: bool = False) -> np.ndarray:
+    """``cv2.resize(img, wh, interpolation=INTER_NEAREST if nearest else
+    INTER_LINEAR)`` for (H, W) or (H, W, C) images, in numpy.
+
+    NEAREST (any dtype): ``src = floor(dst / (out / in))``. LINEAR on uint8:
+    cv2's fixed-point path (11-bit coefficients; an integer horizontal sum;
+    the vertical sum as its SIMD rows compute it), equal to cv2 on every
+    shape measured. LINEAR on uint16: float32 coefficients and sums, rounded
+    half to even; cv2 breaks exact ties another way on a few pixels (at most
+    1 count; tests/test_torch_png.py states the shares). A resize to the
+    same size is a copy.
+    """
+    w_out, h_out = wh
+    h, w = img.shape[:2]
+    if (w, h) == (w_out, h_out):
+        return img.copy()
+    if nearest:
+        ys = np.minimum(np.floor(np.arange(h_out) * _scale(h, h_out)).astype(np.intp), h - 1)
+        xs = np.minimum(np.floor(np.arange(w_out) * _scale(w, w_out)).astype(np.intp), w - 1)
+        return img[ys[:, None], xs[None, :]]
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"linear resize of {img.dtype} is not supported (uint8, uint16)")
+    fixed = img.dtype == np.uint8
+    sx, fx = _linear_taps(w, w_out, fixed)
+    sy, fy = _linear_taps(h, h_out, fixed)
+    # columns clamp with a zero fraction at the borders; rows clamp their index only
+    low, high = sx < 0, sx >= w - 1
+    fx[low | high] = 0
+    sx = np.clip(sx, 0, w - 1)
+    x1 = np.minimum(sx + 1, w - 1)
+    y0, y1 = np.clip(sy, 0, h - 1), np.clip(sy + 1, 0, h - 1)
+    src = img if img.ndim == 3 else img[..., None]
+    if fixed:
+        one = 1 << _COEF_BITS
+        a1 = np.rint(fx * one).astype(np.int32)
+        b1 = np.rint(fy * one).astype(np.int32)
+        a0, b0 = one - a1, one - b1
+        s = src.astype(np.int32)
+        rows = s[:, sx] * a0[None, :, None] + s[:, x1] * a1[None, :, None]
+        out = ((((rows[y0] >> 4) * b0[:, None, None]) >> 16)
+               + (((rows[y1] >> 4) * b1[:, None, None]) >> 16) + 2) >> 2
+        out = np.clip(out, 0, 255)
+    else:
+        a0, b0 = np.float32(1) - fx, np.float32(1) - fy
+        s = src.astype(np.float32)
+        rows = s[:, sx] * a0[None, :, None] + s[:, x1] * fx[None, :, None]
+        out = rows[y0] * b0[:, None, None] + rows[y1] * fy[:, None, None]
+        out = np.clip(np.rint(out), 0, 65535)
+    return out.astype(img.dtype).reshape((h_out, w_out) + img.shape[2:])
+
+
+def _imread_rgb(path: str) -> np.ndarray:
+    """An 8-bit RGB(A) PNG as RGB, as ``cv2.cvtColor(cv2.imread(path),
+    COLOR_BGR2RGB)`` reads it (alpha dropped)."""
+    img = read_png(path)
+    if img.ndim != 3 or img.dtype != np.uint8:
+        raise ValueError(f"{path}: expected an 8-bit colour PNG, got {img.dtype} {img.shape}")
+    return np.ascontiguousarray(img[..., :3])
+
+
+def _imread_grey(path: str, dtype) -> np.ndarray:
+    """A single-channel PNG of ``dtype``, as ``cv2.IMREAD_ANYDEPTH`` (IR) or
+    ``cv2.IMREAD_GRAYSCALE`` (labels) reads it."""
+    img = read_png(path)
+    if img.ndim != 2 or img.dtype != dtype:
+        raise ValueError(f"{path}: expected a single-channel {np.dtype(dtype)} PNG, "
+                         f"got {img.dtype} {img.shape}")
+    return img
+
+
+def stamp_sort_key(path: str) -> float:
+    """Timestamp sort key (stampSortFun, thermal_loader.py:80-90)."""
+    digits = []
+    for s in os.path.basename(path).split("_"):
+        fn = s.replace(".png", "")
+        if fn.isdigit():
+            digits.append(int(fn))
+    return float(str(digits[0]).zfill(10) + "." + str(digits[1]).zfill(10))
+
+
+def get_test_paths(db_paths: Sequence[str]):
+    """ImagesIR/ImagesRGB/SegmentationClass discovery (getPaths,
+    train_trgb_segnet_conf.py:22-30)."""
+    ir_files, rgb_files, label_files = [], [], []
+    for d in db_paths:
+        ir_files.extend(sorted(glob(os.path.join(d, "ImagesIR/*_ir.png"))))
+        rgb_files.extend(sorted(glob(os.path.join(d, "ImagesRGB/*_rgb.png"))))
+        label_files.extend(sorted(glob(os.path.join(d, "SegmentationClass/*.npy"))))
+    return ir_files, rgb_files, label_files
+
+
+def get_test_stamps(label_files: Sequence[str]):
+    """(sec, nsec) stamps of labelled test files (conf trainer :88-98), the
+    extension stripped before the split, as the JAX package does."""
+    stamps = []
+    for filename in label_files:
+        stem = os.path.splitext(os.path.basename(filename))[0]
+        digits = [int(s) for s in stem.split("_") if s.isdigit()]
+        if len(digits) >= 2:
+            stamps.append((digits[0], digits[1]))
+    return stamps
+
+
+def _ir_vis(ir: np.ndarray) -> np.ndarray:
+    return (np.clip(ir.astype(np.float32), 21800, 25000) - 21800) / 3200.0
+
+
+class FreiburgThermalTestDataset:
+    """Freiburg eval items (ThermalTestDataLoader, :748-820): 8-bit RGB, 16-bit
+    IR and ``.npy`` labels resized to 960x320, then the 148:852 window.
+    Raw uint8/uint16 frames (normalised on the device) and their copies."""
+
+    def __init__(self, ir_paths, rgb_paths, label_paths):
+        if not len(ir_paths) == len(rgb_paths) == len(label_paths):
+            raise ValueError(f"{len(ir_paths)} IR, {len(rgb_paths)} RGB and "
+                             f"{len(label_paths)} label files")
+        self.ir_files, self.rgb_files, self.label_files = ir_paths, rgb_paths, label_paths
+
+    def __len__(self):
+        return len(self.rgb_files)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        rgb = resize(_imread_rgb(self.rgb_files[index]), IR_RES)[:, 148:852]
+        ir = resize(_imread_grey(self.ir_files[index], np.uint16), IR_RES)[:, 148:852]
+        label = resize(np.load(self.label_files[index]), IR_RES, nearest=True)[:, 148:852]
+        return {
+            "rgb": rgb.astype(np.uint8)[None],
+            "rgb_org": rgb.astype(np.uint8)[None],
+            "ir": ir.astype(np.uint16)[None, ..., None],
+            "ir_org": _ir_vis(ir)[None, ..., None],
+            "label": label.astype(np.int32)[None],
+        }
+
+
+class FreiburgInferDataset:
+    """Label-free, timestamp-sorted capture frames (ThermalDataLoaderInfer),
+    in the stride-aligned 148:852 window of the 960x320 resize."""
+
+    def __init__(self, db_path: str):
+        self.ir_files = sorted(glob(os.path.join(db_path, "fl_ir_aligned/*.png")),
+                               key=stamp_sort_key)
+
+    def __len__(self):
+        return len(self.ir_files)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        ir_file = self.ir_files[index]
+        rgb_file = ir_file.replace("fl_ir_aligned", "fl_rgb")
+        rgb = resize(_imread_rgb(rgb_file), IR_RES)[:, 148:852]
+        ir = resize(_imread_grey(ir_file, np.uint16), IR_RES)[:, 148:852]
+        return {
+            "rgb": rgb.astype(np.uint8)[None],
+            "rgb_org": rgb.astype(np.uint8)[None],
+            "ir": ir.astype(np.uint16)[None, ..., None],
+            "ir_org": _ir_vis(ir)[None, ..., None],
+        }
+
+
+class MFNetDataset:
+    """MFNet eval split (MFDataset, :224-288): RGBA PNGs whose alpha channel
+    is the IR, 640x480, host-normalised float32 frames."""
+
+    WIDTH, HEIGHT = 640, 480
+    _SPLIT_FILES = {"day": "test_day.txt", "night": "test_night.txt",
+                    "combined": "test.txt"}
+
+    def __init__(self, data_dir: str, split: str = "day"):
+        if split not in self._SPLIT_FILES:
+            raise ValueError(f"Unknown split {split}")
+        with open(os.path.join(data_dir, self._SPLIT_FILES[split])) as f:
+            self.names = [n.strip() for n in f.readlines()]
+        self.data_dir = data_dir
+
+    def __len__(self):
+        return len(self.names)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        name = self.names[index]
+        path = os.path.join(self.data_dir, "images", name + ".png")
+        im = read_png(path)
+        if im.ndim != 3 or im.shape[2] != 4 or im.dtype != np.uint8:
+            raise ValueError(f"{path}: expected an 8-bit RGBA PNG, got {im.dtype} {im.shape}")
+        # cv2's BGRA [:, :, :3] then BGR2RGB is the decoded RGBA's [..., :3]
+        wh = (self.WIDTH, self.HEIGHT)
+        rgb = resize(im[..., :3], wh).astype(np.float32) / 255.0
+        ir = resize(im[..., 3], wh).astype(np.float32)[..., None] / 255.0
+        label = _imread_grey(os.path.join(self.data_dir, "labels", name + ".png"), np.uint8)
+        label = resize(label, wh, nearest=True)
+        return {
+            "rgb": ((rgb - 0.5) / 0.5)[None],
+            "rgb_org": rgb[None],
+            "ir": ((ir - 0.5) / 0.5)[None],
+            "ir_org": ir[None],
+            "label": label.astype(np.int32)[None],
+        }
+
+
+class BDDValDataset:
+    """BDD night validation (BDDValDataset, :445-498): 704x320 RGB only.
+
+    Its frames are JPEGs, decoded by cv2, which must import here."""
+
+    WIDTH, HEIGHT = 704, 320
+
+    def __init__(self, db_path: str, split: str = "val"):
+        try:
+            import cv2
+        except ImportError as e:
+            raise RuntimeError("BDDValDataset decodes JPEG frames through cv2, which "
+                               "does not import here") from e
+        self._cv2 = cv2
+        if split != "val":
+            raise NotImplementedError(f"BDD split {split!r}")
+        with open(os.path.join(db_path, "bdd_night.txt")) as f:
+            self.names = [n.strip() for n in f.readlines()]
+        if not self.names:
+            raise FileNotFoundError(f"no names in {db_path}/bdd_night.txt")
+        self.data_dir = db_path
+        self.split = split
+
+    def __len__(self):
+        return len(self.names)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        cv2 = self._cv2
+        name = self.names[index]
+        rgb = cv2.cvtColor(cv2.imread(os.path.join(self.data_dir, "images", self.split,
+                                                   name + ".jpg")), cv2.COLOR_BGR2RGB)
+        label = _imread_grey(os.path.join(self.data_dir, "labels", self.split,
+                                          name + "_train_id.png"), np.uint8)
+        wh = (self.WIDTH, self.HEIGHT)
+        rgb = resize(rgb, wh).astype(np.float32) / 255.0
+        label = resize(label, wh, nearest=True)
+        return {
+            "rgb": ((rgb - 0.5) / 0.5)[None],
+            "rgb_org": rgb[None],
+            "label": label.astype(np.int32)[None],
+        }
+
+
+def prefetch_items(dataset, workers: int = 8, depth: int = 32
+                   ) -> Iterator[Dict[str, np.ndarray]]:
+    """Yield ``dataset[0..len)`` in order, decoding up to ``depth`` items
+    ahead on a ``workers``-thread pool."""
+    n = len(dataset)
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        pending: deque = deque()
+        nxt = 0
+        while nxt < min(depth, n):
+            pending.append(ex.submit(dataset.__getitem__, nxt))
+            nxt += 1
+        while pending:
+            item = pending.popleft().result()
+            if nxt < n:
+                pending.append(ex.submit(dataset.__getitem__, nxt))
+                nxt += 1
+            yield item
 
 
 def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
@@ -76,9 +367,13 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
         stop.set()
 
 
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``; uint16 (thin PyTorch support)
+    crosses as int16 bytes and is viewed back on arrival."""
     a = np.ascontiguousarray(a)
-    if a.dtype == np.uint16:  # crosses as int16 bits, viewed back on arrival
+    if not a.flags.writeable:  # a pack's memmap frames; torch wants writable memory
+        a = a.copy()
+    if a.dtype == np.uint16:
         return torch.from_numpy(a.view(np.int16)).to(device).view(torch.uint16)
     return torch.from_numpy(a).to(device)
 
@@ -103,7 +398,7 @@ class DeviceAugment:
         lo, hi = TRAIN_WINDOW
         params = draw_train_params(generator, n, (h, len(range(w)[lo:hi])),
                                    self.crop_hw)
-        t = {k: _to_device(raw_batch[k], self.device)
+        t = {k: to_device(raw_batch[k], self.device)
              for k in ("rgb_day", "ir_day", "label_day", "rgb_night", "ir_night")}
         out = train_sample_preprocess(params, t["rgb_day"], t["ir_day"],
                                       t["label_day"], t["rgb_night"],

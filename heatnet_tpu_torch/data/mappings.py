@@ -1,0 +1,82 @@
+"""Class-label mappings and the palette of the HeatNet label space.
+
+The port's copy of the evaluation's part of ``heatnet_tpu/data/mappings.py``
+(:1-79, :131-160): the 13-class space (+12 background, +13 ignore), the
+HeatNet → MFNet and BDD → HeatNet maps of ``validation_bdd_mf.py:9-37``,
+their lookup tables, and the reference's palette (``vis_utils.py:26-41``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+NUM_CLASSES = 13
+BACKGROUND_CLASS = 12
+IGNORE_CLASS = 13
+
+CLASS_NAMES = [
+    "road,parking",
+    "ground,sidewalk",
+    "building,",
+    "curb",
+    "fence",
+    "pole,traffic light,traffic sign",
+    "vegetation",
+    "terrain",
+    "sky",
+    "person,rider",
+    "car,truck,bus,train",
+    "motorcycle,bicycle",
+    "background",
+    "ignore",
+]
+
+# HeatNet class → MFNet class, for evaluating HeatNet preds on MFNet GT
+# (validation_bdd_mf.py:9-14)
+HEATNET_TO_MFNET = {3: 4, 9: 2, 10: 1, 11: 3}
+
+# BDD100K train-id → HeatNet class (validation_bdd_mf.py:16-37)
+BDD_TO_HEATNET = {
+    0: 0, 1: 1, 2: 2, 3: 2, 4: 4, 5: 5, 6: 5, 7: 5, 8: 6, 9: 7, 10: 8,
+    11: 9, 12: 9, 13: 10, 14: 10, 15: 10, 16: 10, 17: 11, 18: 11, 255: 13,
+}
+
+
+def mapping_to_lut(mapping: dict, num_src: int = 256,
+                   default: int = BACKGROUND_CLASS) -> np.ndarray:
+    """Dense lookup table for a sparse class mapping."""
+    lut = np.full(num_src, default, dtype=np.int32)
+    for src, dst in mapping.items():
+        if src < num_src:
+            lut[src] = dst
+    return lut
+
+
+# fixed semantic palette of the reference ColorCode.get_coding_1, RGB order;
+# classes 12/13 are black
+HEATNET_PALETTE = np.array([
+    [70, 70, 70],      # 0 road,parking
+    [244, 35, 232],    # 1 ground,sidewalk
+    [128, 64, 128],    # 2 building
+    [168, 168, 168],   # 3 curb
+    [0, 255, 255],     # 4 fence
+    [255, 165, 0],     # 5 pole,traffic light,traffic sign
+    [107, 142, 35],    # 6 vegetation
+    [255, 255, 0],     # 7 terrain
+    [70, 130, 180],    # 8 sky
+    [220, 20, 60],     # 9 person,rider
+    [0, 255, 0],       # 10 car,truck,bus,train
+    [190, 153, 153],   # 11 motorcycle,bicycle
+    [0, 0, 0],         # 12 background
+    [0, 0, 0],         # 13 ignore
+], dtype=np.uint8)
+
+
+def color_palette(n: int = 256, seed: int = 0) -> np.ndarray:
+    """RGB palette: the fixed semantic colours for classes 0-13, then
+    deterministic random colours for any ids beyond."""
+    rng = np.random.RandomState(seed)
+    pal = rng.randint(0, 255, size=(n, 3)).astype(np.uint8)
+    k = min(n, len(HEATNET_PALETTE))
+    pal[:k] = HEATNET_PALETTE[:k]
+    return pal

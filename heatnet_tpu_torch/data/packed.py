@@ -23,8 +23,8 @@ A train pack (heatnet-train-pack-v1) holds full 960x320 frames::
       ir_day.npy     uint16 (N, H, W)       ir_night.npy   uint16 (M, H, W)
       label_day.npy  uint8  (N, H, W)
 
-Packing PNG trees (``pack_inference_dir``, ``pack_freiburg_train``) needs
-the JAX package's cv2 loaders and is not ported.
+Packing PNG trees (``pack_inference_dir``, ``pack_freiburg_train``) is not
+ported; the eval loaders of ``data/loaders.py`` read PNG trees directly.
 """
 
 from __future__ import annotations
@@ -70,11 +70,14 @@ def write_pack(out_dir: str, rgb: np.ndarray, ir: np.ndarray,
 
 def write_train_pack(out_dir: str, rgb_day: np.ndarray, ir_day: np.ndarray,
                      label_day: np.ndarray, rgb_night: np.ndarray,
-                     ir_night: np.ndarray, split: str = "train") -> Tuple[int, int]:
+                     ir_night: np.ndarray, split: str = "train",
+                     test_stamps_filtered: bool = False) -> Tuple[int, int]:
     """Write day (rgb, ir, label) and night (rgb, ir) frames as a train pack.
 
     uint8 rgb (N,H,W,3), uint16 ir (N,H,W) and uint8 labels (N,H,W); night
-    frames share H and W. Returns (n_day, n_night).
+    frames share H and W. ``test_stamps_filtered`` records that the frames
+    exclude the test trees' stamps, which a trainer given test trees
+    requires. Returns (n_day, n_night).
     """
     n, h, w = rgb_day.shape[:3]
     m = rgb_night.shape[0]
@@ -93,7 +96,7 @@ def write_train_pack(out_dir: str, rgb_day: np.ndarray, ir_day: np.ndarray,
     with open(os.path.join(out_dir, "meta.json"), "w") as f:
         json.dump({"format": TRAIN_FORMAT, "split": split, "n_day": n,
                    "n_night": m, "height": h, "width": w,
-                   "test_stamps_filtered": False}, f)
+                   "test_stamps_filtered": test_stamps_filtered}, f)
     return n, m
 
 

@@ -1,1 +1,1 @@
-"""Batched inference to class maps."""
+"""Validators (Freiburg, MFNet, BDD) and batched inference to class maps."""

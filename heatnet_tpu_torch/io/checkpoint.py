@@ -8,18 +8,25 @@ directories; the port writes one PyTorch file).
 from __future__ import annotations
 
 import os
+import shutil
 from typing import Any, Dict, Mapping
 
 import torch
 import torch.nn as nn
 
 
-def save_checkpoint(bundle: Dict[str, Any], path: str) -> str:
-    """Write ``bundle`` to ``path`` (via a temporary file, then a rename)."""
+def save_checkpoint(bundle: Dict[str, Any], path: str, is_best: bool = False) -> str:
+    """Write ``bundle`` to ``path`` (via a temporary file, then a rename);
+    with ``is_best`` also a copy beside it, ``<name>_best<ext>``
+    (``heatnet_tpu/io/checkpoint.py:50-68``)."""
     path = os.path.abspath(path)
     tmp = path + ".tmp"
     torch.save(bundle, tmp)
     os.replace(tmp, path)
+    if is_best:
+        root, ext = os.path.splitext(path)
+        shutil.copyfile(path, tmp)
+        os.replace(tmp, root + "_best" + ext)
     return path
 
 

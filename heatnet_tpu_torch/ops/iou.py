@@ -1,15 +1,51 @@
 """Confusion matrix and per-class IoU on the device.
 
-Counterpart of ``heatnet_tpu/ops/iou.py:17-72``. The JAX version builds the
-matrix as a one-hot matmul for the TPU's matrix unit; here it is a
-``bincount`` of ``target * K + predicted``, the same counts.
+Counterpart of ``heatnet_tpu/ops/iou.py:17-72,108-140``. The JAX version
+builds the matrix as a one-hot matmul for the TPU's matrix unit and the
+eval counts as (C, P) comparisons; here each is a ``bincount`` (pixels
+that count nowhere go to a spare bin), the same counts.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
+
+
+def _class_counts(idx: torch.Tensor, keep: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.bincount(torch.where(keep, idx, n), minlength=n + 1)[:n]
+
+
+def iou_counts(pred: torch.Tensor, target: torch.Tensor, n_classes: int = 13,
+               ignore_class: int = 13) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-class (intersection, predicted, target) pixel counts, three (C,)
+    int64 tensors on the inputs' device.
+
+    Pixels labelled ``ignore_class`` count in neither the predicted nor the
+    target count. Summed over an eval set, ``inter / (pred + target -
+    inter)`` is ``calculate_ious`` over the concatenated maps.
+    """
+    p = pred.reshape(-1).long()
+    t = target.reshape(-1).long()
+    valid = t != ignore_class
+    p_in = (p >= 0) & (p < n_classes)
+    t_in = (t >= 0) & (t < n_classes)
+    return (_class_counts(t, t_in & (p == t), n_classes),
+            _class_counts(p, p_in & valid, n_classes),
+            _class_counts(t, t_in & valid, n_classes))
+
+
+def ious_from_counts(inter, pred_cnt, targ_cnt, skip=(12, 13)) -> np.ndarray:
+    """Final per-class IoU vector in float64 (NaN where a class is absent),
+    without the ``skip`` classes."""
+    inter = np.asarray(inter, np.float64)
+    union = np.asarray(pred_cnt, np.float64) + np.asarray(targ_cnt, np.float64) - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        iou = np.where(union > 0, inter / np.maximum(union, 1), np.nan)
+    keep = [c for c in range(len(iou)) if c not in skip]
+    return iou[keep]
 
 
 def confusion_matrix(predicted: torch.Tensor, target: torch.Tensor,

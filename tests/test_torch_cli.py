@@ -83,5 +83,7 @@ def test_cli_raises_without_a_card(pack):
 
 
 def test_cli_refuses_a_png_tree(tmp_path):
-    with pytest.raises(SystemExit):
+    # capture trees are served (tests/test_torch_eval.py); a directory that is
+    # neither a pack nor a tree with frames is refused
+    with pytest.raises(FileNotFoundError, match="no frames"):
         cli.main(["--data", str(tmp_path), "--device", "cpu", *STRUCTURE])

@@ -137,6 +137,25 @@ def test_grouped_conv_dx_at_main_path_shapes(dev, n, c, cpg, d, h, w):
     assert gc.GROUPED_CONV3X3_DX.launches == before + 1
 
 
+# (C, cpg, d, H, W) of ResNeXt-50's grouped convs at MFNet's 480x640 frames
+MFNET_STAGES = [(128, 2, 1, 120, 160), (256, 4, 1, 60, 80), (512, 8, 2, 60, 80),
+                (1024, 16, 4, 60, 80)]
+
+
+@pytest.mark.parametrize("c,cpg,d,h,w", MFNET_STAGES)
+def test_fused_grouped_conv_at_mfnet_stage_shapes(dev, c, cpg, d, h, w):
+    groups = c // cpg
+    g = torch.Generator().manual_seed(c + h)
+    x = torch.randn((2, h, w, c), generator=g).to(dev, torch.bfloat16)
+    wt = (torch.randn((c, cpg, 3, 3), generator=g) / (9 * cpg) ** 0.5).to(dev, torch.bfloat16)
+    s = (torch.rand(c, generator=g) + 0.5).to(dev)
+    b = (torch.randn(c, generator=g) * 0.1).to(dev)
+    before = gc.GROUPED_CONV3X3_FUSED.launches
+    _close(gc.grouped_conv3x3_fused(x, wt, s, b, groups, d),
+           gc.grouped_conv3x3_plain(x, wt, groups, d, s, b, "relu"))
+    assert gc.GROUPED_CONV3X3_FUSED.launches == before + 1
+
+
 def test_dx_launches_no_weight_flip_copies(dev):
     """dx and the forward each launch the conv kernel and nothing else: the
     kernel gathers its weight tiles itself (no packing launch, no transpose
