@@ -78,7 +78,26 @@ Phases, each of which exits non-zero on failure:
        ``--im_save_dir`` on a capture tree, its ``pred_*.png`` decoded and
        held against the palette-coded class maps; ``cli.inference --batch 8``
        on that tree;
-6. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
+6. the IR-only trainers (``BASELINE.json`` config #5 and the uncertainty
+   pretrainer): first the grouped conv's forward, fused and dx forms at
+   their stage shapes (netSeg at batch 2, 64x64 and 32x32; the encoders at
+   batch 4, 40x80 and 20x40) against their plain versions, then
+   6a. ``cli.train_cyclegan`` at its defaults (9-block generators, netSeg
+       ResNeXt-50 (3,4,6,3) with 12 classes, batch 2 of 256x256) on a
+       KAIST-layout tree of 640x512 PNG frames the phase writes, 2 epochs of
+       3 steps: 32 forward and 32 dx launches per generator step, none per
+       discriminator step, finite losses, host-clock step ms p50/p95, peak
+       memory, the five checkpoints; one generator step's loss and
+       gradients with the kernels against the plain versions (and the
+       library's grouped conv), as in 4b;
+   6b. ``cli.test_cyclegan --run_seg --limit 4`` on 6a's checkpoints: 8
+       translations and 4 seg maps that ``read_png`` decodes, 16 fused
+       launches per frame, seg maps against the plain versions' (>= 0.99);
+   6c. ``cli.train_uncertainty`` at its defaults (two (2,2,2,2) encoders,
+       batch 4 of 80x160) on a train pack, 4 steps: 16 forward and 16 dx
+       launches per step, finite losses, step ms, peak memory, the
+       checkpoint;
+7. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
    launches on every path); the last line is ``{"ok": true, "device": {...}}``.
 
 Launch counts: the grouped-conv kernel has one count per entry point, the
@@ -128,6 +147,15 @@ ADV_FRAMES = (32, 16)
 # 320x960 (frame counts not multiples of the eval batch, 16), an MFNet tree
 # at 480x640, and 8-frame trees for phase 4c's periodic eval
 EVAL_BATCH, N_EVAL_DAY, N_EVAL_NIGHT, N_EVAL_MF, N_PERIODIC = 16, 18, 13, 9, 8
+# The IR-only trainers (phases 6a-6c): cli.train_cyclegan at batch 2 of
+# 256x256 KAIST frames, 2 epochs of 3 steps; cli.test_cyclegan on 4 frames;
+# cli.train_uncertainty at batch 4 of 80x160, 4 steps. (N, C, cpg, d, H, W)
+# of their grouped convs: netSeg at 64x64 and 32x32, the encoders at 40x80
+# and 20x40
+N_GAN, GAN_EPOCHS, GAN_ITERS, N_GAN_TEST, N_UNC, UNC_STEPS = 2, 2, 3, 4, 4, 4
+GAN_STAGES = ((2, 128, 2, 1, 64, 64), (2, 256, 4, 1, 32, 32), (2, 512, 8, 2, 32, 32),
+              (2, 1024, 16, 4, 32, 32), (4, 128, 2, 1, 40, 80), (4, 256, 4, 1, 20, 40),
+              (4, 512, 8, 2, 20, 40), (4, 1024, 16, 4, 20, 40))
 
 
 def write_fr_tree(root: str, n: int, seed: int) -> str:
@@ -598,9 +626,11 @@ def run_phases(work: str) -> None:
             dilation=dilation, groups=groups).permute(0, 2, 3, 1)
 
     def group_of(name: str) -> str:
-        head = name.removeprefix("trgb_segnet.").split(".")[0]
+        head = name.removeprefix("trgb_segnet.").removeprefix("netSeg.").split(".")[0]
         if head.startswith("mod"):
             return head[:4]
+        if head.startswith("netG_"):
+            return "generators"
         return "critics" if head.startswith("critics_") else "head"
 
     def hold_step(what, losses, grads):
@@ -625,7 +655,8 @@ def run_phases(work: str) -> None:
               f"(rel {loss_rel:.3g}, tolerance {STEP_LOSS_TOL}; library {loss_l:.6f}); "
               f"{len(rows)} gradient tensors of norm >= 1e-4, {within} within rel L2 "
               f"{GRAD_TOL}", flush=True)
-        for group in ("mod1", "mod2", "mod3", "mod4", "mod5", "head", "critics"):
+        for group in ("mod1", "mod2", "mod3", "mod4", "mod5", "head", "critics",
+                      "generators"):
             sel = [r for r in rows if group_of(r[0]) == group]
             if sel:
                 print(f"    {group}: {len(sel)} tensors, rel L2 kernel-plain max "
@@ -1273,7 +1304,268 @@ def run_phases(work: str) -> None:
     later.update({f"eval_{k}": v for k, v in eval_results.items()})
     torch.cuda.empty_cache()
 
-    # 6. the record: each kernel's launches on every path, read around it
+    # 6. the IR-only trainers (config #5 and the uncertainty pretrainer), each
+    # path driven with the counts set to 0 just before it and read just after
+    from heatnet_tpu_torch.cli import test_cyclegan, train_cyclegan, train_uncertainty
+    from heatnet_tpu_torch.data.loaders import KAISTCycleGANDataset
+    from heatnet_tpu_torch.data.synthetic import make_kaist
+    from heatnet_tpu_torch.train import cyclegan as cg
+
+    t_6 = time.perf_counter()
+    print("kernels: grouped_conv3x3 forward, fused and dx at the IR-only trainers' "
+          "stage shapes", flush=True)
+    for n, c, cpg, d, h, w in GAN_STAGES:
+        g = torch.Generator(device="cpu").manual_seed(c + h + n)
+        x = torch.randn((n, h, w, c), generator=g).to(dev, torch.bfloat16)
+        wt = (torch.randn((c, cpg, 3, 3), generator=g) / (9 * cpg) ** 0.5
+              ).to(dev, torch.bfloat16)
+        scale = (torch.rand(c, generator=g) + 0.5).to(dev)
+        bias = (torch.randn(c, generator=g) * 0.1).to(dev)
+        where = f"(N {n}, C {c}, cpg {cpg}, d {d}, {h}x{w})"
+        gc_err = max(gc_err, check(f"grouped_conv3x3 {where}",
+                                   gc.grouped_conv3x3(x, wt, c // cpg, d),
+                                   gc.grouped_conv3x3_plain(x, wt, c // cpg, d), *gc_tol))
+        gc_err = max(gc_err, check(
+            f"grouped_conv3x3_fused {where}",
+            gc.grouped_conv3x3_fused(x, wt, scale, bias, c // cpg, d),
+            gc.grouped_conv3x3_plain(x, wt, c // cpg, d, scale, bias, "relu"), *gc_tol))
+        dx_err = max(dx_err, check(
+            f"grouped_conv3x3_dx {where}", gc.grouped_conv3x3_dx(x, wt, c // cpg, d),
+            gc.grouped_conv3x3_plain(x, gc.dx_weight(wt, c // cpg), c // cpg, d), *gc_tol))
+
+    # 6a. cli.train_cyclegan at its defaults on a KAIST-layout tree at KAIST's
+    # 640x512 (PNG bytes): 9 residual blocks, netSeg (3,4,6,3) with 12 classes
+    print(f"main path: cli.train_cyclegan, 2 x 9-block generators + 2 discriminators + "
+          f"netSeg ResNeXt-50 (3,4,6,3), 12 classes, batch {N_GAN}, 256x256, "
+          f"{GAN_EPOCHS} epochs of {GAN_ITERS} steps", flush=True)
+    t0 = time.perf_counter()
+    kaist = make_kaist(os.path.join(work, "kaist"), n_day=8, n_night=8, hw=(512, 640),
+                       seed=6)
+    print(f"  KAIST tree (8 day + 8 night 640x512 frames, labels 0-11) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gan_steps = []  # (kind, launches, host ms, losses)
+    make_gan_steps = train_cyclegan.make_cyclegan_steps
+
+    def counted_gan_steps(*nets):
+        def wrap(step_fn, kind):
+            def step(*a):
+                before = counts()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = step_fn(*a)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t1) * 1e3
+                loss = float(out[2]["loss_G"]) if kind == "generator" else float(out)
+                gan_steps.append((kind, {k: v - before[k] for k, v in counts().items()},
+                                  ms, loss))
+                return out
+            return step
+        g_fn, da_fn, db_fn = make_gan_steps(*nets)
+        return (wrap(g_fn, "generator"), wrap(da_fn, "discriminator"),
+                wrap(db_fn, "discriminator"))
+
+    gan_ckpt = os.path.join(work, "cyclegan_ckpts")
+    for k in all_kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_cyclegan, "make_cyclegan_steps", counted_gan_steps):
+        last_g = train_cyclegan.main([
+            "--dataroot", kaist, "--batchSize", str(N_GAN), "--n_epochs", str(GAN_EPOCHS),
+            "--decay_epoch", "1", "--max_iters_per_epoch", str(GAN_ITERS),
+            "--checkpoint_dir", gan_ckpt, "--log_dir", os.path.join(work, "runs_6a")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got, gan_peak = counts(), torch.cuda.max_memory_allocated() / 1e9
+    want = {"generator": {"ingest": 0, "grouped_conv3x3": 32, "grouped_conv3x3_fused": 0,
+                          "grouped_conv3x3_dx": 32},
+            "discriminator": {k.name: 0 for k in all_kernels}}
+    print(f"  launches {got} over {len(gan_steps)} steps ({wall:.1f} s wall); last "
+          f"loss_G {last_g:.6f}", flush=True)
+    gan_out = {"launches": got, "peak_memory_gb": gan_peak}
+    for kind, n_want in (("generator", GAN_EPOCHS * GAN_ITERS),
+                         ("discriminator", 2 * GAN_EPOCHS * GAN_ITERS)):
+        seen = [r for r in gan_steps if r[0] == kind]
+        print(f"  per {kind} step: {seen[0][1] if seen else None} (want {want[kind]})",
+              flush=True)
+        if len(seen) != n_want or any(r[1] != want[kind] for r in seen):
+            fail(f"train_cyclegan: expected {n_want} {kind} steps of {want[kind]} "
+                 f"launches, got {[r[1] for r in seen]}")
+        ms, losses = [r[2] for r in seen], [r[3] for r in seen]
+        gan_out[kind + "_step_ms_p50_p95"] = (float(np.percentile(ms, 50)),
+                                              float(np.percentile(ms, 95)))
+        print(f"  {kind}: losses {[round(v, 6) for v in losses]}; step ms (host, "
+              f"synchronised) {[round(v, 2) for v in ms]}, p50 "
+              f"{gan_out[kind + '_step_ms_p50_p95'][0]:.2f} p95 "
+              f"{gan_out[kind + '_step_ms_p50_p95'][1]:.2f}", flush=True)
+        if not all(np.isfinite(losses)):
+            fail(f"train_cyclegan: non-finite {kind} loss {losses}")
+    print(f"  peak memory {gan_peak:.2f} GB", flush=True)
+    opt_ns = train_cyclegan.build_parser().parse_args([])
+    for name in cg.NET_NAMES:
+        path = os.path.join(gan_ckpt, name + ".pth")
+        if not os.path.exists(path):
+            fail(f"train_cyclegan wrote no {path}")
+    saved_seg = torch.load(os.path.join(gan_ckpt, "netSeg.pth"), map_location="cpu",
+                           weights_only=True)
+    ResNeXtSeg(structure=(3, 4, 6, 3), input_channels=1, classes=12).load_state_dict(
+        saved_seg, strict=True)
+    print(f"  checkpoints: {', '.join(n + '.pth' for n in cg.NET_NAMES)}; netSeg's "
+          f"loads strictly ({len(saved_seg)} entries)", flush=True)
+
+    # one generator step's loss and gradients, kernels against the plain versions
+    gan_nets = train_cyclegan.build_nets(opt_ns, dev)
+    gan_start = {n: {k: v.clone() for k, v in net.state_dict().items()}
+                 for n, net in gan_nets.items()}
+    gan_state = cg.CycleGANState.create(gan_nets, lambda count: opt_ns.lr)
+    g_fn = cg.make_cyclegan_steps(*(gan_nets[k] for k in (
+        "netG_A2B", "netG_B2A", "netD_A", "netD_B", "netSeg")))[0]
+    captured = {}
+
+    def capture_grads():  # the generator optimizer's step, replaced by a read
+        captured.update({k: p.grad.float().clone()
+                         for k, p in gan_state.g.model.named_parameters()
+                         if p.grad is not None})
+        gan_state.g.optimizer.zero_grad(set_to_none=True)
+
+    gan_state.g.apply_gradients = capture_grads
+    items = [KAISTCycleGANDataset(kaist)[i] for i in range(N_GAN)]
+    gan_batch = train_cyclegan.device_batch(
+        {k: np.stack([it[k] for it in items]) for k in items[0]}, dev)
+
+    def gan_grads():
+        for n, net in gan_nets.items():
+            net.load_state_dict(gan_start[n])
+        captured.clear()
+        metrics = g_fn(gan_state, gan_batch)[2]
+        return float(metrics["loss_G"]), dict(captured)
+
+    loss_k, grads_k = gan_grads()
+    for k in all_kernels:
+        k.launches = 0
+    with mock.patch.object(gc, "grouped_conv3x3", fwd_plain), \
+            mock.patch.object(gc, "grouped_conv3x3_dx", dx_plain):
+        loss_p, grads_p = gan_grads()
+    with mock.patch.object(gc, "grouped_conv3x3", fwd_library), \
+            mock.patch.object(gc, "grouped_conv3x3_dx", dx_library):
+        loss_l, grads_l = gan_grads()
+    if any(counts().values()):
+        fail("the plain-version generator step launched a kernel")
+    hold_step("one CycleGAN generator step", (loss_k, loss_p, loss_l),
+              (grads_k, grads_p, grads_l))
+    gan_out["generator_step_check"] = {"loss_kernels": loss_k, "loss_plain": loss_p}
+    later["train_cyclegan"] = gan_out
+    del gan_nets, gan_state, gan_start, grads_k, grads_p, grads_l, captured
+    torch.cuda.empty_cache()
+
+    # 6b. cli.test_cyclegan --run_seg on 6a's checkpoints: 16 fused launches per
+    # frame (netSeg in eval mode on real_B), class maps against the plain versions
+    print("main path: cli.test_cyclegan --run_seg --limit 4, 6a's checkpoints, batch 1",
+          flush=True)
+    gan_test_out = os.path.join(work, "cyclegan_out")
+    test_argv = ["--dataroot", kaist, "--checkpoint_dir", gan_ckpt, "--run_seg",
+                 "--limit", str(N_GAN_TEST)]
+    for k in all_kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    n_frames = test_cyclegan.main(test_argv + ["--output_dir", gan_test_out])
+    torch.cuda.synchronize()
+    got = counts()
+    want = {"ingest": 0, "grouped_conv3x3": 0, "grouped_conv3x3_fused": 16 * N_GAN_TEST,
+            "grouped_conv3x3_dx": 0}
+    print(f"  launches {got} over {n_frames} frames (want {want}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if n_frames != N_GAN_TEST or got != want:
+        fail(f"cli.test_cyclegan: {n_frames} frames, launches {got}")
+    translations = sorted(os.listdir(os.path.join(gan_test_out, "A"))) + sorted(
+        os.listdir(os.path.join(gan_test_out, "B")))
+    segs = [read_png(os.path.join(gan_test_out, f"seg_{i:04d}.png")) for i in range(n_frames)]
+    trans = [read_png(os.path.join(gan_test_out, sub, f"{i:04d}.png"))
+             for sub in ("A", "B") for i in range(n_frames)]
+    if len(translations) != 2 * N_GAN_TEST or any(
+            t.shape != (256, 256, 3) for t in trans + segs):
+        fail(f"cli.test_cyclegan wrote {translations} and seg maps "
+             f"{[s.shape for s in segs]}")
+    with mock.patch.object(gc, "grouped_conv3x3_fused", conv_plain):
+        test_cyclegan.main(test_argv + ["--output_dir", gan_test_out + "_plain"])
+    if counts() != want:
+        fail("the plain-version cli.test_cyclegan launched a kernel")
+    plain_segs = [read_png(os.path.join(gan_test_out + "_plain", f"seg_{i:04d}.png"))
+                  for i in range(n_frames)]
+    agree = float(np.mean([(a == b).all(-1).mean() for a, b in zip(segs, plain_segs)]))
+    print(f"  {len(trans)} translations and {len(segs)} seg maps decode (256x256 RGB); "
+          f"class-map agreement with the plain versions {agree:.6f} (need >= "
+          f"{MIN_AGREEMENT})", flush=True)
+    if agree < MIN_AGREEMENT:
+        fail(f"cli.test_cyclegan: class-map agreement {agree} < {MIN_AGREEMENT}")
+    later["test_cyclegan"] = {"launches": got, "agreement": agree}
+    torch.cuda.empty_cache()
+
+    # 6c. cli.train_uncertainty at its defaults: two (2,2,2,2) encoders on IR
+    # subsampled to 80x160, batch 4, on a train pack
+    print(f"main path: cli.train_uncertainty, encoders (2,2,2,2) x 2 + seg and "
+          f"uncertainty decoders, batch {N_UNC}, 80x160, {UNC_STEPS} steps", flush=True)
+    prng = np.random.RandomState(8)
+    unc_pack = os.path.join(work, "unc_pack")
+    n_frames = 2 * N_UNC  # 2 steps per epoch, 2 epochs
+    write_train_pack(
+        unc_pack, prng.randint(0, 256, (n_frames, 320, 960, 3)).astype(np.uint8),
+        prng.randint(21000, 26000, (n_frames, 320, 960)).astype(np.uint16),
+        np.broadcast_to(bands % 12, (n_frames, 320, 960)).astype(np.uint8),
+        prng.randint(0, 256, (2, 320, 960, 3)).astype(np.uint8),
+        prng.randint(21000, 26000, (2, 320, 960)).astype(np.uint16))
+    unc_per_step = []
+    make_unc_step = train_uncertainty.make_uncertainty_step
+
+    def counted_unc_step(*mods):
+        step_fn = make_unc_step(*mods)
+
+        def step(*a):
+            before = counts()
+            out = step_fn(*a)
+            unc_per_step.append({k: v - before[k] for k, v in counts().items()})
+            return out
+        return step
+
+    for k in all_kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_uncertainty, "make_uncertainty_step", counted_unc_step):
+        unc_run = train_uncertainty.main([
+            "--dataroot", unc_pack, "--batch_size", str(N_UNC), "--n_epochs", "2",
+            "--checkpointname", os.path.join(work, "ir_uncertainty"),
+            "--log_dir", os.path.join(work, "runs_6c")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got, unc_peak = counts(), torch.cuda.max_memory_allocated() / 1e9
+    want = {"ingest": 0, "grouped_conv3x3": 16, "grouped_conv3x3_fused": 0,
+            "grouped_conv3x3_dx": 16}
+    ms = [t * 1e3 for t in unc_run.step_seconds]
+    unc_p = (float(np.percentile(ms, 50)), float(np.percentile(ms, 95)))
+    print(f"  launches {got} over {len(unc_run.losses)} steps ({wall:.1f} s wall); per "
+          f"step {unc_per_step[0] if unc_per_step else None} (want {want})", flush=True)
+    print(f"  losses (seg + uncertainty) {[round(v, 6) for v in unc_run.losses]}; step ms "
+          f"(host, augmentation to loss) {[round(v, 2) for v in ms]}, p50 {unc_p[0]:.2f} "
+          f"p95 {unc_p[1]:.2f}; peak memory {unc_peak:.2f} GB", flush=True)
+    if len(unc_per_step) != UNC_STEPS or any(c != want for c in unc_per_step):
+        fail(f"train_uncertainty: expected {UNC_STEPS} steps of {want} launches, got "
+             f"{unc_per_step}")
+    if not all(np.isfinite(unc_run.losses)):
+        fail(f"train_uncertainty: non-finite loss {unc_run.losses}")
+    saved = torch.load(unc_run.checkpoint, map_location="cpu", weights_only=True)
+    torch.nn.ModuleDict(train_uncertainty.build_modules(
+        (2, 2, 2, 2), torch.device("cpu"))).load_state_dict(saved["state_dict"], strict=True)
+    print(f"  checkpoint {os.path.basename(unc_run.checkpoint)}: epoch {saved['epoch']}, "
+          f"{len(saved['state_dict'])} entries, loads strictly", flush=True)
+    if saved["epoch"] != 2:
+        fail(f"train_uncertainty checkpoint epoch {saved['epoch']}")
+    later["train_uncertainty"] = {"launches": got, "step_ms_p50_p95": unc_p,
+                                  "peak_memory_gb": unc_peak}
+    print(f"  phases 6a-6c: {time.perf_counter() - t_6:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # 7. the record: each kernel's launches on every path, read around it
     paths = {"serving": launches, "train_plain": train_launches, "train_conf": adv_launches,
              **{name: r["launches"] for name, r in later.items()}}
 

@@ -1,13 +1,15 @@
 """Eval loaders of PNG trees, training batches, and the augmentation on the card.
 
-Counterpart of ``heatnet_tpu/data/loaders.py:43-67,216-339,426-591``.
+Counterpart of ``heatnet_tpu/data/loaders.py:43-67,216-339,426-591,936-983``.
 
 The eval loaders (``FreiburgThermalTestDataset``, ``FreiburgInferDataset``,
 ``MFNetDataset``, ``BDDValDataset``) return the JAX loaders' items: same
 keys, dtypes and shapes. They decode PNGs with ``data.png`` and resize with
 ``resize``, a numpy copy of ``cv2.resize`` as the JAX loaders call it, so
 that the port does not depend on cv2. Only ``BDDValDataset`` needs cv2, for
-JPEG.
+JPEG. ``KAISTCycleGANDataset`` reads PNGs the same way and resizes with
+``resize_pil``, a numpy copy of Pillow's resampling as the JAX loader calls
+it; only a JPEG (KAIST's own frames) goes to PIL.
 
 ``batch_iterator`` and ``prefetch_items`` are copies (numpy and threads).
 ``DeviceAugment`` moves a raw batch to the device and runs
@@ -31,7 +33,8 @@ import torch
 
 from ..device import resolve
 from ..ops.preprocess import TRAIN_WINDOW, draw_train_params, train_sample_preprocess
-from .png import read_png
+from .png import _SIGNATURE as _PNG_SIGNATURE
+from .png import read_png, read_png_palette
 
 IR_RES = (960, 320)  # (W, H), thermal_loader.py:622
 _COEF_BITS = 11      # cv2's INTER_RESIZE_COEF_BITS
@@ -246,6 +249,184 @@ class MFNetDataset:
             "ir": ((ir - 0.5) / 0.5)[None],
             "ir_org": ir[None],
             "label": label.astype(np.int32)[None],
+        }
+
+
+# Pillow's 8-bit resampling (libImaging/Resample.c): coefficients in
+# fixed point with 32 - 8 - 2 fractional bits
+_PIL_PRECISION_BITS = 22
+
+
+def convert_l(img: np.ndarray, palette: Optional[np.ndarray] = None) -> np.ndarray:
+    """PIL's ``convert("L")`` of an 8-bit image: grey passes, RGB and RGBA
+    (alpha ignored) become ``(19595 R + 38470 G + 7471 B + 0x8000) >> 16``;
+    palette indices go through ``palette`` first."""
+    if img.dtype != np.uint8:
+        raise ValueError(f"convert_l takes 8-bit images, got {img.dtype}")
+    if palette is not None:
+        img = palette[img]
+    if img.ndim == 2:
+        return img
+    if img.ndim != 3 or img.shape[2] not in (3, 4):
+        raise ValueError(f"convert_l takes grey, RGB or RGBA, got shape {img.shape}")
+    c = img[..., :3].astype(np.uint32)
+    return ((19595 * c[..., 0] + 38470 * c[..., 1] + 7471 * c[..., 2] + 0x8000)
+            >> 16).astype(np.uint8)
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _pil_bicubic_taps(n_in: int, n_out: int):
+    """Per output position, its source indices and fixed-point weights
+    (``precompute_coeffs`` and ``normalize_coeffs_8bpc``)."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(n_out) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.intp)
+    xmax = np.minimum(np.trunc(center + support + 0.5), n_in).astype(np.intp) - xmin
+    x = np.arange(ksize)[None, :]
+    live = x < xmax[:, None]
+    w = np.where(live, _bicubic((x + xmin[:, None] - center[:, None] + 0.5)
+                                * (1.0 / filterscale)), 0.0)
+    ww = np.zeros((n_out, 1))
+    for j in range(ksize):  # summed in the C loop's order
+        ww += w[:, j:j + 1]
+    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+    one = float(1 << _PIL_PRECISION_BITS)
+    k = np.trunc(np.where(w < 0, -0.5 + w * one, 0.5 + w * one)).astype(np.int64)
+    idx = np.minimum(xmin[:, None] + x, n_in - 1)
+    return idx, k
+
+
+def _pil_pass(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
+    idx, k = _pil_bicubic_taps(img.shape[axis], n_out)
+    src = np.take(img, idx, axis=axis).astype(np.int64)  # axis → (n_out, ksize)
+    kk = k if axis == 1 else k[:, :, None]
+    ss = (src * kk).sum(axis=axis + 1) + (1 << (_PIL_PRECISION_BITS - 1))
+    return np.clip(ss >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def _pil_nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """``ImagingScaleAffine``'s source positions: ``scale / 2`` plus ``scale``
+    per step, accumulated in doubles, then truncated."""
+    scale = n_in / n_out
+    pos, out = scale * 0.5, np.empty(n_out, np.intp)
+    for i in range(n_out):
+        out[i] = min(int(pos), n_in - 1)
+        pos += scale
+    return out
+
+
+def resize_pil(img: np.ndarray, wh: Tuple[int, int], resample: str) -> np.ndarray:
+    """PIL's ``Image.resize(wh, BICUBIC | NEAREST)`` of a 2-D image, in numpy.
+
+    ``"bicubic"`` (uint8 only): Pillow's two passes, horizontal then
+    vertical, each skipped where the size does not change; a = -0.5
+    bicubic taps over a support of 2·max(scale, 1), normalised, in 22-bit
+    fixed point, the sum rounded and clipped to uint8 after each pass.
+    ``"nearest"`` (any dtype): each output pixel takes the source pixel
+    under its centre. A resize to the same size is a copy.
+    """
+    w_out, h_out = wh
+    h, w = img.shape[:2]
+    if img.ndim != 2:
+        raise ValueError(f"resize_pil takes a 2-D image, got shape {img.shape}")
+    if (w, h) == (w_out, h_out):
+        return img.copy()
+    if resample == "nearest":
+        return img[_pil_nearest_index(h, h_out)[:, None], _pil_nearest_index(w, w_out)[None, :]]
+    if resample != "bicubic":
+        raise ValueError(f"resample {resample!r} is not 'bicubic' or 'nearest'")
+    if img.dtype != np.uint8:
+        raise ValueError(f"bicubic resize of {img.dtype} is not supported (uint8)")
+    out = img
+    if w_out != w:
+        out = _pil_pass(out, w_out, axis=1)
+    if h_out != h:
+        out = _pil_pass(out, h_out, axis=0)
+    return out
+
+
+def _is_png(path: str) -> bool:
+    with open(path, "rb") as fh:
+        return fh.read(8) == _PNG_SIGNATURE
+
+
+def _pil_open(path: str):
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(f"{path} is not a PNG file, and PIL, which decodes it, "
+                           "does not import") from e
+    return Image.open(path)
+
+
+def _read_grey_pil(path: str) -> np.ndarray:
+    """``Image.open(path).convert("L")`` as uint8: PNGs through ``data.png``
+    and ``convert_l``, other files (KAIST's JPEGs) through PIL."""
+    if _is_png(path):
+        img, palette = read_png_palette(path)
+        return convert_l(img, palette)
+    return np.asarray(_pil_open(path).convert("L"), np.uint8)
+
+
+def _read_label_pil(path: str) -> np.ndarray:
+    """``np.asarray(Image.open(path))``: a palette PNG gives its indices."""
+    if _is_png(path):
+        return read_png(path)
+    return np.asarray(_pil_open(path))
+
+
+class KAISTCycleGANDataset:
+    """KAIST day/night LWIR frames for CycleGAN (``data/loaders.py:936-983``).
+
+    A = day thermal (set00/set01), B = a random night thermal (set04, set05,
+    set09-set11), the day labels; grey, 256x256 bicubic (images) and
+    nearest (labels), a shared p = 0.5 hflip, ``(x/255 - 0.5)/0.5``. The
+    ``RandomState(seed)`` draws per item, in the JAX loader's order: the B
+    file, then the flip. Decoding: ``_read_grey_pil`` and ``_read_label_pil``.
+    """
+
+    SIZE = 256
+
+    def __init__(self, root: str, seed: int = 0):
+        self.files_A, self.files_label, self.files_B = [], [], []
+        for s in ("set00", "set01"):
+            self.files_A += sorted(glob(os.path.join(root, "Day", s, "V*/lwir/I*.jpg")))
+            self.files_label += sorted(glob(os.path.join(root, "Day", s, "V*/labels/I*.png")))
+        for s in ("set04", "set05", "set09", "set10", "set11"):
+            self.files_B += sorted(glob(os.path.join(root, "Night", s, "V*/lwir/I*.jpg")))
+        self._rng = np.random.RandomState(seed)
+        if not self.files_A or not self.files_B:
+            raise FileNotFoundError(f"no KAIST day/night lwir files under {root}")
+
+    def __len__(self):
+        return max(len(self.files_A), len(self.files_B))
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        a = _read_grey_pil(self.files_A[index % len(self.files_A)])
+        b = _read_grey_pil(self.files_B[self._rng.randint(len(self.files_B))])
+        lbl = _read_label_pil(self.files_label[index % len(self.files_label)])
+
+        wh = (self.SIZE, self.SIZE)
+        a = resize_pil(a, wh, "bicubic").astype(np.float32) / 255.0
+        b = resize_pil(b, wh, "bicubic").astype(np.float32) / 255.0
+        if lbl.ndim == 3:
+            lbl = lbl[..., 0]
+        lbl = resize_pil(lbl, wh, "nearest").astype(np.int32)
+        if self._rng.rand() > 0.5:  # the shared hflip
+            a, b, lbl = a[:, ::-1], b[:, ::-1], lbl[:, ::-1]
+        return {
+            "A": np.ascontiguousarray((a - 0.5) / 0.5)[..., None],
+            "B": np.ascontiguousarray((b - 0.5) / 0.5)[..., None],
+            "label": np.ascontiguousarray(lbl),
         }
 
 

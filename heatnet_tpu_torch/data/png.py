@@ -5,8 +5,10 @@ The JAX package's loaders decode through cv2
 (``heatnet_tpu/utils/vis.py:52-61``); the port depends on neither, since a
 CUDA machine need not have them. ``read_png`` decodes
 non-interlaced 8- and 16-bit greyscale, RGB and RGBA (colour types 0, 2, 6)
-with every row filter; it raises on Adam7 interlacing, palettes, grey+alpha
-and depths below 8. ``write_png`` writes 8-bit grey, RGB and RGBA and 16-bit
+and 8-bit palette images (colour type 3, returned as their indices, as
+``np.asarray`` of a PIL ``"P"`` image gives them; ``read_png_palette`` also
+returns the palette) with every row filter; it raises on Adam7 interlacing,
+grey+alpha and depths below 8. ``write_png`` writes 8-bit grey, RGB and RGBA and 16-bit
 grey, every row with filter 0.
 
 Decoding speed: libpng picks a filter per row, so real files hold Average
@@ -27,7 +29,7 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type → samples per pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 6: 4}  # colour type → samples per pixel
 
 
 def _chunks(data: bytes, path: str):
@@ -99,14 +101,23 @@ def _unfilter_wavefront(filt: np.ndarray, kinds: np.ndarray, bpp: int) -> np.nda
 
 
 def read_png(path: str) -> np.ndarray:
-    """Decode ``path`` as stored: (H, W) for grey, (H, W, 3) RGB, (H, W, 4)
-    RGBA, uint8 or uint16 (16-bit samples are big-endian on disk)."""
+    """Decode ``path`` as stored: (H, W) for grey and palette indices, (H, W,
+    3) RGB, (H, W, 4) RGBA, uint8 or uint16 (16-bit samples are big-endian
+    on disk)."""
+    return read_png_palette(path)[0]
+
+
+def read_png_palette(path: str):
+    """``(pixels, palette)``: ``read_png``'s pixels and, for a palette image,
+    its ``(entries, 3)`` uint8 RGB palette (else None)."""
     with open(path, "rb") as fh:
         data = fh.read()
-    header, idat = None, []
+    header, idat, palette = None, [], None
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
@@ -116,9 +127,12 @@ def read_png(path: str) -> np.ndarray:
         raise ValueError(f"{path}: interlaced (Adam7) PNGs are not supported")
     if colour not in _CHANNELS:
         raise ValueError(f"{path}: colour type {colour} is not supported "
-                         "(grey, RGB and RGBA only; no palette, no grey+alpha)")
-    if depth not in (8, 16):
-        raise ValueError(f"{path}: bit depth {depth} is not supported (8 or 16)")
+                         "(grey, RGB, RGBA and palette only; no grey+alpha)")
+    if depth not in ((8,) if colour == 3 else (8, 16)):
+        raise ValueError(f"{path}: bit depth {depth} is not supported "
+                         f"({'8 for a palette' if colour == 3 else '8 or 16'})")
+    if colour == 3 and palette is None:
+        raise ValueError(f"{path}: a palette image without a PLTE chunk")
     if compression or filter_method:
         raise ValueError(f"{path}: unknown compression or filter method")
     channels = _CHANNELS[colour]
@@ -140,7 +154,7 @@ def read_png(path: str) -> np.ndarray:
     if depth == 16:
         pixels = pixels.reshape(-1).view(">u2").astype(np.uint16)
     shape = (h, w) if channels == 1 else (h, w, channels)
-    return np.ascontiguousarray(pixels.reshape(shape))
+    return np.ascontiguousarray(pixels.reshape(shape)), (palette if colour == 3 else None)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -23,12 +23,19 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
                          reduce: bool = True) -> torch.Tensor:
     """Cross-entropy over NHWC logits and NHW integer labels, pixels labelled
     ``ignore_index`` masked out; the mean over the others, and 0 when every
-    pixel is masked (where ``F.cross_entropy`` gives NaN)."""
+    pixel is masked (where ``F.cross_entropy`` gives NaN).
+
+    A label outside ``[-classes, classes)`` that is not ignored gives NaN, as
+    the JAX version's ``take_along_axis`` fills it (a 12-class head fed
+    label 12); a gather there would fault on the card. Negative labels
+    count from the end, as there."""
+    classes = logits.shape[-1]
     valid = labels != ignore_index
-    safe = torch.where(valid, labels, 0).long()
+    inside = (labels >= -classes) & (labels < classes)
+    safe = torch.where(valid & inside, labels, 0).long().remainder(classes)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    nll = torch.where(valid, nll, 0.0)
+    nll = torch.where(valid, torch.where(inside, nll, float("nan")), 0.0)
     if not reduce:
         return nll
     return nll.sum() / valid.sum().clamp(min=1)

@@ -315,3 +315,77 @@ def test_pspnet_serves_from_the_rgb_ingest_and_trains_with_live_dropout(dev):
                 for s in (0, 0, 1)]
     assert torch.isfinite(outs[0]).all() and not torch.equal(outs[0], outs[2])
     assert (outs[0] - outs[1]).abs().max() <= 1e-2 * outs[0].abs().max()
+
+
+# (N, C, cpg, d, H, W) of the IR-only trainers' grouped convs: netSeg of
+# cli.train_cyclegan at batch 2 on 256x256 (InitBlock: mod2 at 64x64, mod3-5
+# at 32x32) and the encoders of cli.train_uncertainty at batch 4 on 80x160
+# (Stem7x7: mod2 at 40x80, mod3-5 at 20x40; W = 40 is 2.5 column tiles)
+GAN_SHAPES = [(2, 128, 2, 1, 64, 64), (2, 256, 4, 1, 32, 32), (2, 512, 8, 2, 32, 32),
+              (2, 1024, 16, 4, 32, 32), (4, 128, 2, 1, 40, 80), (4, 256, 4, 1, 20, 40),
+              (4, 512, 8, 2, 20, 40), (4, 1024, 16, 4, 20, 40)]
+
+
+@pytest.mark.parametrize("n,c,cpg,d,h,w", GAN_SHAPES)
+def test_grouped_conv_forward_dx_and_fused_at_the_gan_shapes(dev, n, c, cpg, d, h, w):
+    groups = c // cpg
+    g = torch.Generator().manual_seed(c + h + n)
+    x = torch.randn((n, h, w, c), generator=g).to(dev, torch.bfloat16)
+    wt = (torch.randn((c, cpg, 3, 3), generator=g) / (9 * cpg) ** 0.5).to(dev, torch.bfloat16)
+    s = (torch.rand(c, generator=g) + 0.5).to(dev)
+    b = (torch.randn(c, generator=g) * 0.1).to(dev)
+    kernels = (gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_FUSED, gc.GROUPED_CONV3X3_DX)
+    before = [k.launches for k in kernels]
+    _close(gc.grouped_conv3x3(x, wt, groups, d), gc.grouped_conv3x3_plain(x, wt, groups, d))
+    _close(gc.grouped_conv3x3_fused(x, wt, s, b, groups, d),
+           gc.grouped_conv3x3_plain(x, wt, groups, d, s, b, "relu"))
+    _close(gc.grouped_conv3x3_dx(x, wt, groups, d),
+           gc.grouped_conv3x3_plain(x, gc.dx_weight(wt, groups), groups, d))
+    assert [k.launches - c0 for k, c0 in zip(kernels, before)] == [1, 1, 1]
+
+
+def test_cyclegan_and_uncertainty_steps_launch_the_kernels(dev):
+    """Structure (1,1,1,1): 4 grouped convs per netSeg or encoder forward. A
+    CycleGAN generator step runs netSeg twice in train mode (8 forward, 8
+    dx), a discriminator step none, netSeg in eval mode 4 fused; an
+    uncertainty step runs two encoders (8 forward, 8 dx)."""
+    from heatnet_tpu_torch.cli import train_cyclegan, train_uncertainty
+    from heatnet_tpu_torch.models.layers import prepare_for_inference
+    from heatnet_tpu_torch.train import cyclegan as tc
+    from heatnet_tpu_torch.train import uncertainty as tu
+
+    opt = train_cyclegan.build_parser().parse_args(
+        ["--n_residual_blocks", "2", "--seg_structure", "1", "1", "1", "1"])
+    nets = train_cyclegan.build_nets(opt, dev)
+    state = tc.CycleGANState.create(nets, lambda count: 2e-4)
+    g_step, d_a_step, d_b_step = tc.make_cyclegan_steps(
+        *(nets[k] for k in ("netG_A2B", "netG_B2A", "netD_A", "netD_B", "netSeg")))
+    g = torch.Generator().manual_seed(0)
+    batch = {"A": (torch.rand((2, 256, 256, 1), generator=g) * 2 - 1).to(dev),
+             "B": (torch.rand((2, 256, 256, 1), generator=g) * 2 - 1).to(dev),
+             "label": torch.randint(-1, 12, (2, 256, 256), generator=g).to(dev)}
+    kernels = (gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_FUSED, gc.GROUPED_CONV3X3_DX)
+    before = [k.launches for k in kernels]
+    fake_a, fake_b, metrics = g_step(state, batch)
+    assert [k.launches - c0 for k, c0 in zip(kernels, before)] == [8, 0, 8]
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert fake_a.shape == batch["A"].shape and fake_a.dtype == torch.float32
+    before = [k.launches for k in kernels]
+    losses = [d_a_step(state, batch["A"], fake_a), d_b_step(state, batch["B"], fake_b)]
+    assert [k.launches for k in kernels] == before
+    assert all(bool(torch.isfinite(v)) for v in losses)
+    seg = prepare_for_inference(nets["netSeg"], dev)
+    with torch.no_grad():
+        out = seg(batch["B"])[0]
+    assert [k.launches - c0 for k, c0 in zip(kernels, before)] == [0, 4, 0]
+    assert out.shape == (2, 256, 256, 12) and bool(torch.isfinite(out).all())
+
+    mods = train_uncertainty.build_modules((1, 1, 1, 1), dev)
+    ustate = tu.create_state(mods, lambda count: 1e-4)
+    step = tu.make_uncertainty_step(*(mods[k] for k in tu.MODULE_NAMES))
+    ub = {"ir": (torch.rand((4, 80, 160, 1), generator=g) * 2 - 1).to(dev),
+          "label": torch.randint(0, 12, (4, 80, 160), generator=g).to(dev)}
+    before = [k.launches for k in kernels]
+    m = step(ustate, ub)
+    assert [k.launches - c0 for k, c0 in zip(kernels, before)] == [8, 0, 8]
+    assert all(bool(torch.isfinite(v)) for v in m.values())

@@ -124,10 +124,12 @@ def test_writer_refuses_what_it_does_not_write(tmp_path):
 
 def test_decoder_refuses_what_it_does_not_read(tmp_path):
     rng = np.random.RandomState(2)
-    for pil_mode, shape in (("P", (8, 8)), ("LA", (8, 8, 2)), ("1", (8, 8))):
+    # a palette at 4 bits per index (8-bit palettes are read, see below)
+    for pil_mode, shape, bits in (("P", (8, 8), 4), ("LA", (8, 8, 2), None),
+                                  ("1", (8, 8), None)):
         path = str(tmp_path / f"{pil_mode}.png")
         Image.fromarray(rng.randint(0, 2, shape).astype(np.uint8) * 255).convert(
-            pil_mode).save(path)
+            pil_mode).save(path, **({"bits": bits} if bits else {}))
         with pytest.raises(ValueError, match="not supported"):
             read_png(path)
     # the same bytes as a good file, marked interlaced (Adam7)
