@@ -97,7 +97,31 @@ Phases, each of which exits non-zero on failure:
        batch 4 of 80x160) on a train pack, 4 steps: 16 forward and 16 dx
        launches per step, finite losses, step ms, peak memory, the
        checkpoint;
-7. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
+7. Vistas pretraining and MFNet adversarial training, on trees the phase
+   writes with the port's PNG writer (phase 3d first holds the grouped conv
+   at their stage shapes: forward and dx at batch 30, 96x192 and 48x96;
+   fused at eval batch 16 there; all three at batch 16, 96x96 and 48x48):
+   7a. ``cli.main`` at ``experiments/heatnet_conf.json``'s full width
+       (ResNeXt-50, RGB, 3x3 stem, leaky ReLU 0.01, 13 classes, Adam 1e-5
+       with the poly decay, no clip) on a 1024x768 Vistas tree, batch 30 of
+       384x768, 2 epochs of 2 steps, 8 decode threads, each epoch validating
+       20 frames (a full eval batch of 16 and a padded one): 16 forward and
+       16 dx launches per step and 16 fused per eval batch, read around
+       each, finite losses, the epoch-0 checkpoint, step ms p50/p95 (CUDA
+       events), the host clock's step and batch-wait times, peak memory,
+       and the host's ms per batch of decode and augmentation;
+   7b. ``cli.main --resume <7a> --evaluate``: 7a's epoch-0 mIoU within 1e-6;
+   7c. one Vistas step at batch 30 with ``--bn-groups 3``, kernels against
+       the plain versions (and the library's grouped conv), as in 4b, and
+       the running mean of the first BN against group 0's batch mean;
+   7d. ``cli.main --arch pspnet`` for 2 steps at batch 30: no port kernel
+       launched, finite losses, step ms, peak memory;
+   7e. ``cli.train_conf --trainsetname MF --bn_groups 2`` on a 480x640
+       MFNet train tree (16 day + 16 night frames), 6 cyclegan critics and
+       the IR teacher, batch 16 of 384x384, 2 critic and 2 seg steps: 32/0/0
+       and 32/32/16 launches per critic and seg step, finite losses, peak
+       memory, and phase isolation on an MF batch as in 4c;
+8. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
    launches on every path); the last line is ``{"ok": true, "device": {...}}``.
 
 Launch counts: the grouped-conv kernel has one count per entry point, the
@@ -156,6 +180,19 @@ N_GAN, GAN_EPOCHS, GAN_ITERS, N_GAN_TEST, N_UNC, UNC_STEPS = 2, 2, 3, 4, 4, 4
 GAN_STAGES = ((2, 128, 2, 1, 64, 64), (2, 256, 4, 1, 32, 32), (2, 512, 8, 2, 32, 32),
               (2, 1024, 16, 4, 32, 32), (4, 128, 2, 1, 40, 80), (4, 256, 4, 1, 20, 40),
               (4, 512, 8, 2, 20, 40), (4, 1024, 16, 4, 20, 40))
+# Vistas pretraining (phases 7a-7d): cli.main at experiments/heatnet_conf.json
+# (batch 30 of 384x768 crops from 1024x768 frames, 2 epochs of 2 steps, 20
+# validation frames: one full eval batch of 16 and a padded one), and MFNet
+# adversarial training (7e) at batch 16 of 384x384 crops from 480x640
+# frames. (which, N, C, cpg, d, H, W) of their grouped convs: "fwd_dx" at
+# the Vistas step's stages (mod2 at 96x192, mod3-5 at 48x96), "fused" at
+# its eval batch's, "all" at the MF steps' (96x96, 48x48)
+N_VIS, VIS_HW, VIS_EPOCHS, N_VIS_VAL, N_MF, MF_CROP = 30, (384, 768), 2, 20, 16, (384, 384)
+VIS_MF_STAGES = tuple(
+    (which, n, c, cpg, d, h if c == 128 else h // 2, w if c == 128 else w // 2)
+    for which, n, h, w in (("fwd_dx", N_VIS, 96, 192), ("fused", EVAL_BATCH, 96, 192),
+                           ("all", N_MF, 96, 96))
+    for c, cpg, d in ((128, 2, 1), (256, 4, 1), (512, 8, 2), (1024, 16, 4)))
 
 
 def write_fr_tree(root: str, n: int, seed: int) -> str:
@@ -178,22 +215,54 @@ def write_fr_tree(root: str, n: int, seed: int) -> str:
     return root
 
 
-def write_mfnet_tree(root: str, n: int, seed: int) -> str:
+def write_mfnet_tree(root: str, n: int, seed: int, train: bool = False) -> str:
     """An MFNet tree: ``n`` RGBA 480x640 images (alpha = IR), labels 0-8,
-    ``test_day.txt``."""
+    ``test_day.txt``. With ``train`` the names alternate day (D) and night
+    (N), and the day frames get teacher labels 0-12
+    (``labels_from_rgbteacher/``) and ``train.txt`` lists them all."""
     from heatnet_tpu_torch.data.png import write_png
 
     rng = np.random.RandomState(seed)
-    for d in ("images", "labels"):
+    for d in ("images", "labels") + (("labels_from_rgbteacher",) if train else ()):
         os.makedirs(os.path.join(root, d), exist_ok=True)
-    names = [f"{i:05d}D" for i in range(n)]
+    names = [f"{i:05d}" + ("N" if train and i % 2 else "D") for i in range(n)]
     for name in names:
         write_png(os.path.join(root, "images", name + ".png"),
                   rng.randint(0, 256, (480, 640, 4)).astype(np.uint8), level=1)
         write_png(os.path.join(root, "labels", name + ".png"),
                   rng.randint(0, 9, (480, 640)).astype(np.uint8), level=1)
+        if train and name.endswith("D"):
+            write_png(os.path.join(root, "labels_from_rgbteacher", name + ".png"),
+                      rng.randint(0, 13, (480, 640)).astype(np.uint8), level=1)
     with open(os.path.join(root, "test_day.txt"), "w") as f:
-        f.write("\n".join(names))
+        f.write("\n".join(n for n in names if n.endswith("D")))
+    if train:
+        with open(os.path.join(root, "train.txt"), "w") as f:
+            f.write("\n".join(names))
+    return root
+
+
+def write_vistas_tree(root: str, n: int, seed: int, copies: int = 1) -> str:
+    """A relabelled-Vistas tree (``images/``, ``labels/``: uint16 class * 256
+    + instance, classes 0-13) of ``n`` 1024x768 frames, each under
+    ``copies`` names."""
+    from heatnet_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    for d in ("images", "labels"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for i in range(n):
+        name = f"v{i:05d}_0.png"
+        write_png(os.path.join(root, "images", name),
+                  rng.randint(0, 256, (768, 1024, 3)).astype(np.uint8), level=1)
+        # classes in blocks a learner can fit, instance ids random
+        cls = (np.arange(768)[:, None] // 96 + np.arange(1024)[None, :] // 128 + i) % 14
+        write_png(os.path.join(root, "labels", name),
+                  (cls * 256 + rng.randint(0, 256, (768, 1024))).astype(np.uint16), level=1)
+        for k in range(1, copies):
+            for d in ("images", "labels"):
+                shutil.copy(os.path.join(root, d, name),
+                            os.path.join(root, d, f"v{i:05d}_{k}.png"))
     return root
 
 
@@ -465,6 +534,36 @@ def run_phases(work: str) -> None:
               f"library_ms {l_ms:.4f} (device {l_dev:.4f}, conv2d_input) share of "
               f"bound {b_ms / k_ms:.3f}; dk library_ms {dk_ms:.4f}", flush=True)
         del x, dy, dy_cl, x_cl
+    torch.cuda.empty_cache()
+
+    # 3d. the grouped conv at the stage shapes of Vistas pretraining (forward
+    # and dx at batch 30, fused at eval batch 16, 384x768) and of MFNet
+    # adversarial training (all three at batch 16, 384x384)
+    print("kernels: grouped_conv3x3 at the Vistas (batch 30 / 16, 384x768) and MFNet "
+          "(batch 16, 384x384) stage shapes", flush=True)
+    for which, n, c, cpg, d, h, w in VIS_MF_STAGES:
+        g = torch.Generator(device="cpu").manual_seed(c + h + n)
+        x = torch.randn((n, h, w, c), generator=g).to(dev, torch.bfloat16)
+        wt = (torch.randn((c, cpg, 3, 3), generator=g) / (9 * cpg) ** 0.5
+              ).to(dev, torch.bfloat16)
+        where = f"(N {n}, C {c}, cpg {cpg}, d {d}, {h}x{w})"
+        if which != "fused":
+            gc_err = max(gc_err, check(f"grouped_conv3x3 {where}",
+                                       gc.grouped_conv3x3(x, wt, c // cpg, d),
+                                       gc.grouped_conv3x3_plain(x, wt, c // cpg, d), *gc_tol))
+            dx_err = max(dx_err, check(
+                f"grouped_conv3x3_dx {where}", gc.grouped_conv3x3_dx(x, wt, c // cpg, d),
+                gc.grouped_conv3x3_plain(x, gc.dx_weight(wt, c // cpg), c // cpg, d),
+                *gc_tol))
+        if which != "fwd_dx":
+            scale = (torch.rand(c, generator=g) + 0.5).to(dev)
+            bias = (torch.randn(c, generator=g) * 0.1).to(dev)
+            gc_err = max(gc_err, check(
+                f"grouped_conv3x3_fused {where}",
+                gc.grouped_conv3x3_fused(x, wt, scale, bias, c // cpg, d, "leaky_relu", 0.01),
+                gc.grouped_conv3x3_plain(x, wt, c // cpg, d, scale, bias, "leaky_relu", 0.01),
+                *gc_tol))
+        del x, wt
     torch.cuda.empty_cache()
 
     # 4. the main path through the CLI
@@ -882,32 +981,36 @@ def run_phases(work: str) -> None:
     teacher = train_conf.load_teacher(teacher_ckpt, "ir", False, dev)
     hold_adv_steps("adversarial", model, teacher)
 
-    # phase isolation on the card: each step leaves the frozen side untouched
-    state = adv.make_phase_optimizers(model, lambda count: 1e-4)
-    seg_step, critic_step = adv.make_adversarial_steps(model, cfg, teacher)
+    def check_isolation(model, cfg, teacher, batch, draws):
+        """Phase isolation on the card: each step leaves the frozen side
+        untouched and moves the trained side."""
+        state = adv.make_phase_optimizers(model, lambda count: 1e-4)
+        seg_step, critic_step = adv.make_adversarial_steps(model, cfg, teacher)
 
-    def snapshot(prefix):
-        return {k: p.detach().clone() for k, p in model.named_parameters()
-                if k.startswith(prefix)}
+        def snapshot(prefix):
+            return {k: p.detach().clone() for k, p in model.named_parameters()
+                    if k.startswith(prefix)}
 
-    for phase, frozen, trained in (("train_critic", "trgb_segnet.", "critics_"),
-                                   ("train_seg", "critics_", "trgb_segnet.")):
-        before, moved = snapshot(frozen), snapshot(trained)
-        if phase == "train_seg":
-            seg_step(state, batch, draws)
-        else:
-            critic_step(state, batch)
-        torch.cuda.synchronize()
-        kept = all(torch.equal(v, p) for v, p in zip(before.values(),
-                                                     snapshot(frozen).values()))
-        changed = sum(not torch.equal(v, p) for v, p in zip(moved.values(),
-                                                           snapshot(trained).values()))
-        print(f"  phase isolation, {phase} step: {len(before)} {frozen}* parameters "
-              f"{'unchanged' if kept else 'CHANGED'}; {changed} of {len(moved)} "
-              f"{trained}* parameters moved", flush=True)
-        if not kept or not changed:
-            fail(f"phase isolation broken in the {phase} step")
-    del model, teacher, state
+        for phase, frozen, trained in (("train_critic", "trgb_segnet.", "critics_"),
+                                       ("train_seg", "critics_", "trgb_segnet.")):
+            before, moved = snapshot(frozen), snapshot(trained)
+            if phase == "train_seg":
+                seg_step(state, batch, draws)
+            else:
+                critic_step(state, batch)
+            torch.cuda.synchronize()
+            kept = all(torch.equal(v, p) for v, p in zip(before.values(),
+                                                         snapshot(frozen).values()))
+            changed = sum(not torch.equal(v, p) for v, p in zip(moved.values(),
+                                                               snapshot(trained).values()))
+            print(f"  phase isolation, {phase} step: {len(before)} {frozen}* parameters "
+                  f"{'unchanged' if kept else 'CHANGED'}; {changed} of {len(moved)} "
+                  f"{trained}* parameters moved", flush=True)
+            if not kept or not changed:
+                fail(f"phase isolation broken in the {phase} step")
+
+    check_isolation(model, cfg, teacher, batch, draws)
+    del model, teacher
     torch.cuda.empty_cache()
 
     # 5. the slice's later paths: late fusion and PSPNet, served and trained,
@@ -1565,7 +1668,253 @@ def run_phases(work: str) -> None:
     print(f"  phases 6a-6c: {time.perf_counter() - t_6:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    # 7. the record: each kernel's launches on every path, read around it
+    # 7. Vistas pretraining through cli.main and MFNet adversarial training
+    # through cli.train_conf --trainsetname MF, each path driven with the
+    # counts set to 0 just before it and read just after
+    from heatnet_tpu_torch.cli import main as vistas_cli
+    from heatnet_tpu_torch.data.loaders import MFNetTrainDataset, VistasDataset, to_device
+    from heatnet_tpu_torch.models.layers import BatchNorm
+    from heatnet_tpu_torch.utils.config import load_config
+
+    t_7 = time.perf_counter()
+    t0 = time.perf_counter()
+    vis_val = write_vistas_tree(os.path.join(work, "vistas_val"), N_VIS_VAL, 9)
+    n_unique = N_VIS * VIS_EPOCHS // 3
+    vis_train = write_vistas_tree(os.path.join(work, "vistas_train"), n_unique, 10, copies=3)
+    print(f"  Vistas trees written in {time.perf_counter() - t0:.1f} s: {N_VIS_VAL} "
+          f"validation frames, {3 * n_unique} train frames ({n_unique} x 3 names), "
+          "1024x768", flush=True)
+    vis_steps, vis_evals = [], []  # (launches, card ms) of each step; launches per eval batch
+    make_vis_step, make_vis_eval = vistas_cli.make_train_step, vistas_cli.make_eval_step
+
+    def counted_vis_step(*a, **kw):
+        step_fn = make_vis_step(*a, **kw)
+
+        def step(*args):
+            before = counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step_fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            vis_steps.append(({k: v - before[k] for k, v in counts().items()},
+                              start.elapsed_time(end)))
+            return out
+        return step
+
+    def counted_vis_eval(*a, **kw):
+        eval_fn = make_vis_eval(*a, **kw)
+
+        def step(*args):
+            before = counts()
+            out = eval_fn(*args)
+            vis_evals.append({k: v - before[k] for k, v in counts().items()})
+            return out
+        return step
+
+    def run_vistas(argv):
+        vis_steps.clear()
+        vis_evals.clear()
+        for k in all_kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(vistas_cli, "make_train_step", counted_vis_step), \
+                mock.patch.object(vistas_cli, "make_eval_step", counted_vis_eval):
+            out = vistas_cli.main(argv + ["-j", "8", "--log-dir", os.path.join(work, "runs_7")])
+        torch.cuda.synchronize()
+        return out, counts(), time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+    # 7a. cli.main at experiments/heatnet_conf.json's full width
+    print(f"main path: cli.main (Vistas pretraining), ResNeXt-50 (3,4,6,3) RGB, 3x3 stem, "
+          f"leaky ReLU, batch {N_VIS} of {VIS_HW[0]}x{VIS_HW[1]}, {VIS_EPOCHS} epochs of "
+          f"2 steps, validation of {N_VIS_VAL} frames", flush=True)
+    vis_ck = os.path.join(work, "vistas_ck")
+    vis_run, vis_launches, wall, vis_peak = run_vistas(
+        ["--data", vis_train, "--valdata", vis_val, "--batch-size", str(N_VIS),
+         "--epochs", str(VIS_EPOCHS), "--checkpoint-dir", vis_ck, "--print-freq", "1"])
+    eval_batches = -(-N_VIS_VAL // EVAL_BATCH)
+    want_vis_step = {"ingest": 0, "grouped_conv3x3": 16, "grouped_conv3x3_fused": 0,
+                     "grouped_conv3x3_dx": 16}
+    want_eval = {"ingest": 0, "grouped_conv3x3": 0, "grouped_conv3x3_fused": 16,
+                 "grouped_conv3x3_dx": 0}
+    step_card = [ms for _, ms in vis_steps]
+    vis_p = (float(np.percentile(step_card, 50)), float(np.percentile(step_card, 95)))
+    host_ms = [t * 1e3 for t in vis_run.step_seconds]
+    data_ms = [t * 1e3 for t in vis_run.data_seconds]
+    print(f"  launches {vis_launches} over {len(vis_steps)} steps and {len(vis_evals)} eval "
+          f"batches ({wall:.1f} s wall); per step {vis_steps[0][0] if vis_steps else None} "
+          f"(want {want_vis_step}); per eval batch {vis_evals[0] if vis_evals else None} "
+          f"(want {want_eval})", flush=True)
+    print(f"  losses {[round(v, 6) for v in vis_run.losses]}; mIoU per epoch "
+          f"{[round(v, 6) for v in vis_run.mious]}; step ms (CUDA events, forward to Adam) "
+          f"{[round(v, 2) for v in step_card]}, p50 {vis_p[0]:.2f} p95 {vis_p[1]:.2f}; "
+          f"step ms (host clock, H2D to loss) {[round(v, 2) for v in host_ms]}; wait for "
+          f"the batch ms (host decode and augmentation, 8 threads, prefetch 2) "
+          f"{[round(v, 2) for v in data_ms]}; peak memory {vis_peak:.2f} GB", flush=True)
+    if (len(vis_steps) != 2 * VIS_EPOCHS or any(c != want_vis_step for c, _ in vis_steps)
+            or len(vis_evals) != VIS_EPOCHS * eval_batches
+            or any(c != want_eval for c in vis_evals)):
+        fail(f"cli.main: expected {2 * VIS_EPOCHS} steps of {want_vis_step} and "
+             f"{VIS_EPOCHS * eval_batches} eval batches of {want_eval} launches, got "
+             f"{[c for c, _ in vis_steps]} and {vis_evals}")
+    if not all(np.isfinite(vis_run.losses)) or len(vis_run.mious) != VIS_EPOCHS:
+        fail(f"cli.main: losses {vis_run.losses}, mIoUs {vis_run.mious}")
+    saved = torch.load(vis_run.checkpoint, map_location="cpu", weights_only=True)
+    if saved["epoch"] != 1 or saved["best_iou"] != vis_run.mious[0]:
+        fail(f"cli.main: checkpoint epoch {saved['epoch']}, best_iou {saved['best_iou']}")
+    # the host's share: one batch's decode and augmentation on 8 threads, and
+    # one thread's ms per frame, apart from the card
+    ds = VistasDataset(vis_train, width=VIS_HW[1], height=VIS_HW[0])
+    t0 = time.perf_counter()
+    vis_raw = next(batch_iterator(ds, N_VIS, seed=0, workers=8))
+    host_batch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for i in range(4):
+        ds[i]
+    host_frame_ms = (time.perf_counter() - t0) * 1e3 / 4
+    print(f"  host: {host_batch_ms:.1f} ms per batch of {N_VIS} on 8 threads (PNG decode, "
+          f"scale jitter, pad, crop, flip, colour jitter, rotation, normalisation), "
+          f"{host_frame_ms:.1f} ms per frame on one thread; card {vis_p[0]:.2f} ms per step "
+          f"-> {N_VIS / max(host_batch_ms, vis_p[0]) * 1e3:.1f} frames/s when both overlap",
+          flush=True)
+    later["vistas_train"] = {
+        "launches": vis_launches, "step_ms_p50_p95_cuda_events": vis_p,
+        "step_ms_host": host_ms, "batch_wait_ms": data_ms, "peak_memory_gb": vis_peak,
+        "host_ms_per_batch_8_threads": host_batch_ms, "host_ms_per_frame_1_thread": host_frame_ms,
+        "mious": vis_run.mious, "losses": vis_run.losses}
+
+    # 7b. --resume <7a's checkpoint> --evaluate: the mIoU of 7a's epoch-0 validation
+    print("main path: cli.main --resume <7a> --evaluate", flush=True)
+    miou, eval_launches, wall, _ = run_vistas(
+        ["--data", vis_train, "--valdata", vis_val, "--resume", vis_run.checkpoint,
+         "--evaluate"])
+    print(f"  mIoU {miou:.9f} vs 7a's {vis_run.mious[0]:.9f} (tolerance 1e-6); launches "
+          f"{eval_launches} over {len(vis_evals)} eval batches ({wall:.1f} s)", flush=True)
+    if abs(miou - vis_run.mious[0]) > 1e-6 or any(c != want_eval for c in vis_evals):
+        fail(f"cli.main --evaluate: mIoU {miou} vs {vis_run.mious[0]}, launches {vis_evals}")
+    later["vistas_evaluate"] = {"launches": eval_launches, "miou": miou}
+
+    # 7c. one Vistas step with --bn-groups 3, kernels against the plain versions
+    conf = load_config(vistas_cli.DEFAULT_CONFIG)
+    vis_args = vistas_cli.build_parser().parse_args(
+        ["--data", "-", "--valdata", "-", "--bn-groups", "3"])
+    model = init_model(vistas_cli.build_model(vis_args, conf), 0, dev)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    vb = {"image": to_device(vis_raw["image"], dev),
+          "label": to_device(vis_raw["label"], dev).long()}
+    bn = next(m for m in model.modules() if isinstance(m, BatchNorm) and m.groups == 3)
+    seen = []
+    hook = bn.register_forward_hook(lambda m, inp, out: seen.append(inp[0].detach()))
+
+    def vis_grads():
+        model.load_state_dict(start)
+        model.zero_grad(set_to_none=True)
+        seen.clear()
+        loss = cross_entropy_ignore(model(vb["image"])[0], vb["label"])
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.float().clone()
+                                      for k, p in model.named_parameters()
+                                      if p.grad is not None}
+
+    loss_k, grads_k = vis_grads()
+    x0 = seen[0][:N_VIS // 3].float()
+    m = bn.flax_momentum
+    hook.remove()
+    bn_name = next(k for k, mod in model.named_modules() if mod is bn)
+    mean0 = m * start[bn_name + ".running_mean"] + (1 - m) * x0.mean((0, 2, 3))
+    stat_rel = float((bn.running_mean - mean0).norm() / mean0.norm())
+    for k in all_kernels:
+        k.launches = 0
+    with mock.patch.object(gc, "grouped_conv3x3", fwd_plain), \
+            mock.patch.object(gc, "grouped_conv3x3_dx", dx_plain):
+        loss_p, grads_p = vis_grads()
+    with mock.patch.object(gc, "grouped_conv3x3", fwd_library), \
+            mock.patch.object(gc, "grouped_conv3x3_dx", dx_library):
+        loss_l, grads_l = vis_grads()
+    if any(counts().values()):
+        fail("the plain-version Vistas step launched a kernel")
+    hold_step(f"one Vistas step (--bn-groups 3, batch {N_VIS})", (loss_k, loss_p, loss_l),
+              (grads_k, grads_p, grads_l))
+    print(f"  {bn_name}'s running mean after the step vs group 0's batch mean: rel L2 "
+          f"{stat_rel:.3g} (tolerance 1e-3)", flush=True)
+    if not stat_rel <= 1e-3:
+        fail(f"--bn-groups 3: the running mean is not group 0's (rel {stat_rel})")
+    later["vistas_step_check"] = {"launches": {k.name: 0 for k in all_kernels},
+                                  "loss_kernels": loss_k, "loss_plain": loss_p,
+                                  "running_mean_rel": stat_rel}
+    del model, start, grads_k, grads_p, grads_l, vb, seen
+    torch.cuda.empty_cache()
+
+    # 7d. cli.main --arch pspnet: PSPNet-ResNet-50 with dropout, no port kernel
+    print(f"main path: cli.main --arch pspnet, batch {N_VIS} of {VIS_HW[0]}x{VIS_HW[1]}, "
+          "2 steps", flush=True)
+    psp_run, psp_launches, wall, psp_peak = run_vistas(
+        ["--data", vis_train, "--valdata", vis_val, "--arch", "pspnet", "--batch-size",
+         str(N_VIS), "--epochs", "1", "--max-steps-per-epoch", "2", "--checkpoint-dir",
+         os.path.join(work, "vistas_psp_ck")])
+    psp_card = [ms for _, ms in vis_steps]
+    print(f"  launches {psp_launches} ({wall:.1f} s wall); losses "
+          f"{[round(v, 6) for v in psp_run.losses]}; step ms (CUDA events) "
+          f"{[round(v, 2) for v in psp_card]}; peak memory {psp_peak:.2f} GB", flush=True)
+    if (any(psp_launches.values()) or len(psp_run.losses) != 2
+            or not all(np.isfinite(psp_run.losses))):
+        fail(f"cli.main --arch pspnet: launches {psp_launches}, losses {psp_run.losses}")
+    later["vistas_pspnet"] = {"launches": psp_launches, "step_ms_cuda_events": psp_card,
+                              "peak_memory_gb": psp_peak}
+    torch.cuda.empty_cache()
+
+    # 7e. cli.train_conf --trainsetname MF --bn_groups 2: an MFNet tree at
+    # 480x640, 2 critic and 2 seg steps at batch 16 of 384x384, the IR teacher
+    print(f"main path: cli.train_conf --trainsetname MF --bn_groups 2, ResNeXt-50 + 6 "
+          f"cyclegan critics, batch {N_MF} of {MF_CROP[0]}x{MF_CROP[1]}, --irscale, IR "
+          "teacher, 4 steps", flush=True)
+    mf_train = write_mfnet_tree(os.path.join(work, "mfnet_train"), 2 * N_MF, 11, train=True)
+    per_step.clear()
+    for k in all_kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_conf, "make_adversarial_steps", counted_steps):
+        mf_run = train_conf.main([
+            "--trainsetname", "MF", "--dataroot", mf_train, "--bn_groups", "2",
+            "--batch_size", str(N_MF), "--discarch", "cyclegan", "--num_critics", "6",
+            "--irscale", "--night_supervision_model", teacher_ckpt,
+            "--iter_initial_critic_phase", "2", "--iter_critic_phase", "2",
+            "--iter_seg_phase", "2", "--n_epochs", "2",
+            "--checkpointname", os.path.join(work, "conf_mf"),
+            "--log_dir", os.path.join(work, "runs_7e")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mf_launches, mf_peak = counts(), torch.cuda.max_memory_allocated() / 1e9
+    print(f"  launches {mf_launches} over {len(mf_run.phases)} steps ({wall:.1f} s wall); "
+          f"peak memory {mf_peak:.2f} GB", flush=True)
+    mf_out = {"launches": mf_launches, "peak_memory_gb": mf_peak}
+    for phase in ("train_critic", "train_seg"):
+        seen_c = [c for p, c in per_step if p == phase]
+        ms = [t * 1e3 for t, p in zip(mf_run.step_seconds, mf_run.phases) if p == phase]
+        print(f"  per {phase} step: {seen_c} (want {want_step[phase]}); losses "
+              f"{[round(v, 6) for v in mf_run.losses[phase]]}; step ms (host, augmentation "
+              f"to loss) {[round(v, 2) for v in ms]}", flush=True)
+        if (len(seen_c) != 2 or any(c != want_step[phase] for c in seen_c)
+                or not all(np.isfinite(mf_run.losses[phase]))):
+            fail(f"train_conf --trainsetname MF {phase}: launches {seen_c}, losses "
+                 f"{mf_run.losses[phase]}")
+        mf_out[phase + "_ms_host"] = ms
+    raw = next(batch_iterator(MFNetTrainDataset(mf_train), N_MF, seed=0))
+    mf_batch = DeviceAugment(MF_CROP, dev, mfnet=True)(torch.Generator().manual_seed(1), raw)
+    mf_cfg = adv.AdversarialConfig(irscale=True, night_supervision=True)
+    mf_draws = adv.draw_seg_aug(torch.Generator().manual_seed(2))
+    mf_draws.irscale = True
+    model = init_model(ConfSegnet(disc_arch="cyclegan", num_critics=6, bn_groups=2), 0, dev)
+    teacher = train_conf.load_teacher(teacher_ckpt, "ir", False, dev)
+    check_isolation(model, mf_cfg, teacher, mf_batch, mf_draws)
+    later["train_conf_mf"] = mf_out
+    del model, teacher, mf_batch
+    torch.cuda.empty_cache()
+    print(f"  phases 7a-7e: {time.perf_counter() - t_7:.1f} s", flush=True)
+
+    # 8. the record: each kernel's launches on every path, read around it
     paths = {"serving": launches, "train_plain": train_launches, "train_conf": adv_launches,
              **{name: r["launches"] for name, r in later.items()}}
 

@@ -25,13 +25,17 @@ Package map:
 - ``kernels`` the nvcc build and ctypes binding of ``csrc/*.cu``
 - ``io``      JAX parameter trees → ``state_dict``; checkpoints; run logs
 - ``data``    inference and train packs, a PNG codec (zlib + numpy), eval
-              loaders of PNG trees, batches, augmentation on the device
+              and training loaders of PNG trees (Vistas, MFNet, KAIST)
+              with numpy copies of cv2's and Pillow's image calls,
+              batches, augmentation on the device
 - ``train``   loss, train/eval steps, optimizers and schedules, train state
-- ``eval``    the validators (per-class IoU) and batched inference to
-              uint8 class maps
-- ``utils``   label colour coding and PNG dumps
-- ``cli``     the ``inference``, ``train_plain`` and ``train_conf`` entry
-              points (``train_conf`` also evaluates and infers)
+- ``eval``    the validators (per-class IoU), the confusion-matrix IoU
+              metric, and batched inference to uint8 class maps
+- ``utils``   experiment configs, label colour coding and PNG dumps
+- ``cli``     the ``inference``, ``main`` (Vistas pretraining),
+              ``train_plain``, ``train_conf``, ``train_cyclegan``,
+              ``test_cyclegan`` and ``train_uncertainty`` entry points
+              (``train_conf`` also evaluates and infers)
 - ``tools``   profilers of the forward and the training steps on the card,
               the PNG decoder's timing
 """

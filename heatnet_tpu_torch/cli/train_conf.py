@@ -11,7 +11,16 @@ turn), one RMSprop with a StepLR(gamma .5) schedule per phase. With conf
 on, ``n_epochs`` and ``half_lr_every_epoch`` double (:204-208). The chain
 per step: a heatnet-train-pack-v1 directory (day frames with labels, night
 frames) → numpy batches → augmentation on the device → the phase's step
-(``train/adversarial.py``) → ``Current loss``.
+(``train/adversarial.py``) → ``Current loss``. With ``--trainsetname MF``
+(:317-320) the frames come from an MFNet tree (``MFNetTrainDataset``: RGBA
+PNGs, day labels from ``labels_from_rgbteacher/``), cropped to 384x384 by
+``DeviceAugment(mfnet=True)``, and the periodic eval runs every 20 epochs
+(:349). MFNet's chain draws no modality-drop rectangle, so ``--moddrop``
+with ``--trainsetname MF`` is refused; the JAX trainer fails on it at its
+first seg step (``heatnet_tpu/train/adversarial.py:254`` reads
+``mod_drop_params``, which its MFNet chain does not return).
+``--bn_groups`` takes the segnet's train-mode BN statistics per batch
+group.
 
 ``--pretraining`` loads a ``cli.train_plain`` checkpoint (``--pretraining_path``)
 into ``trgb_segnet``; ``--night_supervision_model`` loads the teacher with
@@ -43,8 +52,8 @@ Checkpoints are ``torch.save({"epoch", "state_dict", "best_iou"})`` files.
 The logged loss averages take the losses of the log points only, as the
 JAX trainer's do.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``--bn_groups > 1`` (4), ``--trainsetname MF`` (3), ``--vis`` (8).
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
+``--vis`` (8).
 
 Usage::
 
@@ -66,8 +75,9 @@ import numpy as np
 import torch
 
 from ..data.loaders import (BDDValDataset, DeviceAugment, FreiburgInferDataset,
-                            FreiburgThermalTestDataset, MFNetDataset, batch_iterator,
-                            get_test_paths, get_test_stamps, prefetch_items)
+                            FreiburgThermalTestDataset, MFNetDataset, MFNetTrainDataset,
+                            batch_iterator, get_test_paths, get_test_stamps,
+                            prefetch_items)
 from ..data.packed import PackedFreiburgTrainDataset, is_train_pack_dir
 from ..device import resolve
 from ..eval.validate import (eval_batch_size, inference, validate_model,
@@ -82,6 +92,8 @@ from ..train.adversarial import (AdversarialConfig, PhaseMachine, draw_seg_aug,
                                  make_adversarial_steps, make_phase_optimizers)
 from ..train.optim import step_lr
 from ..train.state import init_model
+
+MF_CROP = (384, 384)  # MFNet's train crop (train_conf.py:319)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -103,7 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--input_nc', type=int, default=1)
     p.add_argument('--output_nc', type=int, default=1)
     p.add_argument('--cuda', action='store_true', help='parity no-op')
-    p.add_argument('--n_cpu', type=int, default=8)
+    p.add_argument('--n_cpu', type=int, default=8,
+                   help='decode threads (PNG trees: --trainsetname MF)')
     p.add_argument('--batch_size', type=int, default=4)
     p.add_argument('--iter_seg_phase', type=int, default=50)
     p.add_argument('--iter_critic_phase', type=int, default=500)
@@ -165,17 +178,15 @@ class TrainConfRun:
 
 
 def _refuse_unported(opt: argparse.Namespace) -> None:
-    unported = [
-        (opt.bn_groups > 1, "--bn_groups > 1", 4),
-        (opt.trainsetname == "MF", "--trainsetname MF", 3),
-        (opt.vis, "--vis", 8),
-    ]
-    for hit, flag, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{flag} is not ported to heatnet_tpu_torch yet (ROADMAP item {item})")
-    if opt.trainsetname != "FR":
+    if opt.vis:
+        raise NotImplementedError("--vis is not ported to heatnet_tpu_torch yet "
+                                  "(ROADMAP item 8)")
+    if opt.trainsetname not in ("FR", "MF"):
         raise SystemExit(f"Dataset {opt.trainsetname} not known")
+    if opt.trainsetname == "MF" and opt.moddrop:
+        raise ValueError("--moddrop needs the modality-drop rectangles that the FR chain "
+                         "draws; the MF chain draws none (mf_train_sample_preprocess), so "
+                         "--trainsetname MF --moddrop has no behaviour to follow")
 
 
 def open_train_pack(path: str, test_stamps) -> PackedFreiburgTrainDataset:
@@ -263,7 +274,9 @@ def main(argv=None):
         print('##############INFERENCE MODE##############')
     training = not (opt.eval or opt.infer)
     test_roots = [r for r in (opt.testroot_night, opt.testroot_day) if r]
-    if training:
+    if training and opt.trainsetname == "MF":
+        ds = MFNetTrainDataset(opt.dataroot)
+    elif training:
         ds = open_train_pack(opt.dataroot,
                              get_test_stamps(get_test_paths(test_roots)[2]) if test_roots
                              else None)
@@ -324,7 +337,9 @@ def main(argv=None):
         iter_critic_phase=opt.iter_critic_phase,
         iter_initial_critic_phase=opt.iter_initial_critic_phase)
 
-    augment = DeviceAugment(crop_hw=(opt.crop_height, opt.crop_width), device=device)
+    mfnet = opt.trainsetname == "MF"
+    augment = DeviceAugment(crop_hw=MF_CROP if mfnet else (opt.crop_height, opt.crop_width),
+                            device=device, mfnet=mfnet)
     steps_per_epoch = max(len(ds) // opt.batch_size, 1)
     if opt.max_iters_per_epoch:
         steps_per_epoch = min(steps_per_epoch, opt.max_iters_per_epoch)
@@ -334,7 +349,7 @@ def main(argv=None):
                        steps_per_epoch=steps_per_epoch))
     seg_step, critic_step = make_adversarial_steps(model, cfg, teacher)
     pm = PhaseMachine(cfg, no_conf=opt.no_conf)
-    eval_everyn = opt.eval_everyn or 2  # FR's period (:349)
+    eval_everyn = opt.eval_everyn or (20 if mfnet else 2)  # (:349)
     log_everyn = max(opt.log_everyn, 1)
     meters = {k: AverageMeter() for k in
               ("total_phase1", "total_phase2", "seg", "conf", "critic")}
@@ -342,7 +357,8 @@ def main(argv=None):
     run = TrainConfRun({"train_seg": [], "train_critic": []}, [], [], "")
     generator = torch.Generator().manual_seed(42)
     for epoch in range(start_epoch, n_epochs):
-        for i, raw in enumerate(batch_iterator(ds, opt.batch_size, seed=epoch)):
+        for i, raw in enumerate(batch_iterator(ds, opt.batch_size, seed=epoch,
+                                               workers=opt.n_cpu)):
             if opt.max_iters_per_epoch and i >= opt.max_iters_per_epoch:
                 break
             t0 = time.perf_counter()

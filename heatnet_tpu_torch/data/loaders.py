@@ -11,11 +11,23 @@ JPEG. ``KAISTCycleGANDataset`` reads PNGs the same way and resizes with
 ``resize_pil``, a numpy copy of Pillow's resampling as the JAX loader calls
 it; only a JPEG (KAIST's own frames) goes to PIL.
 
+The training loaders of PNG trees, ``VistasDataset`` (Vistas pretraining,
+its whole augmentation on the host, as in JAX) and ``MFNetTrainDataset``
+(decode and resize; the augmentation runs on the device), draw from a numpy
+``RandomState`` and give the JAX loaders' items for the same seed. Each
+splits ``__getitem__`` into ``draw(index)``, which takes the item's random
+draws in the JAX loader's order, and ``load(index, draws)``, which decodes
+and transforms: ``batch_iterator(workers=n)`` draws in order and decodes
+on threads. The cv2 calls of the Vistas chain are numpy copies here
+(``resize_and_pad``, ``copy_make_border``, ``rgb_to_hsv``/``hsv_to_rgb``,
+``get_rotation_matrix_2d``, ``warp_affine``, ``swap_rb``).
+
 ``batch_iterator`` and ``prefetch_items`` are copies (numpy and threads).
 ``DeviceAugment`` moves a raw batch to the device and runs
-``ops.preprocess.train_sample_preprocess`` over it, batched, with every
-sample's random parameters drawn from the caller's ``torch.Generator`` (the
-JAX version vmaps the chain over per-sample keys).
+``ops.preprocess.train_sample_preprocess`` (or, for MFNet,
+``mf_train_sample_preprocess``) over it, batched, with every sample's
+random parameters drawn from the caller's ``torch.Generator`` (the JAX
+version vmaps the chain over per-sample keys).
 """
 
 from __future__ import annotations
@@ -32,9 +44,10 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from ..ops.preprocess import TRAIN_WINDOW, draw_train_params, train_sample_preprocess
+from ..ops.preprocess import (TRAIN_WINDOW, draw_train_params,
+                              mf_train_sample_preprocess, train_sample_preprocess)
 from .png import _SIGNATURE as _PNG_SIGNATURE
-from .png import read_png, read_png_palette
+from .png import png_size, read_png, read_png_palette
 
 IR_RES = (960, 320)  # (W, H), thermal_loader.py:622
 _COEF_BITS = 11      # cv2's INTER_RESIZE_COEF_BITS
@@ -104,6 +117,179 @@ def resize(img: np.ndarray, wh: Tuple[int, int], nearest: bool = False) -> np.nd
         out = rows[y0] * b0[:, None, None] + rows[y1] * fy[:, None, None]
         out = np.clip(np.rint(out), 0, 65535)
     return out.astype(img.dtype).reshape((h_out, w_out) + img.shape[2:])
+
+
+# ---------------------------------------------------------------------------
+# cv2's border, colour and affine-warp calls of the Vistas chain, in numpy
+# ---------------------------------------------------------------------------
+
+def swap_rb(img: np.ndarray) -> np.ndarray:
+    """``COLOR_BGR2RGB`` and ``COLOR_RGB2BGR``: the channel order reversed."""
+    return np.ascontiguousarray(img[..., ::-1])
+
+
+def copy_make_border(img: np.ndarray, top: int, bottom: int, left: int, right: int,
+                     value) -> np.ndarray:
+    """``cv2.copyMakeBorder(..., BORDER_CONSTANT, value=value)``: ``value``
+    is a scalar or one entry per channel."""
+    if min(top, bottom, left, right) < 0:
+        raise ValueError(f"negative border {(top, bottom, left, right)}")
+    h, w = img.shape[:2]
+    out = np.empty((h + top + bottom, w + left + right) + img.shape[2:], img.dtype)
+    out[...] = np.asarray(value, img.dtype)
+    out[top:top + h, left:left + w] = img
+    return out
+
+
+def resize_and_pad(img: np.ndarray, size: Tuple[int, int], pad_color=11,
+                   nearest: bool = False) -> np.ndarray:
+    """Aspect-preserving resize to width ``size[1]``, then constant rows
+    above and below up to height ``size[0]`` (vistas_dataset.py:13-36,
+    ``heatnet_tpu/data/loaders.py:599-616``); like the reference it handles
+    frames wider than the target only."""
+    h, w = img.shape[:2]
+    sh, sw = size
+    aspect = w / h
+    new_w = sw
+    new_h = int(np.round(new_w / aspect))
+    pad_vert = (sh - new_h) / 2
+    pad_top, pad_bot = int(np.floor(pad_vert)), int(np.ceil(pad_vert))
+    if img.ndim == 3 and not isinstance(pad_color, (list, tuple, np.ndarray)):
+        pad_color = [pad_color] * 3
+    scaled = resize(img, (new_w, new_h), nearest=nearest)
+    return copy_make_border(scaled, pad_top, pad_bot, 0, 0, pad_color)
+
+
+# cv2's RGB2HSV_b tables: 12 fractional bits, saturate_cast (round half to even)
+_HSV_SHIFT = 12
+_SDIV = np.r_[0, np.rint((255 << _HSV_SHIFT) / np.arange(1, 256.0))].astype(np.int64)
+_HDIV180 = np.r_[0, np.rint((180 << _HSV_SHIFT) / (6.0 * np.arange(1, 256.0)))].astype(np.int64)
+# HSV2RGB's sectors: which of (v, p, q, t) each of b, g, r takes
+_HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def rgb_to_hsv(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, COLOR_RGB2HSV)`` of uint8 RGB: H in [0, 180),
+    cv2's integer arithmetic with its division tables."""
+    c = img.astype(np.int64)
+    r, g, b = c[..., 0], c[..., 1], c[..., 2]
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * _SDIV[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV180[diff] + half) >> _HSV_SHIFT
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], -1).astype(np.uint8)
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """``a * b + c`` of float32 values rounded once to float32, as a fused
+    multiply-add: the float64 product of two float32 values is exact."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+# cv2's HSV2RGB_b loop takes 32 pixels of a row per vector step (8 float
+# lanes x 4) and the rest of the row one by one
+_HSV_VECTOR_STEP = 32
+
+
+def hsv_to_rgb(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, COLOR_HSV2RGB)`` of uint8 (H, W, 3) HSV with H in
+    [0, 180): cv2's float32 arithmetic (S and V times 1/255, H times 6/180,
+    the sector's ``v * (1 - s * f)`` terms with fused multiply-adds, times
+    255). Its vector loop truncates to uint8 and covers each row's first
+    multiple of 32 pixels; the row's last ``W % 32`` pixels, done one by
+    one, round half to even."""
+    f32 = np.float32
+    h = img[..., 0].astype(f32) * f32(6.0 / 180)
+    s = img[..., 1].astype(f32) * f32(1.0 / 255.0)
+    v = img[..., 2].astype(f32) * f32(1.0 / 255.0)
+    pre = np.trunc(h)
+    frac = h - pre
+    sector = (pre - np.trunc(pre * f32(1.0 / 6.0)) * f32(6.0)).astype(np.intp)
+    one = np.ones_like(s)
+    tab = np.stack([v, v * (one - s), v * _fma32(-s, frac, one),
+                    v * _fma32(-s, one - frac, one)], -1)
+    b, g, r = (np.take_along_axis(tab, _HSV_SECTORS[sector, k][..., None], -1)[..., 0]
+               for k in range(3))
+    rgb = np.stack([r, g, b], -1) * f32(255.0)
+    w = img.shape[1]
+    vector = np.arange(w) < w // _HSV_VECTOR_STEP * _HSV_VECTOR_STEP
+    rgb = np.where(vector[:, None], np.trunc(rgb), np.rint(rgb))
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def get_rotation_matrix_2d(center: Tuple[float, float], angle: float,
+                           scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D``: the centre as float32 (cv2's Point2f),
+    the matrix in float64."""
+    cx, cy = (float(np.float32(c)) for c in center)
+    a = np.deg2rad(angle)
+    alpha, beta = np.cos(a) * scale, np.sin(a) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def _invert_affine(m: np.ndarray) -> np.ndarray:
+    """cv2's inverse of a 2x3 affine map, in float64 (``warpAffine`` without
+    ``WARP_INVERSE_MAP``)."""
+    m = np.asarray(m, np.float64).ravel().copy()
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[1], m[3], m[4] = a11, -m[1] * d, -m[3] * d, a22
+    m[2], m[5] = -m[0] * m[2] - m[1] * m[5], -m[3] * m[2] - m[4] * m[5]
+    return m
+
+
+_WARP_VECTOR_STEP = 16  # pixels of a row per step of cv2's warpAffine vector loop
+
+
+def warp_affine(img: np.ndarray, m: np.ndarray, wh: Tuple[int, int],
+                nearest: bool = False) -> np.ndarray:
+    """``cv2.warpAffine(img, m, wh, flags=INTER_NEAREST if nearest else
+    INTER_LINEAR)`` of a uint8 (H, W) or (H, W, C) image, border constant 0.
+
+    cv2 5's float kernels: the inverse map in float32, source coordinates
+    ``fma(x, m0, y * m1 + m2)`` in its vector loop (each row's first
+    multiple of 16 pixels) and ``fma(x, m0, y * m1) + m2`` in the row's
+    tail; NEAREST rounds them half to even; LINEAR takes the four
+    neighbours (0 outside the frame) and interpolates as ``fma(a, p1 - p0,
+    p0)`` along x, then along y, rounded half to even. Older cv2 (before
+    4.11) took fixed-point coordinates in 1/32 pixel instead; the two differ
+    on a few pixels per frame.
+    """
+    if img.dtype != np.uint8:
+        raise ValueError(f"warp_affine takes uint8 images, got {img.dtype}")
+    w_out, h_out = wh
+    h, w = img.shape[:2]
+    mi = _invert_affine(m).astype(np.float32)
+    x = np.arange(w_out, dtype=np.float32)[None, :]
+    y = np.arange(h_out, dtype=np.float32)[:, None]
+    vector = x < w_out // _WARP_VECTOR_STEP * _WARP_VECTOR_STEP
+    sx = np.where(vector, _fma32(x, mi[0], y * mi[1] + mi[2]),
+                  _fma32(x, mi[0], y * mi[1]) + mi[2])
+    sy = np.where(vector, _fma32(x, mi[3], y * mi[4] + mi[5]),
+                  _fma32(x, mi[3], y * mi[4]) + mi[5])
+    src = img if img.ndim == 3 else img[..., None]
+
+    def tap(xi, yi):
+        inside = ((xi >= 0) & (xi < w) & (yi >= 0) & (yi < h))[..., None]
+        return np.where(inside, src[np.clip(yi, 0, h - 1), np.clip(xi, 0, w - 1)], 0)
+
+    if nearest:
+        out = tap(np.rint(sx).astype(np.intp), np.rint(sy).astype(np.intp))
+    else:
+        x0, y0 = np.floor(sx), np.floor(sy)
+        a, b = (sx - x0)[..., None], (sy - y0)[..., None]
+        x0, y0 = x0.astype(np.intp), y0.astype(np.intp)
+        p00, p01 = tap(x0, y0).astype(np.float32), tap(x0 + 1, y0).astype(np.float32)
+        p10, p11 = tap(x0, y0 + 1).astype(np.float32), tap(x0 + 1, y0 + 1).astype(np.float32)
+        top, bot = _fma32(a, p01 - p00, p00), _fma32(a, p11 - p10, p10)
+        out = np.clip(np.rint(_fma32(b, bot - top, top)), 0, 255)
+    return out.astype(np.uint8).reshape((h_out, w_out) + img.shape[2:])
 
 
 def _imread_rgb(path: str) -> np.ndarray:
@@ -250,6 +436,183 @@ class MFNetDataset:
             "ir_org": ir[None],
             "label": label.astype(np.int32)[None],
         }
+
+
+class MFNetTrainDataset:
+    """MFNet train split (MFDatasetTrain, :291-440; ``heatnet_tpu/data/
+    loaders.py:342-383``): each day item of ``train.txt`` (names ending in
+    D, no ``flip``) with a night frame drawn from ``RandomState(seed)``, the
+    RGBA PNG's RGB and its alpha (the 8-bit IR), the day labels from
+    ``labels_from_rgbteacher/``, all resized to 640x480. Raw uint8 frames;
+    ``DeviceAugment(mfnet=True)`` augments them on the device."""
+
+    WIDTH, HEIGHT = 640, 480
+
+    def __init__(self, data_dir: str, seed: int = 0):
+        with open(os.path.join(data_dir, "train.txt")) as f:
+            names = [n.strip() for n in f.readlines()]
+        self.day_names = [n for n in names if "flip" not in n and n.endswith("D")]
+        self.night_names = [n for n in names if "flip" not in n and n.endswith("N")]
+        if not self.day_names or not self.night_names:
+            raise FileNotFoundError(f"no day and night names in {data_dir}/train.txt")
+        self.data_dir = data_dir
+        self._rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        return len(self.day_names)
+
+    def _read(self, name: str):
+        path = os.path.join(self.data_dir, "images", name + ".png")
+        im = read_png(path)
+        if im.ndim != 3 or im.shape[2] != 4 or im.dtype != np.uint8:
+            raise ValueError(f"{path}: expected an 8-bit RGBA PNG, got {im.dtype} {im.shape}")
+        wh = (self.WIDTH, self.HEIGHT)
+        return resize(im[..., :3], wh), resize(im[..., 3:], wh)
+
+    def draw(self, index: int) -> int:
+        """The night frame of item ``index``."""
+        return self._rng.randint(len(self.night_names))
+
+    def load(self, index: int, night: int) -> Dict[str, np.ndarray]:
+        day_name = self.day_names[index]
+        rgb_day, ir_day = self._read(day_name)
+        rgb_night, ir_night = self._read(self.night_names[night])
+        label = _imread_grey(os.path.join(self.data_dir, "labels_from_rgbteacher",
+                                          day_name + ".png"), np.uint8)
+        return {"rgb_day": rgb_day, "ir_day": ir_day,
+                "label_day": resize(label, (self.WIDTH, self.HEIGHT), nearest=True),
+                "rgb_night": rgb_night, "ir_night": ir_night}
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        return self.load(index, self.draw(index))
+
+
+def _scaled_hw(h: int, w: int, scale: float) -> Tuple[int, int]:
+    """The Vistas scale jitter's size: width 1024 x scale, the aspect kept
+    (vistas_dataset.py:75-82)."""
+    return int(int(h / w * 1024) * scale), int(1024 * scale)
+
+
+def color_jitter(img: np.ndarray, brightness: float, contrast: float,
+                 saturation: float, hue: float) -> np.ndarray:
+    """The JAX loader's ColorJitter on uint8 RGB with the given factors
+    (``VistasDataset._color_jitter``): brightness, contrast about the mean,
+    saturation about the grey, in float32, truncated to uint8; then H moved
+    by ``int(hue * 180)`` in cv2's 8-bit HSV."""
+    img = img.astype(np.float32)
+    img = img * brightness
+    mean = img.mean()
+    img = (img - mean) * contrast + mean
+    gray = img.mean(axis=2, keepdims=True)
+    img = (img - gray) * saturation + gray
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    hsv = rgb_to_hsv(img)
+    hsv[..., 0] = (hsv[..., 0].astype(np.int32) + int(hue * 180)) % 180
+    return hsv_to_rgb(hsv)
+
+
+class VistasDataset:
+    """Relabelled Mapillary Vistas for pretraining (VistasBorderDataLoader,
+    data/vistas_dataset.py:38-159; ``heatnet_tpu/data/loaders.py:827-933``).
+
+    ``images/*.png`` with ``labels/*.png`` (uint16, class = value // 256).
+    Items: normalised ``image`` (H, W, 3) float32, ``label`` (H, W) int32,
+    ``image_org`` in [0, 1], at (height, width). The train chain: scale
+    jitter {0.75, 1, 1.25} at width 1024, padding to the height
+    (``resize_and_pad``, labels padded with ``background_id``), a random
+    crop, an hflip (p 0.5), colour jitter (p 0.6), a rotation within ±20°
+    (p 0.5), the Vistas mean and std. The eval chain resizes to width x
+    height. The draws come from ``RandomState(seed)`` in the JAX loader's
+    order; they depend on each frame's size (its PNG header) and on earlier
+    draws, not on its pixels. ``contrast_enhancement`` (CLAHE) raises.
+    """
+
+    MEAN = (0.28389175985075144, 0.32513300997108185, 0.28689552631651594)
+    STD = (0.1777223070810445, 0.18099167120139084, 0.17613640748441522)
+
+    def __init__(self, db_path: str, width: int, height: int,
+                 augment_data: bool = True, sub_mean: bool = True,
+                 background_id: int = 12, contrast_enhancement: bool = False,
+                 seed: int = 0):
+        if contrast_enhancement:
+            raise NotImplementedError("contrast_enhancement (CLAHE) is not ported to "
+                                      "heatnet_tpu_torch yet (ROADMAP item 8)")
+        self.width, self.height = width, height
+        self.augment_data = augment_data
+        self.sub_mean = sub_mean
+        self.background_id = background_id
+        self._rng = np.random.RandomState(seed)
+
+        label_files = sorted(glob(os.path.join(db_path, "labels/*.png")))
+        self.pairs = [(l.replace("labels", "images"), l) for l in label_files
+                      if os.path.isfile(l.replace("labels", "images"))]
+        if not self.pairs:
+            raise FileNotFoundError(f"no image/label pairs under {db_path}")
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def _needs_pad(self, h: int, w: int) -> bool:
+        return not (h >= self.height and w >= self.width)
+
+    def draw(self, index: int) -> Optional[dict]:
+        """Item ``index``'s draws (None for the eval chain): ``scale``, crop
+        ``i``, ``j``, ``flip``, optional ``jitter`` (brightness, contrast,
+        saturation, hue) and ``angle``."""
+        if not self.augment_data:
+            return None
+        rng = self._rng
+        d = {"scale": [0.75, 1.0, 1.25][rng.randint(3)]}
+        h, w = _scaled_hw(*png_size(self.pairs[index][0]), d["scale"])
+        if self._needs_pad(h, w):
+            h = self.height
+        d["i"] = rng.randint(0, h - self.height + 1)
+        d["j"] = rng.randint(0, w - self.width + 1)
+        d["flip"] = rng.rand() > 0.5
+        if rng.rand() > 0.4:
+            d["jitter"] = (rng.uniform(0.8, 1.2), rng.uniform(0.8, 1.2),
+                           rng.uniform(0.8, 1.2), rng.uniform(-0.1, 0.1))
+        if rng.rand() > 0.5:
+            d["angle"] = (rng.rand() - 0.5) * 40
+        return d
+
+    def load(self, index: int, d: Optional[dict]) -> Dict[str, np.ndarray]:
+        rgb_file, label_file = self.pairs[index]
+        image = _imread_rgb(rgb_file)  # RGB: the JAX loader's BGR read and its later swap
+        ids = (_imread_grey(label_file, np.uint16) // 256).astype(np.uint8)
+        if d is not None:
+            h, w = _scaled_hw(*image.shape[:2], d["scale"])
+            image, ids = resize(image, (w, h)), resize(ids, (w, h), nearest=True)
+        if self._needs_pad(*image.shape[:2]):
+            ids = resize_and_pad(ids, (self.height, ids.shape[1]),
+                                 pad_color=self.background_id, nearest=True)
+            image = resize_and_pad(image, (self.height, image.shape[1]), pad_color=0)
+        if d is None:
+            image = resize(image, (self.width, self.height))
+            ids = resize(ids, (self.width, self.height), nearest=True)
+        else:
+            i, j = d["i"], d["j"]
+            image = image[i:i + self.height, j:j + self.width]
+            ids = ids[i:i + self.height, j:j + self.width]
+            if d["flip"]:
+                image, ids = image[:, ::-1], ids[:, ::-1]
+            if "jitter" in d:
+                image = color_jitter(image, *d["jitter"])
+            if "angle" in d:
+                hw = image.shape[:2]
+                m = get_rotation_matrix_2d((hw[1] / 2, hw[0] / 2), d["angle"], 1.0)
+                image = warp_affine(image, m, hw[::-1])
+                ids = warp_affine(np.ascontiguousarray(ids), m, hw[::-1], nearest=True)
+
+        img_f = np.ascontiguousarray(image).astype(np.float32) / 255.0
+        image_org = img_f.copy()
+        if self.sub_mean:
+            img_f = (img_f - np.array(self.MEAN, np.float32)) / np.array(self.STD, np.float32)
+        return {"image": img_f, "label": np.ascontiguousarray(ids).astype(np.int32),
+                "image_org": image_org}
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        return self.load(index, self.draw(index))
 
 
 # Pillow's 8-bit resampling (libImaging/Resample.c): coefficients in
@@ -493,13 +856,24 @@ def prefetch_items(dataset, workers: int = 8, depth: int = 32
 
 
 def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
-                   seed: int = 0, drop_last: bool = True,
-                   prefetch: int = 2) -> Iterator[Dict[str, np.ndarray]]:
+                   seed: int = 0, drop_last: bool = True, prefetch: int = 2,
+                   workers: int = 1) -> Iterator[Dict[str, np.ndarray]]:
     """Stacked-numpy batch iterator with a background prefetch thread.
 
     The order is a ``RandomState(seed)`` shuffle; each batch stacks the
-    items' arrays key by key.
+    items' arrays key by key. With ``workers > 1`` and a dataset that has
+    ``draw``/``load``, a batch's items are drawn in order on the producer
+    thread and decoded on ``workers`` threads, so the items equal those of
+    one thread.
     """
+    threaded = workers > 1 and hasattr(dataset, "draw")
+
+    def items_of(idx, pool):
+        if pool is None:
+            return [dataset[int(i)] for i in idx]
+        draws = [dataset.draw(int(i)) for i in idx]
+        return list(pool.map(dataset.load, [int(i) for i in idx], draws))
+
     order = np.arange(len(dataset))
     if shuffle:
         np.random.RandomState(seed).shuffle(order)
@@ -511,10 +885,10 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
     stop = threading.Event()
 
     def produce(q: queue.Queue):
+        pool = ThreadPoolExecutor(max_workers=workers) if threaded else None
         try:
             for b in range(n_batches):
-                idx = order[b * batch_size:(b + 1) * batch_size]
-                items = [dataset[int(i)] for i in idx]
+                items = items_of(order[b * batch_size:(b + 1) * batch_size], pool)
                 batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
                 # a bounded put that notices a consumer that stopped early,
                 # so the thread does not wait on a full queue forever
@@ -527,6 +901,8 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
                 if stop.is_set():
                     return
         finally:
+            if pool is not None:
+                pool.shutdown()
             while True:
                 try:
                     q.put(None, timeout=0.2)
@@ -565,24 +941,32 @@ class DeviceAugment:
     ``augment(generator, raw_batch)`` takes a ``batch_iterator`` batch of
     uint8/uint16 frames and returns float32 ``rgb_day``/``ir_day``/
     ``rgb_night``/``ir_night`` (N,h,w,C), int64 ``label_day`` (N,h,w) and
-    ``mod_drop_params``, on the device.
+    ``mod_drop_params``, on the device. With ``mfnet`` it runs
+    ``mf_train_sample_preprocess`` on ``MFNetTrainDataset`` batches (no
+    window, 8-bit IR, no ``mod_drop_params``).
     """
 
     def __init__(self, crop_hw: Tuple[int, int] = (320, 640),
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mfnet: bool = False):
         self.crop_hw = tuple(crop_hw)
         self.device = resolve(device)
+        self.mfnet = mfnet
 
     def __call__(self, generator: torch.Generator,
                  raw_batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         n, h, w = raw_batch["rgb_day"].shape[:3]
-        lo, hi = TRAIN_WINDOW
-        params = draw_train_params(generator, n, (h, len(range(w)[lo:hi])),
-                                   self.crop_hw)
+        if self.mfnet:
+            params = draw_train_params(generator, n, (h, w), self.crop_hw, mod_drop=False)
+            chain = mf_train_sample_preprocess
+        else:
+            lo, hi = TRAIN_WINDOW
+            params = draw_train_params(generator, n, (h, len(range(w)[lo:hi])),
+                                       self.crop_hw)
+            chain = train_sample_preprocess
         t = {k: to_device(raw_batch[k], self.device)
              for k in ("rgb_day", "ir_day", "label_day", "rgb_night", "ir_night")}
-        out = train_sample_preprocess(params, t["rgb_day"], t["ir_day"],
-                                      t["label_day"], t["rgb_night"],
-                                      t["ir_night"], crop_hw=self.crop_hw)
+        out = chain(params, t["rgb_day"], t["ir_day"], t["label_day"], t["rgb_night"],
+                    t["ir_night"], crop_hw=self.crop_hw)
         out["label_day"] = out["label_day"].long()
         return out

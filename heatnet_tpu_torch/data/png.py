@@ -100,6 +100,16 @@ def _unfilter_wavefront(filt: np.ndarray, kinds: np.ndarray, bpp: int) -> np.nda
     return s[skew + 1, r + 1].astype(np.uint8).reshape(h, row_bytes)
 
 
+def png_size(path: str):
+    """(height, width) from a PNG's IHDR chunk, without decoding the image."""
+    with open(path, "rb") as fh:
+        head = fh.read(24)
+    if head[:8] != _SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width
+
+
 def read_png(path: str) -> np.ndarray:
     """Decode ``path`` as stored: (H, W) for grey and palette indices, (H, W,
     3) RGB, (H, W, 4) RGBA, uint8 or uint16 (16-bit samples are big-endian

@@ -1,10 +1,14 @@
-"""Synthetic KAIST trees in the reference on-disk layout.
+"""Synthetic KAIST, MFNet and Vistas trees in the reference on-disk layouts.
 
-The port's copy of ``heatnet_tpu/data/synthetic.py:153-171`` (``make_kaist``),
-written with ``data.png.write_png`` instead of cv2: every file holds PNG
-bytes, the ``.jpg`` names included (the JAX copy's cv2 writes JPEGs there).
-PIL and the port's ``KAISTCycleGANDataset`` both decode by content, so a
-tree written here needs no JPEG decoder. The loaders' globs run for real.
+The port's copies of ``heatnet_tpu/data/synthetic.py:79-171`` (``make_mfnet``,
+``make_vistas``, ``make_kaist``), written with ``data.png.write_png`` instead
+of cv2. ``make_mfnet`` and ``make_vistas`` write the JAX copies' files: the
+same draws in the same order, colour frames stored as cv2 stores the
+arrays it is given (BGR(A) in, so R and B swap on disk). ``make_kaist``'s
+files all hold PNG bytes, the ``.jpg`` names included (the JAX copy's cv2
+writes JPEGs there); PIL and the port's ``KAISTCycleGANDataset`` both
+decode by content, so a tree written here needs no JPEG decoder. The
+loaders' globs run for real.
 """
 
 from __future__ import annotations
@@ -14,12 +18,72 @@ from typing import Tuple
 
 import numpy as np
 
+from .loaders import swap_rb
 from .png import write_png
 
 
 def _write(path: str, arr: np.ndarray) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     write_png(path, arr)
+
+
+def _write_as_cv2(path: str, arr: np.ndarray) -> None:
+    """The file ``cv2.imwrite(path, arr)`` writes: colour arrays are BGR(A)."""
+    if arr.ndim == 3:
+        arr = np.concatenate([swap_rb(arr[..., :3]), arr[..., 3:]], -1)
+    _write(path, arr)
+
+
+def make_mfnet(root: str, n_train: int = 4, n_test: int = 2,
+               hw: Tuple[int, int] = (48, 64), seed: int = 3) -> str:
+    """MFNet layout: 4-channel ``images/``, ``labels/``,
+    ``labels_from_rgbteacher/``, ``train.txt`` / ``test_day.txt`` /
+    ``test_night.txt`` / ``test.txt`` (train names alternate D and N)."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    names_train, names_day, names_night = [], [], []
+    for i in range(n_train):
+        name = f"{i:05d}" + ("D" if i % 2 == 0 else "N")
+        _write_as_cv2(os.path.join(root, "images", name + ".png"),
+                      rng.randint(0, 255, (h, w, 4)).astype(np.uint8))
+        _write(os.path.join(root, "labels", name + ".png"),
+               rng.randint(0, 9, (h, w)).astype(np.uint8))
+        _write(os.path.join(root, "labels_from_rgbteacher", name + ".png"),
+               rng.randint(0, 13, (h, w)).astype(np.uint8))
+        names_train.append(name)
+    for i in range(n_test):
+        for suffix, bucket in (("D", names_day), ("N", names_night)):
+            name = f"9{i:04d}{suffix}"
+            _write_as_cv2(os.path.join(root, "images", name + ".png"),
+                          rng.randint(0, 255, (h, w, 4)).astype(np.uint8))
+            _write(os.path.join(root, "labels", name + ".png"),
+                   rng.randint(0, 9, (h, w)).astype(np.uint8))
+            bucket.append(name)
+    for split, names in (("train", names_train), ("test_day", names_day),
+                         ("test_night", names_night),
+                         ("test", names_day + names_night)):
+        with open(os.path.join(root, split + ".txt"), "w") as f:
+            f.write("\n".join(names))
+    return root
+
+
+def make_vistas(root: str, n: int = 3, hw: Tuple[int, int] = (48, 96),
+                seed: int = 5) -> str:
+    """Relabelled-Vistas layout: ``images/`` and ``labels/`` (uint16
+    class * 256 PNGs, classes 0-13) and ``paths.txt``."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    names = []
+    for i in range(n):
+        name = f"v{i:05d}"
+        _write_as_cv2(os.path.join(root, "images", name + ".png"),
+                      rng.randint(0, 255, (h, w, 3)).astype(np.uint8))
+        cls = rng.randint(0, 14, (h, w)).astype(np.uint16)
+        _write(os.path.join(root, "labels", name + ".png"), cls * 256)
+        names.append(name)
+    with open(os.path.join(root, "paths.txt"), "w") as f:
+        f.write("\n".join(names))
+    return root
 
 
 def make_kaist(root: str, n_day: int = 3, n_night: int = 3,

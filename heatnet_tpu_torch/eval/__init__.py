@@ -1,1 +1,2 @@
-"""Validators (Freiburg, MFNet, BDD) and batched inference to class maps."""
+"""Validators (Freiburg, MFNet, BDD), the confusion-matrix IoU metric, and
+batched inference to class maps."""

@@ -13,8 +13,9 @@ Submodule names are the flax tree's (``trgb_segnet``, ``critics_0``,
 ``state_dict`` key is the flax path joined with ``.``. The segnet is arch
 ``custom`` (ResNeXt-ASPP) or ``pspnet`` (always on the ``resnet50``
 backend, :76-83), early or late fusion; the critics' widths follow its taps
-(``tap_channels`` / ``pspnet_tap_channels``). Per-GPU BN statistics
-(``bn_groups > 1``) raise until ROADMAP item 7.
+(``tap_channels`` / ``pspnet_tap_channels``). ``bn_groups > 1`` takes
+the ResNeXt segnet's train-mode BN statistics per contiguous batch group
+(``layers.BatchNorm``), as the JAX module's ``NormAct(bn_groups)`` does.
 
 PSPNet's channel dropout draws from an explicit generator:
 ``draw_dropout(n, generator)`` returns the keep masks of one dual forward
@@ -62,9 +63,6 @@ class ConfSegnet(nn.Module):
                  late_fusion: bool = False, classes: int = 13,
                  structure: Sequence[int] = (3, 4, 6, 3), bn_groups: int = 1):
         super().__init__()
-        if bn_groups != 1:
-            raise NotImplementedError(
-                "bn_groups > 1 (per-GPU BN statistics) is not ported yet (ROADMAP item 7)")
         n_in = num_input_channels(modalities)
         self.feedback_seg, self.no_conf = feedback_seg, no_conf
         self.input_adapter, self.num_critics = input_adapter, num_critics

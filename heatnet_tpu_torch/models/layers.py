@@ -19,8 +19,10 @@ are the JAX parameter tree's (``bn1``, ``conv2``, ABN's inner ``bn``), so a
 ``state_dict`` key is the JAX path joined with ``.``. Every convolution casts
 its weight to the activations' dtype at call time, as the JAX convs do
 (``kern.astype(self.dtype)``): float32 parameters train under bf16
-activations. Not ported: ``bn_groups > 1`` (per-GPU BN statistics) and the
-lean BN VJP (``HEATNET_BN_IMPL=lean``, ``ops/lean_bn.py``).
+activations. ``NormAct.bn_groups > 1`` takes train-mode BN statistics per
+contiguous batch group (``StatNamedBatchNorm._grouped_train_call``,
+:200-266). Not ported: the lean BN VJP (``HEATNET_BN_IMPL=lean``,
+``ops/lean_bn.py``).
 """
 
 from __future__ import annotations
@@ -44,7 +46,9 @@ class NormAct:
     leaky_slope: float = 0.01
     bn_momentum: float = 0.9  # flax's: running = m * running + (1 - m) * batch
     bn_epsilon: float = 1e-5
-    bn_groups: int = 1  # > 1 (per-GPU BN statistics) is not ported
+    # > 1: train-mode BN statistics per contiguous batch group of N/bn_groups
+    # samples (nn.DataParallel's per-GPU BN); 1: over the whole batch
+    bn_groups: int = 1
 
     def act(self, x: torch.Tensor) -> torch.Tensor:
         return gc.apply_act(x, self.activation, self.leaky_slope)
@@ -61,25 +65,38 @@ class BatchNorm(nn.BatchNorm2d):
     and the update is made here, without gradient. The statistics and
     affine stay float32 whatever the activation dtype: the batch-norm
     kernels compute in f32 and return the input's dtype.
+
+    ``groups > 1`` (train mode only) splits the batch into that many
+    contiguous groups and normalises each with its own statistics, the
+    gradient flowing through each group's statistics; only group 0's
+    statistics update the running ones, as only the first replica's buffers
+    persist under ``nn.DataParallel`` (``_grouped_train_call``, :200-266).
+    A batch that ``groups`` does not divide raises.
     """
 
-    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9,
+                 groups: int = 1):
         super().__init__(channels, eps=eps)
         self.flax_momentum = momentum
+        self.groups = groups
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        x, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if x.shape[0] % self.groups:
+            raise ValueError(f"batch {x.shape[0]} not divisible by bn_groups {self.groups}")
+        outs = [torch.native_batch_norm(xg, self.weight, self.bias, None, None, True,
+                                        0.0, self.eps)
+                for xg in x.chunk(self.groups)]
+        _, mean, invstd = outs[0]
         with torch.no_grad():
             # invstd = 1 / sqrt(var + eps): the kernel's biased variance
             var = (invstd.float().pow(-2) - self.eps).clamp_(min=0.0)
             m = self.flax_momentum
             self.running_mean.mul_(m).add_(mean.float(), alpha=1.0 - m)
             self.running_var.mul_(m).add_(var, alpha=1.0 - m)
-        return x
+        return outs[0][0] if self.groups == 1 else torch.cat([o[0] for o in outs])
 
 
 class ABN(nn.Module):
@@ -89,11 +106,10 @@ class ABN(nn.Module):
     def __init__(self, channels: int, norm_act: NormAct = NormAct()):
         super().__init__()
         self.norm_act = norm_act
-        self.bn = BatchNorm(channels, norm_act.bn_epsilon, norm_act.bn_momentum)
+        self.bn = BatchNorm(channels, norm_act.bn_epsilon, norm_act.bn_momentum,
+                            norm_act.bn_groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.norm_act.bn_groups != 1:
-            raise NotImplementedError("train-mode bn_groups > 1 is not ported")
         return self.norm_act.act(self.bn(x))
 
     def affine(self) -> Tuple[torch.Tensor, torch.Tensor]:

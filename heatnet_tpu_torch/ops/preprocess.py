@@ -5,7 +5,9 @@ and of ``heatnet_tpu/eval/validate.py:52-68`` (``_device_normalize``). The
 eval chain is the reference loader's (thermal_loader.py:633-659, :711-728):
 window crop → radiometric IR clamp [21800, 25000] → [0, 1] → normalise (mean
 .5, std .5). The train chain (``train_sample_preprocess``) adds a shared
-random crop and independent day/night flips and rotations. The adversarial
+random crop and independent day/night flips and rotations;
+``mf_train_sample_preprocess`` is MFNet's (no window, 8-bit IR scaled by
+1/255, no radiometric clamp, no modality-drop rectangle). The adversarial
 trainer's seg phase adds ``rect_drop``, ``ir_scale_aug`` and
 ``(maybe_)smart_augment`` on the batch (:224-281), each draw an argument
 (``draw_ir_scale``, ``draw_smart_augment``).
@@ -30,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -214,14 +216,15 @@ class TrainAugParams:
     angle_day: torch.Tensor    # (N,) float32 degrees
     rotate_night: torch.Tensor
     angle_night: torch.Tensor
-    mod_drop: torch.Tensor     # (N, 4) int32, rect_drop_params
+    mod_drop: Optional[torch.Tensor]  # (N, 4) int32, rect_drop_params; None for MFNet
 
 
 def draw_train_params(generator: torch.Generator, n: int,
                       in_hw: Tuple[int, int], crop_hw: Tuple[int, int],
-                      max_angle: float = 20.0) -> TrainAugParams:
+                      max_angle: float = 20.0, mod_drop: bool = True) -> TrainAugParams:
     """Draw the parameters of ``n`` samples on the CPU: flips and rotations
-    with probability 0.5, angles uniform in [-max_angle, max_angle]."""
+    with probability 0.5, angles uniform in [-max_angle, max_angle], and
+    (``mod_drop``) the modality-drop rectangles."""
     i, j = random_crop_params(generator, n, in_hw, crop_hw)
 
     def coin():
@@ -231,7 +234,7 @@ def draw_train_params(generator: torch.Generator, n: int,
         return (torch.rand(n, generator=generator) - 0.5) * 2.0 * max_angle
 
     return TrainAugParams(i, j, coin(), coin(), coin(), angle(), coin(), angle(),
-                          rect_drop_params(generator, n, crop_hw))
+                          rect_drop_params(generator, n, crop_hw) if mod_drop else None)
 
 
 def _nhwc(t: torch.Tensor) -> torch.Tensor:
@@ -258,13 +261,41 @@ def train_sample_preprocess(params: TrainAugParams, rgb_day, ir_day, label_day,
     rgb_day, rgb_night = (window_crop(x, lo, hi) for x in (rgb_day, rgb_night))
     label_day = window_crop(label_day[..., None], lo, hi)
 
-    i, j = params.crop_i.tolist(), params.crop_j.tolist()
-    rgb_day, ir_day, label_day, rgb_night, ir_night = (
-        crop_at(x, i, j, crop_hw)
-        for x in (rgb_day, ir_day, label_day, rgb_night, ir_night))
-    rgb_day = rgb_day.to(torch.float32) / 255.0
-    rgb_night = rgb_night.to(torch.float32) / 255.0
+    rgb_day, ir_day, label_day, rgb_night, ir_night = _crop(
+        params, crop_hw, rgb_day, ir_day, label_day, rgb_night, ir_night)
+    out = _flip_rotate_normalize(params, rgb_day.to(torch.float32) / 255.0, ir_day,
+                                 label_day, rgb_night.to(torch.float32) / 255.0, ir_night)
+    out["mod_drop_params"] = params.mod_drop
+    return out
 
+
+def mf_train_sample_preprocess(params: TrainAugParams, rgb_day, ir_day, label_day,
+                               rgb_night, ir_night,
+                               crop_hw: Tuple[int, int] = (384, 384)
+                               ) -> Dict[str, torch.Tensor]:
+    """MFNet's per-sample train chain over a batch (MFDatasetTrain.__getitem__,
+    thermal_loader.py:322-440; ``heatnet_tpu/ops/preprocess.py:356-386``):
+    the shared random crop (384x384), /255 for RGB and the 8-bit IR,
+    independent day/night flips and rotations, (x - 0.5) / 0.5. ``rgb_*``
+    and ``ir_*`` uint8 (N,H,W,3) and (N,H,W[,1]), ``label_day`` uint8
+    (N,H,W); the parameters' ``mod_drop`` is not used."""
+    rgb_day, ir_day, label_day, rgb_night, ir_night = _crop(
+        params, crop_hw, rgb_day, _nhwc(ir_day), label_day[..., None], rgb_night,
+        _nhwc(ir_night))
+    rgb_day, ir_day, rgb_night, ir_night = (x.to(torch.float32) / 255.0 for x in
+                                            (rgb_day, ir_day, rgb_night, ir_night))
+    return _flip_rotate_normalize(params, rgb_day, ir_day, label_day, rgb_night, ir_night)
+
+
+def _crop(params: TrainAugParams, crop_hw, *images):
+    i, j = params.crop_i.tolist(), params.crop_j.tolist()
+    return tuple(crop_at(x, i, j, crop_hw) for x in images)
+
+
+def _flip_rotate_normalize(params: TrainAugParams, rgb_day, ir_day, label_day,
+                           rgb_night, ir_night) -> Dict[str, torch.Tensor]:
+    """The chains' common tail on cropped [0, 1] images and (N,h,w,1)
+    labels: flips, rotations, normalisation; labels come back (N,h,w)."""
     dev = rgb_day.device
     rgb_day, ir_day, label_day = maybe_hflip(params.flip_day.to(dev),
                                              rgb_day, ir_day, label_day)
@@ -276,14 +307,12 @@ def train_sample_preprocess(params: TrainAugParams, rgb_day, ir_day, label_day,
     (rgb_night, ir_night), _ = maybe_rotate_pair(
         params.rotate_night.to(dev), params.angle_night.to(dev),
         (rgb_night, ir_night))
-
     return {
         "rgb_day": normalize(rgb_day),
         "ir_day": normalize(ir_day, (0.5,), (0.5,)),
         "label_day": label_day[..., 0],
         "rgb_night": normalize(rgb_night),
         "ir_night": normalize(ir_night, (0.5,), (0.5,)),
-        "mod_drop_params": params.mod_drop,
     }
 
 

@@ -2,12 +2,16 @@
 
 Counterpart of ``heatnet_tpu/train/supervised.py:37-128``. BatchNorm
 statistics span the whole batch on the one card, as they span the global
-batch under the JAX package's sharded ``jit``.
+batch under the JAX package's sharded ``jit``, unless the model's
+``NormAct.bn_groups`` splits it. A model with train-mode dropout (PSPNet)
+takes its keep masks per step as an argument (``draw_dropout``, from the
+caller's ``torch.Generator``), where the JAX step folds the step count into
+a dropout key.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -59,18 +63,21 @@ def _accuracy(seg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def make_train_step(model: nn.Module, learn_batch_stats: bool = True):
-    """The supervised step: ``(state, batch) -> (state, metrics)``.
+    """The supervised step: ``(state, batch, dropout=None) -> (state, metrics)``.
 
-    ``batch`` holds ``image`` (NHWC, normalised) and ``label`` (NHW int).
+    ``batch`` holds ``image`` (NHWC, normalised) and ``label`` (NHW int);
+    ``dropout`` is a PSPNet's keep masks for this step (``draw_dropout``).
     With ``learn_batch_stats=False`` the BN running statistics are restored
     after the train-mode forward, as the JAX step keeps the old ones.
     """
 
-    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
+    def train_step(state: TrainState, batch,
+                   dropout: Optional[tuple] = None) -> Tuple[TrainState, Dict[str, Any]]:
         model.train()
         kept = (None if learn_batch_stats
                 else [b.detach().clone() for b in model.buffers()])
-        seg, _, _ = model(batch["image"])
+        kw = {} if dropout is None else {"dropout": dropout}
+        seg, _, _ = model(batch["image"], **kw)
         loss = cross_entropy_ignore(seg, batch["label"])
         loss.backward()
         state.apply_gradients()

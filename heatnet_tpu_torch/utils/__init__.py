@@ -1,1 +1,1 @@
-"""Visualisation: label colour coding, an IR colormap, PNG dumps."""
+"""Experiment configs; visualisation: label colour coding, an IR colormap, PNG dumps."""

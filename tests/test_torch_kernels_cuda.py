@@ -389,3 +389,71 @@ def test_cyclegan_and_uncertainty_steps_launch_the_kernels(dev):
     m = step(ustate, ub)
     assert [k.launches - c0 for k, c0 in zip(kernels, before)] == [8, 0, 8]
     assert all(bool(torch.isfinite(v)) for v in m.values())
+
+
+# (N, C, cpg, d, H, W) of this slice's grouped convs: the Vistas step at batch
+# 30 of 384x768 crops (mod2 at 96x192, mod3-5 at 48x96), its eval at batch
+# 16 of 384x768, and the MFNet adversarial steps at batch 16 of 384x384
+# (96x96, 48x48)
+VISTAS_MF_SHAPES = [(30, 128, 2, 1, 96, 192), (30, 256, 4, 1, 48, 96),
+                    (30, 512, 8, 2, 48, 96), (30, 1024, 16, 4, 48, 96),
+                    (16, 128, 2, 1, 96, 192), (16, 1024, 16, 4, 48, 96),
+                    (16, 128, 2, 1, 96, 96), (16, 256, 4, 1, 48, 48),
+                    (16, 512, 8, 2, 48, 48), (16, 1024, 16, 4, 48, 48)]
+
+
+@pytest.mark.parametrize("n,c,cpg,d,h,w", VISTAS_MF_SHAPES)
+def test_grouped_conv_forward_dx_and_fused_at_the_vistas_and_mf_shapes(dev, n, c, cpg, d,
+                                                                        h, w):
+    test_grouped_conv_forward_dx_and_fused_at_the_gan_shapes(dev, n, c, cpg, d, h, w)
+
+
+def test_vistas_and_mf_seg_steps_launch_the_kernels(dev):
+    """Structure (1,1,1,1): 4 grouped convs per forward. A Vistas step (3-channel
+    ResNeXt, leaky ReLU, BN statistics per 2 groups) runs 4 forward and 4 dx,
+    its eval forward 4 fused; an MF seg step at 384x384 with an IR teacher
+    runs 8 forward, 8 dx and 4 fused, a critic step 8 forward."""
+    from heatnet_tpu_torch.cli import main as vistas_cli
+    from heatnet_tpu_torch.models import ConfSegnet, ResNeXtSeg
+    from heatnet_tpu_torch.models.layers import init_params, prepare_for_inference
+    from heatnet_tpu_torch.train import adversarial as adv
+    from heatnet_tpu_torch.train.state import init_model
+    from heatnet_tpu_torch.train.supervised import make_eval_step, make_train_step
+    from heatnet_tpu_torch.utils.config import load_config
+
+    kernels = (gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_FUSED, gc.GROUPED_CONV3X3_DX)
+    conf = load_config(vistas_cli.DEFAULT_CONFIG)
+    args = vistas_cli.build_parser().parse_args(
+        ["--data", "-", "--valdata", "-", "--structure", "1", "1", "1", "1",
+         "--bn-groups", "2"])
+    model = init_model(vistas_cli.build_model(args, conf), 0, dev)
+    state = vistas_cli.create_state(model, conf["optimizer"], 10)
+    g = torch.Generator().manual_seed(0)
+    batch = {"image": torch.randn((4, 96, 192, 3), generator=g).to(dev),
+             "label": torch.randint(0, 14, (4, 96, 192), generator=g).to(dev)}
+    before = [k.launches for k in kernels]
+    _, m = make_train_step(model)(state, batch)
+    assert [k.launches - c0 for k, c0 in zip(kernels, before)] == [4, 0, 4]
+    assert bool(torch.isfinite(m["loss"]))
+    before = [k.launches for k in kernels]
+    conf_mat = make_eval_step(model)(state, batch)
+    assert [k.launches - c0 for k, c0 in zip(kernels, before)] == [0, 4, 0]
+    assert int(conf_mat.sum()) == batch["label"].numel()
+
+    model = init_model(ConfSegnet(disc_arch="cyclegan", num_critics=6,
+                                  structure=(1, 1, 1, 1), bn_groups=2), 0, dev)
+    teacher = ResNeXtSeg(structure=(1, 1, 1, 1), input_channels=1)
+    init_params(teacher, torch.Generator().manual_seed(1))
+    teacher = prepare_for_inference(teacher, dev)
+    cfg = adv.AdversarialConfig(irscale=True, night_supervision=True)
+    state = adv.make_phase_optimizers(model, lambda count: 1e-4)
+    seg_step, critic_step = adv.make_adversarial_steps(model, cfg, teacher)
+    batch = {k: torch.rand((2, 384, 384, c), generator=g).to(dev) * 2 - 1
+             for k, c in (("rgb_day", 3), ("ir_day", 1), ("rgb_night", 3), ("ir_night", 1))}
+    batch["label_day"] = torch.randint(0, 13, (2, 384, 384), generator=g).to(dev)
+    for step, want in ((lambda: critic_step(state, batch), [8, 0, 0]),
+                       (lambda: seg_step(state, batch, adv.draw_seg_aug(g)), [8, 4, 8])):
+        before = [k.launches for k in kernels]
+        metrics = step()
+        assert [k.launches - c0 for k, c0 in zip(kernels, before)] == want
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())
