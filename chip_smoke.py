@@ -121,7 +121,27 @@ Phases, each of which exits non-zero on failure:
        the IR teacher, batch 16 of 384x384, 2 critic and 2 seg steps: 32/0/0
        and 32/32/16 launches per critic and seg step, finite losses, peak
        memory, and phase isolation on an MF batch as in 4c;
-8. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
+8. the MFNet harness and its tools:
+   8a. MFNet, RTFNet (ResNet-50 encoders) and SegNet at full width, random
+       weights from seed 0: the card's float32 eval forward (TF32 off)
+       against the same weights' forward on the CPU on one 192x256 frame,
+       class maps on >= 0.999 of pixels, logits within 1e-3 of max |logit|;
+   8b. ``cli.train_baseline --model_name {MFNet,RTFNet,SegNet}`` at the CLI's
+       defaults (batch 8 of 480x640, lr 0.01, SGD) for 2 epochs of 3 steps on
+       a tree of 24 train and 5 + 5 test frames the phase writes with the
+       port's PNG writer, then day and night evaluation: no port kernel
+       launched (read around each step and the run), finite losses, step ms
+       p50/p95 (CUDA events), peak memory, eval frames/s, overall accuracy
+       and mIoU per split;
+   8c. ``--test --resume`` on 8b's RTFNet checkpoint: the combined matrix
+       equals 8b's day + night matrices exactly;
+   8d. ``cli.run_demo`` on 4 frames with that checkpoint: each ``_pred.png``
+       equals the palette-coded class map of a float32 eval forward;
+   8e. ``cli.eval_hotnet`` on a run directory of phase 4c's checkpoint, and
+       ``cli.dataset_qa freiburg`` and ``mfnet`` on phase 5f's trees: 1
+       ingest + 16 fused launches per Freiburg batch of 16, 0 + 16 per MFNet
+       batch, the IoUs of 5f's validators bit for bit;
+9. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
    launches on every path); the last line is ``{"ok": true, "device": {...}}``.
 
 Launch counts: the grouped-conv kernel has one count per entry point, the
@@ -188,6 +208,15 @@ GAN_STAGES = ((2, 128, 2, 1, 64, 64), (2, 256, 4, 1, 32, 32), (2, 512, 8, 2, 32,
 # the Vistas step's stages (mod2 at 96x192, mod3-5 at 48x96), "fused" at
 # its eval batch's, "all" at the MF steps' (96x96, 48x48)
 N_VIS, VIS_HW, VIS_EPOCHS, N_VIS_VAL, N_MF, MF_CROP = 30, (384, 768), 2, 20, 16, (384, 384)
+# The MFNet harness (phases 8a-8d): MFNet, RTFNet and SegNet through
+# cli.train_baseline at its defaults (batch 8 of 480x640, float32), 2 epochs
+# of 3 steps on 24 train frames, 5 day and 5 night test frames (a padded eval
+# batch of 8 each); the card's forward against the CPU's at 192x256 (class
+# maps on >= 0.999 of pixels, logits within 1e-3 of the largest |logit|);
+# cli.run_demo on 4 frames
+HARNESS_MODELS = ("MFNet", "RTFNet", "SegNet")
+N_HARNESS, N_HARNESS_TRAIN, N_HARNESS_TEST, HARNESS_EPOCHS, N_DEMO = 8, 24, 5, 2, 4
+HARNESS_CHECK_HW, HARNESS_AGREE, HARNESS_REL_TOL = (192, 256), 0.999, 1e-3
 VIS_MF_STAGES = tuple(
     (which, n, c, cpg, d, h if c == 128 else h // 2, w if c == 128 else w // 2)
     for which, n, h, w in (("fwd_dx", N_VIS, 96, 192), ("fused", EVAL_BATCH, 96, 192),
@@ -1914,7 +1943,259 @@ def run_phases(work: str) -> None:
     torch.cuda.empty_cache()
     print(f"  phases 7a-7e: {time.perf_counter() - t_7:.1f} s", flush=True)
 
-    # 8. the record: each kernel's launches on every path, read around it
+    # 8. the MFNet harness (MFNet, RTFNet, SegNet through cli.train_baseline,
+    # cli.run_demo) and the harness tools (cli.eval_hotnet, cli.dataset_qa),
+    # each path driven with the counts set to 0 just before it and read just after
+    import copy
+
+    from heatnet_tpu_torch.cli import dataset_qa, eval_hotnet, run_demo, train_baseline
+    from heatnet_tpu_torch.data.synthetic import make_mfnet
+
+    t_8 = time.perf_counter()
+    zero = {k.name: 0 for k in all_kernels}
+    # 8a. each baseline's eval forward on the card against the same weights'
+    # forward on the CPU, float32 with TF32 off, one 192x256 frame. SegNet's
+    # unpooling is discontinuous: where two values of a pool cell lie within
+    # rounding, another summation order may record the other's position and
+    # the unpool moves that value by a pixel (one such switch moves 0.07 % of
+    # the logits by up to 12 % of max |logit|). So the card's SegNet records
+    # its own argmaxes, each that differs from the CPU's must be a near-tie
+    # (within 1e-5 of its cell's maximum, relative), and then pools and
+    # unpools at the CPU's, which the logits are held to
+    from heatnet_tpu_torch.models import segnet_baseline
+
+    real_pool = segnet_baseline.pool_with_indices
+    x = torch.from_numpy(np.random.RandomState(12).rand(1, *HARNESS_CHECK_HW, 4)
+                         .astype(np.float32))
+    harness_check = {}
+    for name in HARNESS_MODELS:
+        model = train_baseline.build_model(name)
+        init_params(model, torch.Generator().manual_seed(0))
+        cpu_model = prepare_for_inference(copy.deepcopy(model), torch.device("cpu"),
+                                          dtype=torch.float32)
+        card_model = prepare_for_inference(model, dev, dtype=torch.float32)
+        cpu_idx, switched = [], []
+
+        def recording_pool(t):
+            pooled, idx = real_pool(t)
+            cpu_idx.append(idx)
+            return pooled, idx
+
+        def cpu_index_pool(t):
+            cells = segnet_baseline.pool_cells(t)
+            own, ref = cells.argmax(-1), cpu_idx[len(switched)].to(t.device)
+            top = cells.amax(-1)
+            gap = (top - torch.gather(cells, -1, ref[..., None])[..., 0]).abs()
+            differ = own != ref
+            switched.append((int(differ.sum()), bool(
+                (gap[differ] <= 1e-5 * top[differ].abs()).all())))
+            return torch.gather(cells, -1, ref[..., None])[..., 0], ref
+
+        with torch.no_grad():
+            with mock.patch.object(segnet_baseline, "pool_with_indices", recording_pool):
+                want = cpu_model(x)
+            with mock.patch.object(segnet_baseline, "pool_with_indices", cpu_index_pool):
+                got = card_model(x.to(dev)).cpu()
+        scale = float(want.abs().max())
+        rel = float((got - want).abs().max()) / scale
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        flips = [n for n, _ in switched]
+        ties = all(ok for _, ok in switched)
+        print(f"  8a. {name} eval forward, card vs CPU, float32, 1x{HARNESS_CHECK_HW[0]}x"
+              f"{HARNESS_CHECK_HW[1]}: class maps agree on {agree:.6f} (need >= "
+              f"{HARNESS_AGREE}); max |diff| / max |logit| {rel:.3g} (need <= "
+              f"{HARNESS_REL_TOL}; max |logit| {scale:.4g})"
+              + (f"; pool argmaxes the card chose otherwise, per level {flips}, all at "
+                 f"near-ties: {ties}" if switched else ""), flush=True)
+        if (tuple(got.shape) != (1, *HARNESS_CHECK_HW, 9) or not bool(torch.isfinite(got).all())
+                or agree < HARNESS_AGREE or rel > HARNESS_REL_TOL or not ties):
+            fail(f"{name}: card forward {tuple(got.shape)} against the CPU's: agreement "
+                 f"{agree}, relative error {rel}, argmax switches {switched}")
+        harness_check[name] = {"agreement": agree, "max_rel_err": rel,
+                               "pool_argmax_switches": flips}
+        del model, cpu_model, card_model
+    torch.cuda.empty_cache()
+
+    # 8b. cli.train_baseline at its defaults (batch 8 of 480x640, lr 0.01) for
+    # 2 epochs on a tree of 24 train frames and 5 day + 5 night test frames
+    t0 = time.perf_counter()
+    harness_root = make_mfnet(os.path.join(work, "harness"), n_train=N_HARNESS_TRAIN,
+                              n_test=N_HARNESS_TEST, hw=(480, 640), seed=13)
+    print(f"main path: cli.train_baseline, batch {N_HARNESS} of 480x640, {HARNESS_EPOCHS} "
+          f"epochs of {N_HARNESS_TRAIN // N_HARNESS} steps, float32; tree of "
+          f"{N_HARNESS_TRAIN} train and {N_HARNESS_TEST} + {N_HARNESS_TEST} test frames "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+    harness_steps = []  # (launches, card ms) of each step
+    make_harness_step = train_baseline.make_train_step
+
+    def counted_harness_step(*a, **kw):
+        step_fn = make_harness_step(*a, **kw)
+
+        def step(*args):
+            before = counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step_fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            harness_steps.append(({k: v - before[k] for k, v in counts().items()},
+                                  start.elapsed_time(end)))
+            return out
+        return step
+
+    harness_runs = {}
+    for name in HARNESS_MODELS:
+        harness_steps.clear()
+        for k in all_kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(train_baseline, "make_train_step", counted_harness_step):
+            run = train_baseline.main([
+                "--model_name", name, "--data_dir", harness_root, "--epoch_max",
+                str(HARNESS_EPOCHS), "--checkpointname", os.path.join(work, f"{name}_ck"),
+                "--log_dir", os.path.join(work, "runs_8")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, peak = counts(), torch.cuda.max_memory_allocated() / 1e9
+        card = [ms for _, ms in harness_steps]
+        host = [s * 1e3 for s in run.step_seconds]
+        eval_fps = sum(run.eval_frames.values()) / sum(run.eval_seconds.values())
+        print(f"  8b. {name}: launches {got} (want none); steps {len(run.losses)}, losses "
+              f"{[round(v, 6) for v in run.losses]}; step ms (CUDA events, H2D to SGD) "
+              f"p50 {np.percentile(card, 50):.2f} p95 {np.percentile(card, 95):.2f}, each "
+              f"{[round(v, 2) for v in card]}; host clock p50 {np.percentile(host, 50):.2f}; "
+              f"peak memory {peak:.2f} GB; eval {eval_fps:.1f} frames/s (decode ahead, H2D, "
+              f"forward, confusion matrix); day acc {run.overall_acc['day']:.4f} mIoU "
+              f"{run.miou['day']:.4f}, night acc {run.overall_acc['night']:.4f} mIoU "
+              f"{run.miou['night']:.4f}; {wall:.1f} s wall", flush=True)
+        if (got != zero or any(c != zero for c, _ in harness_steps)
+                or len(run.losses) != HARNESS_EPOCHS * (N_HARNESS_TRAIN // N_HARNESS)
+                or not all(np.isfinite(run.losses))
+                or any(int(cf.sum()) != N_HARNESS_TEST * 480 * 640
+                       for cf in run.confusion.values())):
+            fail(f"cli.train_baseline {name}: launches {got}, losses {run.losses}, "
+                 f"matrices {[int(cf.sum()) for cf in run.confusion.values()]}")
+        harness_runs[name] = run
+        later[f"train_baseline_{name}"] = {
+            "launches": got, "losses": run.losses, "step_ms_cuda_events": card,
+            "step_ms_p50_p95": (float(np.percentile(card, 50)), float(np.percentile(card, 95))),
+            "step_ms_host": host, "peak_memory_gb": peak, "eval_frames_per_s": eval_fps,
+            "overall_acc": run.overall_acc, "miou": run.miou,
+            "card_vs_cpu": harness_check[name]}
+        torch.cuda.empty_cache()
+
+    # 8c. --test --resume <8b's RTFNet checkpoint>: combined (test.txt, the day
+    # then the night names) equals 8b's day + night matrices exactly
+    rtf = harness_runs["RTFNet"]
+    for k in all_kernels:
+        k.launches = 0
+    test_run = train_baseline.main(["--model_name", "RTFNet", "--data_dir", harness_root,
+                                    "--test", "--resume", rtf.checkpoint,
+                                    "--log_dir", os.path.join(work, "runs_8")])
+    got = counts()
+    same = np.array_equal(test_run.confusion["combined"],
+                          rtf.confusion["day"] + rtf.confusion["night"])
+    print(f"  8c. --test --resume (RTFNet): launches {got}; combined matrix equal to "
+          f"8b's day + night: {same}", flush=True)
+    if not same or got != zero:
+        fail(f"--test combined matrix differs from day + night (launches {got})")
+    later["train_baseline_test"] = {"launches": got, "combined_equals_day_plus_night": same}
+
+    # 8d. cli.run_demo on 4 frames with that checkpoint: the _pred.png files
+    # against the palette-coded class maps of a float32 eval forward
+    demo_dir = os.path.join(work, "demo", "image")
+    weights = os.path.join(work, "demo", "weights")
+    os.makedirs(demo_dir)
+    os.makedirs(os.path.join(weights, "RTFNet"))
+    shutil.copy(rtf.checkpoint, os.path.join(weights, "RTFNet", "final"))
+    names = sorted(open(os.path.join(harness_root, "test.txt")).read().split())[:N_DEMO]
+    for n in names:
+        shutil.copy(os.path.join(harness_root, "images", n + ".png"),
+                    os.path.join(demo_dir, n + ".png"))
+    for k in all_kernels:
+        k.launches = 0
+    outs = run_demo.main(["--model_name", "RTFNet", "--image_dir", demo_dir,
+                          "--model_dir", weights])
+    got = counts()
+    model = train_baseline.build_model("RTFNet")
+    model.load_state_dict(torch.load(rtf.checkpoint, map_location="cpu",
+                                     weights_only=True)["state_dict"])
+    model = prepare_for_inference(model, dev, dtype=torch.float32)
+    images = np.stack([read_png(os.path.join(demo_dir, n + ".png")) for n in names])
+    with torch.no_grad():
+        maps = model(torch.from_numpy(images.astype(np.float32) / 255.0).to(dev)
+                     ).argmax(-1).cpu().numpy()
+    palette = np.asarray(run_demo.MFNET_PALETTE, np.uint8)
+    same = [bool(np.array_equal(read_png(p), palette[m])) for p, m in zip(outs, maps)]
+    print(f"  8d. cli.run_demo (RTFNet, {len(outs)} frames): launches {got}; each "
+          f"_pred.png equal to the palette-coded class maps: {same}", flush=True)
+    if len(outs) != N_DEMO or not all(same) or got != zero:
+        fail(f"cli.run_demo: {len(outs)} files, equal {same}, launches {got}")
+    later["run_demo"] = {"launches": got, "equal": same}
+    del model
+    torch.cuda.empty_cache()
+
+    # 8e. the harness tools on phase 4c's checkpoint and phase 5f's trees: the
+    # IoUs of 5f's validators, bit for bit; 1 ingest + 16 fused launches per
+    # Freiburg batch of 16, 0 + 16 per MFNet batch
+    run_dir = os.path.join(work, "hotnet_run")
+    os.makedirs(run_dir)
+    with open(os.path.join(run_dir, "config.json"), "w") as f:
+        json.dump({"modalities": "ir_rgb", "arch": "custom", "structure": [3, 4, 6, 3],
+                   "cert_branch": False, "late_fusion": False}, f)
+    shutil.copy(adv_run.checkpoint, os.path.join(run_dir, "checkpoint_best.pth"))
+    fr_batches = -(-N_EVAL_DAY // EVAL_BATCH), -(-N_EVAL_NIGHT // EVAL_BATCH)
+    mf_batches = -(-N_EVAL_MF // EVAL_BATCH)
+    tools = {}
+    for what, module, fn_names, argv, batches, want_ious in (
+            ("eval_hotnet", eval_hotnet, ("validate_model",),
+             ["--runs", run_dir, "--testroot_day", fr_day, "--testroot_night", fr_night],
+             {"ingest": sum(fr_batches)}, [eval_results["FR_night"]["ious"],
+                                          eval_results["FR_day"]["ious"]]),
+            ("dataset_qa_freiburg", dataset_qa, ("validate_model",),
+             ["freiburg", "--data", fr_day, "--split", "day", "--checkpoint",
+              adv_run.checkpoint], {"ingest": fr_batches[0]}, [eval_results["FR_day"]["ious"]]),
+            ("dataset_qa_mfnet", dataset_qa, ("validate_model_mfnet",),
+             ["mfnet", "--data", mf_root, "--split", "day", "--checkpoint",
+              adv_run.checkpoint], {"ingest": 0, "fused_batches": mf_batches},
+             [eval_results["MF_day"]["ious"]])):
+        seen = []
+
+        def recording(fn):
+            def run(*a, **kw):
+                ious = fn(*a, **kw)
+                seen.append(np.asarray(ious))
+                return ious
+            return run
+
+        n_batches = batches.get("fused_batches", batches["ingest"])
+        want = {**zero, "ingest": batches["ingest"], "grouped_conv3x3_fused": 16 * n_batches}
+        for k in all_kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for fn_name in fn_names:
+                stack.enter_context(mock.patch.object(
+                    module, fn_name, recording(getattr(module, fn_name))))
+            if module is eval_hotnet:
+                result = module.main(argv + ["--log_dir", os.path.join(work, "runs_8e")])
+            else:
+                result = module.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        equal = len(seen) == len(want_ious) and all(
+            np.array_equal(a, np.asarray(b), equal_nan=True) for a, b in zip(seen, want_ious))
+        print(f"  8e. {what}: launches {got} (want {want}); IoUs equal to phase 5f's, bit "
+              f"for bit: {equal}; result {result}; {wall:.1f} s", flush=True)
+        if got != want or not equal:
+            fail(f"{what}: launches {got} (want {want}); IoUs {seen} against {want_ious}")
+        tools[what] = {"launches": got, "ious_equal_5f": equal, "seconds": wall}
+    later.update(tools)
+    print(f"  phases 8a-8e: {time.perf_counter() - t_8:.1f} s", flush=True)
+
+    # 9. the record: each kernel's launches on every path, read around it
     paths = {"serving": launches, "train_plain": train_launches, "train_conf": adv_launches,
              **{name: r["launches"] for name, r in later.items()}}
 

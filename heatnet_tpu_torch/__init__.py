@@ -21,21 +21,26 @@ Package map:
 
 - ``ops``     ingest normalisers, the grouped 3x3 conv and its autograd
               Function (kernels + plain), train augmentation, IoU counts
-- ``models``  layers (eval and train mode), ``ResNeXtSeg`` and the registry
+- ``models``  layers (eval and train mode), ``ResNeXtSeg``, PSPNet, the
+              CycleGAN nets, the MFNet harness's baselines (MFNet, RTFNet,
+              SegNet) and UNets, and the registry
 - ``kernels`` the nvcc build and ctypes binding of ``csrc/*.cu``
 - ``io``      JAX parameter trees → ``state_dict``; checkpoints; run logs
 - ``data``    inference and train packs, a PNG codec (zlib + numpy), eval
-              and training loaders of PNG trees (Vistas, MFNet, KAIST)
-              with numpy copies of cv2's and Pillow's image calls,
-              batches, augmentation on the device
+              and training loaders of PNG trees (Vistas, MFNet, KAIST,
+              the MFNet harness with its augmentation suite) with numpy
+              copies of cv2's and Pillow's image calls, batches,
+              augmentation on the device
 - ``train``   loss, train/eval steps, optimizers and schedules, train state
 - ``eval``    the validators (per-class IoU), the confusion-matrix IoU
               metric, and batched inference to uint8 class maps
 - ``utils``   experiment configs, label colour coding and PNG dumps
 - ``cli``     the ``inference``, ``main`` (Vistas pretraining),
               ``train_plain``, ``train_conf``, ``train_cyclegan``,
-              ``test_cyclegan`` and ``train_uncertainty`` entry points
-              (``train_conf`` also evaluates and infers)
+              ``test_cyclegan``, ``train_uncertainty``, ``train_baseline``
+              and ``run_demo`` (the MFNet harness), ``eval_hotnet`` and
+              ``dataset_qa`` entry points (``train_conf`` also evaluates
+              and infers)
 - ``tools``   profilers of the forward and the training steps on the card,
               the PNG decoder's timing
 """

@@ -1,6 +1,6 @@
 """Eval loaders of PNG trees, training batches, and the augmentation on the card.
 
-Counterpart of ``heatnet_tpu/data/loaders.py:43-67,216-339,426-591,936-983``.
+Counterpart of ``heatnet_tpu/data/loaders.py:43-67,216-339,386-591,936-983``.
 
 The eval loaders (``FreiburgThermalTestDataset``, ``FreiburgInferDataset``,
 ``MFNetDataset``, ``BDDValDataset``) return the JAX loaders' items: same
@@ -21,6 +21,10 @@ and transforms: ``batch_iterator(workers=n)`` draws in order and decodes
 on threads. The cv2 calls of the Vistas chain are numpy copies here
 (``resize_and_pad``, ``copy_make_border``, ``rgb_to_hsv``/``hsv_to_rgb``,
 ``get_rotation_matrix_2d``, ``warp_affine``, ``swap_rb``).
+
+``MFHarnessTrainDataset`` (the MFNet harness's train split) decodes,
+applies ``data/mf_augment.py``'s transforms and resizes on the host, as the
+JAX loader does; its draws come from the transforms' own ``RandomState``s.
 
 ``batch_iterator`` and ``prefetch_items`` are copies (numpy and threads).
 ``DeviceAugment`` moves a raw batch to the device and runs
@@ -485,6 +489,44 @@ class MFNetTrainDataset:
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         return self.load(index, self.draw(index))
+
+
+class MFHarnessTrainDataset:
+    """The MFNet harness's train split (``heatnet_tpu/data/loaders.py:386-423``,
+    ``MF_dataset(have_label=True)`` of the reference): ``<split>.txt`` names,
+    the RGBA PNG (alpha = IR, 8-bit) with its native 9-class labels, the
+    ``transform`` callables applied per item (``data/mf_augment.py``), a
+    resize back to 640x480 (nearest for the labels), the image scaled by
+    1/255 with no mean or std: float32 ``image`` (480, 640, 4) and int32
+    ``label``."""
+
+    WIDTH, HEIGHT = 640, 480
+
+    def __init__(self, data_dir: str, split: str = "train", transform=()):
+        with open(os.path.join(data_dir, split + ".txt")) as f:
+            self.names = [n.strip() for n in f.readlines()]
+        self.data_dir = data_dir
+        self.transform = list(transform)
+
+    def __len__(self):
+        return len(self.names)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        name = self.names[index]
+        path = os.path.join(self.data_dir, "images", name + ".png")
+        # cv2's BGRA with [:3] as RGB and the alpha after is the decoded RGBA
+        image = read_png(path)
+        if image.ndim != 3 or image.shape[2] != 4 or image.dtype != np.uint8:
+            raise ValueError(f"{path}: expected an 8-bit RGBA PNG, got {image.dtype} "
+                             f"{image.shape}")
+        label = _imread_grey(os.path.join(self.data_dir, "labels", name + ".png"), np.uint8)
+        for func in self.transform:
+            image, label = func(image, label)
+        wh = (self.WIDTH, self.HEIGHT)
+        image = resize(np.ascontiguousarray(image), wh)
+        label = resize(np.ascontiguousarray(label), wh, nearest=True)
+        return {"image": image.astype(np.float32) / 255.0,
+                "label": label.astype(np.int32)}
 
 
 def _scaled_hw(h: int, w: int, scale: float) -> Tuple[int, int]:

@@ -16,10 +16,14 @@ The inverse of ``heatnet_tpu/io/torch_import.py``'s layout rules
   (plus ``num_batches_tracked`` = 0, a buffer of ``nn.BatchNorm2d``).
 
 Port module names are the JAX tree's, so a key is the tree path joined with
-``.``. A transposed conv is recognised by its module name, with the same
-rule as ``torch_import.convert_state_dict``: the last module name starts
+``.``. Given the port module (``target``), a kernel is a transposed conv's
+exactly where the target's module of that path is an ``nn.ConvTranspose2d``.
+Without one, a transposed conv is recognised by its module name, with the
+same rule as ``torch_import.convert_state_dict``: the last module name starts
 with one of ``TRANSPOSE_NAMES`` (PSPNet's ``up_1/conv`` ends in ``conv`` and
-is a plain conv).
+is a plain conv). The name rule cannot convert RTFNet, whose upsampling
+``TransBottleneck`` names its 2x2 transposed conv ``conv3``, as a keep-shape
+block names its 3x3 conv.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 TRANSPOSE_NAMES = ("up", "up_seg_2", "up_seg_2_cert", "up_borders_3",
                    "up_inst_2", "deconv", "upsample")
@@ -47,9 +52,13 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
-def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
-                        ) -> Dict[str, torch.Tensor]:
-    """Convert flax ``params`` (and ``batch_stats``) to a port ``state_dict``."""
+def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
+                        target: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """Convert flax ``params`` (and ``batch_stats``) to a port ``state_dict``;
+    with ``target`` (the port module the result is for) transposed convs are
+    told apart by the target's module types, else by name."""
+    transposed = None if target is None else {
+        name for name, m in target.named_modules() if isinstance(m, nn.ConvTranspose2d)}
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(params):
         mods, name = list(path[:-1]), path[-1]
@@ -57,7 +66,8 @@ def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
         if name == "scale":  # a BatchNorm's, whatever its module is named
             name = "weight"
         elif name == "kernel" and a.ndim == 4:
-            if mods and mods[-1].startswith(TRANSPOSE_NAMES):
+            if (".".join(mods) in transposed if transposed is not None
+                    else mods and mods[-1].startswith(TRANSPOSE_NAMES)):
                 a = np.flip(a, (0, 1)).transpose(2, 3, 0, 1)
             else:
                 a = a.transpose(3, 2, 0, 1)

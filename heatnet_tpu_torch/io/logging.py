@@ -2,7 +2,8 @@
 
 The port's copy of the file-backed part of ``heatnet_tpu/io/logging.py``
 (``AverageMeter``, and ``RunLogger`` without wandb): one JSON object per
-``log`` call in ``<log_dir>/<project>-<unix time>.jsonl``.
+``log`` call in ``<log_dir>/<project>-<unix time>.jsonl``, and one
+``{"_type": "config", ...}`` object per ``update_config`` call (:52-58).
 """
 
 from __future__ import annotations
@@ -11,6 +12,19 @@ import json
 import os
 import time
 from typing import Any, Dict
+
+
+def _jsonable(d: Dict[str, Any]) -> Dict[str, Any]:
+    """``d`` with each value JSON can hold as it is, a one-element array as
+    its item, anything else as its ``str`` (logging.py:106-117)."""
+    out = {}
+    for k, v in d.items():
+        try:
+            json.dumps(v)
+            out[k] = v
+        except (TypeError, ValueError):
+            out[k] = v.item() if hasattr(v, "item") and getattr(v, "size", 2) == 1 else str(v)
+    return out
 
 
 class AverageMeter:
@@ -33,6 +47,16 @@ class RunLogger:
         self.path = os.path.join(log_dir, f"{project}-{int(time.time())}.jsonl")
         self._file = open(self.path, "a")
         self._step = 0
+        self.config: Dict[str, Any] = {}
+
+    def update_config(self, cfg: Any) -> None:
+        """``wandb.config.update(args)``: a dict or an ``argparse.Namespace``,
+        merged into ``config`` and written whole as one config record."""
+        if hasattr(cfg, "__dict__") and not isinstance(cfg, dict):
+            cfg = vars(cfg)
+        self.config.update(dict(cfg))
+        self._file.write(json.dumps({"_type": "config", **_jsonable(self.config)}) + "\n")
+        self._file.flush()
 
     def log(self, metrics: Dict[str, Any]) -> None:
         self._file.write(json.dumps({"_step": self._step, **metrics}) + "\n")

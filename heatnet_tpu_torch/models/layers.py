@@ -418,10 +418,13 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
                 m.reset_parameters()
 
 
-def _prepare(module: nn.Module, device: torch.device, cast_weights: bool) -> None:
+def _prepare(module: nn.Module, device: torch.device, cast_weights: bool,
+             dtype: Optional[torch.dtype] = None) -> None:
     # bf16 activations on the card, as the JAX package computes in bf16 from
-    # float32 parameters (trgb_segnet.py:17-18); float32 on the CPU
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    # float32 parameters (trgb_segnet.py:17-18); float32 on the CPU; or the
+    # caller's dtype (the MFNet harness runs float32 on the card)
+    if dtype is None:
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     weight_dtype = dtype if cast_weights else torch.float32
     module.to(device)
     for m in module.modules():
@@ -433,27 +436,30 @@ def _prepare(module: nn.Module, device: torch.device, cast_weights: bool) -> Non
             m.compute_dtype = dtype
 
 
-def prepare_for_inference(module: nn.Module, device: torch.device) -> nn.Module:
+def prepare_for_inference(module: nn.Module, device: torch.device,
+                          dtype: Optional[torch.dtype] = None) -> nn.Module:
     """Eval mode on ``device``; convolution weights in the compute dtype.
 
-    On the card the convolutions run in bf16 (here the weights are cast
-    once, so the per-call cast is free) and BN stays float32. Dense
-    convolution weights move to channels_last, the activations' layout, so
-    cuDNN does not relayout them per call; the grouped conv's weight stays
-    contiguous, as its kernel reads it.
+    On the card the convolutions run in bf16 unless ``dtype`` says otherwise
+    (here the weights are cast once, so the per-call cast is free) and BN
+    stays float32. Dense convolution weights move to channels_last, the
+    activations' layout, so cuDNN does not relayout them per call; the
+    grouped conv's weight stays contiguous, as its kernel reads it.
     """
     module.eval()
-    _prepare(module, device, cast_weights=True)
+    _prepare(module, device, cast_weights=True, dtype=dtype)
     return module
 
 
-def prepare_for_training(module: nn.Module, device: torch.device) -> nn.Module:
+def prepare_for_training(module: nn.Module, device: torch.device,
+                         dtype: Optional[torch.dtype] = None) -> nn.Module:
     """Train mode on ``device``; every parameter stays float32.
 
-    The activations are bf16 on the card, each convolution casting its
-    float32 weight per call; gradients and optimizer state are float32.
-    Dense convolution weights move to channels_last as for inference.
+    The activations are bf16 on the card (or ``dtype``), each convolution
+    casting its float32 weight per call; gradients and optimizer state are
+    float32. Dense convolution weights move to channels_last as for
+    inference.
     """
     module.train()
-    _prepare(module, device, cast_weights=False)
+    _prepare(module, device, cast_weights=False, dtype=dtype)
     return module

@@ -1,16 +1,24 @@
 """Model registry: ``get_model(name, **kw)`` and the PSPNet factory
 ``build_network`` (``heatnet_tpu/models/registry.py:23-68``).
 
-Holds what the port has so far; other names (mfnet, rtfnet, the cyclegan
-nets, ...) raise ``KeyError``.
+Every name of the JAX registry. A flax module infers its input width; a
+PyTorch one needs it, so the three whose input width the JAX factories do
+not name take it as a keyword with a default: ``cyclegan_discriminator``
+and ``unet_seg`` ``in_channels=1`` (IR, as the CycleGAN nets take it),
+``unet_adapter`` ``in_channels=4`` (early-fusion RGB + IR).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+from .cyclegan import Discriminator, Generator
+from .mfnet import MFNet
 from .pspnet import PSPNet
+from .rtfnet import RTFNet
+from .segnet_baseline import SegNetBaseline
 from .trgb_segnet import net_resnext50, net_resnext101, net_resnext152
+from .unet import UNetAdapter, UNetSeg
 
 _PSP_BACKENDS = {
     # psp_size per backend (build_net.py:7-16)
@@ -40,6 +48,13 @@ MODELS: Dict[str, Callable] = {
     "net_resnext101": net_resnext101,
     "net_resnext152": net_resnext152,
     "pspnet": build_network,
+    "mfnet": lambda **kw: MFNet(**kw),
+    "rtfnet": lambda **kw: RTFNet(**kw),
+    "segnet_baseline": lambda **kw: SegNetBaseline(**kw),
+    "cyclegan_generator": lambda **kw: Generator(**kw),
+    "cyclegan_discriminator": lambda in_channels=1: Discriminator(in_channels),
+    "unet_adapter": lambda in_channels=4, **kw: UNetAdapter(in_channels, **kw),
+    "unet_seg": lambda **kw: UNetSeg(**kw),
 }
 
 

@@ -1,11 +1,14 @@
-"""The half-width input-adapter UNet of the adversarial trainer.
+"""The UNets: the half-width input adapter and the full-width ``UNetSeg``.
 
-Counterpart of ``heatnet_tpu/models/unet.py:21-85`` (``DoubleConv``,
-``_Down``, ``_Up``, ``UNetAdapter``; input_adapter.py:75-101 of the
-reference): an image-to-image UNet, f = 2, three downs and three ups with
-bilinear upsampling, which ``--train_input_adapter`` puts in front of the
-segnet. Its BatchNorms are flax's (``layers.BatchNorm``). NHWC at the
-surface, float32 out; the convolutions run in ``compute_dtype``.
+Counterpart of ``heatnet_tpu/models/unet.py:21-107`` (``DoubleConv``,
+``_Down``, ``_Up``, ``UNetAdapter``, ``UNetSeg``). ``UNetAdapter``
+(input_adapter.py:75-101 of the reference) is an image-to-image UNet, f = 2,
+three downs and three ups with bilinear upsampling, which
+``--train_input_adapter`` puts in front of the segnet. ``UNetSeg`` (the
+reference CycleGAN folder's segmentation UNet) is full width, four downs and
+four ups, and ends in a sigmoid. Their BatchNorms are flax's
+(``layers.BatchNorm``). NHWC at the surface, float32 out; the convolutions
+run in ``compute_dtype``.
 """
 
 from __future__ import annotations
@@ -82,3 +85,34 @@ class UNetAdapter(nn.Module):
         y = self.up3(y, x2)
         y = self.up4(y, x1)
         return self.outc(y).float().permute(0, 2, 3, 1)
+
+
+class UNetSeg(nn.Module):
+    """Full-width UNet with a sigmoid output; ``in_channels`` is the input's
+    width (flax infers it)."""
+
+    def __init__(self, n_classes: int, in_channels: int = 1):
+        super().__init__()
+        self.inc = DoubleConv(in_channels, 64)
+        self.down1 = _Down(64, 128)
+        self.down2 = _Down(128, 256)
+        self.down3 = _Down(256, 512)
+        self.down4 = _Down(512, 512)
+        self.up1 = _Up(512 + 512, 256)
+        self.up2 = _Up(256 + 256, 128)
+        self.up3 = _Up(128 + 128, 64)
+        self.up4 = _Up(64 + 64, 64)
+        self.outc = Conv2d(64, n_classes, 1)
+        self.compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
+        x1 = self.inc(x)
+        x2 = self.down1(x1)
+        x3 = self.down2(x2)
+        x4 = self.down3(x3)
+        y = self.up1(self.down4(x4), x4)
+        y = self.up2(y, x3)
+        y = self.up3(y, x2)
+        y = self.up4(y, x1)
+        return torch.sigmoid(self.outc(y).float()).permute(0, 2, 3, 1)

@@ -1,8 +1,10 @@
-"""Where a training step's time goes on the card: the train_plain step, or
-with ``--vistas`` the Vistas pretraining step of ``cli/main.py``.
+"""Where a training step's time goes on the card: the train_plain step, with
+``--vistas`` the Vistas pretraining step of ``cli/main.py``, or with
+``--baseline`` an MFNet harness step of ``cli/train_baseline.py``.
 
     python -m heatnet_tpu_torch.tools.profile_train [--batch 10] [--iters 10]
     python -m heatnet_tpu_torch.tools.profile_train --vistas [--batch 30] [--workers 8]
+    python -m heatnet_tpu_torch.tools.profile_train --baseline RTFNet [--batch 8]
 
 ResNeXt-50 (random weights, seed 0), batch ``--batch`` of 320x640 crops from
 random 320x960 frames, through the trainer's own pieces: ``DeviceAugment``
@@ -28,6 +30,17 @@ beforehand), the same device-time breakdown, idle share and peak memory,
 and the host's ms per batch for decode and augmentation (on one thread and
 on ``--workers``), apart from the card's time.
 
+``--baseline {MFNet,RTFNet,SegNet}``: the harness's model (random weights,
+seed 0) in float32 at batch ``--batch`` (8) of 480x640 frames, SGD with
+momentum and weight decay, through ``cli.train_baseline``'s pieces:
+``MFHarnessTrainDataset`` (decode, flip, crop, resize on the host) on a
+synthetic MFNet tree of 480x640 PNG frames, the H2D copy and
+``make_train_step``. Reports the step's CUDA-event p50/p95 (H2D to the SGD
+step, the batch decoded beforehand) with cuDNN's TF32 convolutions allowed
+(PyTorch's default, as the CLI runs) and with them off (strict float32),
+the device-time breakdown, idle share and peak memory of the default, the
+eval-mode forward of a batch of 8 (frames/s), and the host's ms per batch.
+
 Prints the card (nvidia-smi) and one JSON line. Needs a card.
 """
 
@@ -51,9 +64,11 @@ def main(argv=None) -> None:
     from ..train.state import init_model
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--batch", type=int, default=None, help="10 (30 with --vistas)")
+    p.add_argument("--batch", type=int, default=None,
+                   help="10 (30 with --vistas, 8 with --baseline)")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--vistas", action="store_true")
+    p.add_argument("--baseline", choices=["MFNet", "RTFNet", "SegNet"], default=None)
     p.add_argument("--workers", type=int, default=8, help="decode threads (--vistas)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -64,6 +79,10 @@ def main(argv=None) -> None:
                          text=True, timeout=60).stdout.strip().splitlines()[0])
     if args.vistas:
         print(json.dumps(profile_vistas(args.batch or 30, args.iters, args.workers, dev)),
+              flush=True)
+        return
+    if args.baseline:
+        print(json.dumps(profile_baseline(args.baseline, args.batch or 8, args.iters, dev)),
               flush=True)
         return
 
@@ -207,6 +226,69 @@ def profile_vistas(n: int, iters: int, workers: int, dev: torch.device) -> dict:
         f"host_ms_per_batch_{workers}_threads": threaded_ms,
         "host_share_if_serial": threaded_ms / (threaded_ms + p50),
         "tree_write_s": write_s, "profile_steps": 3,
+        "device_busy_ms_per_step": busy, "idle_share": 1.0 - busy / p50,
+        "families_ms_per_step": {k: v / 3 for k, v in
+                                 sorted(families.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms_per_step": [[k[:90], v / 3] for k, v in top],
+    }
+
+
+def profile_baseline(name: str, n: int, iters: int, dev: torch.device) -> dict:
+    """The ``--baseline`` report (see the module docstring)."""
+    from ..cli.train_baseline import EVAL_BATCH, build_model, make_train_step
+    from ..data.loaders import MFHarnessTrainDataset, batch_iterator, to_device
+    from ..data.mf_augment import default_train_augmentations
+    from ..data.synthetic import make_mfnet
+    from ..models.layers import init_params, prepare_for_training
+
+    model = build_model(name)
+    init_params(model, torch.Generator().manual_seed(0))
+    prepare_for_training(model, dev, dtype=torch.float32)
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9, weight_decay=5e-4)
+    step = make_train_step(model, opt)
+    with tempfile.TemporaryDirectory() as tmp:
+        make_mfnet(tmp, n_train=n, n_test=0, hw=(480, 640), seed=0)
+        ds = MFHarnessTrainDataset(tmp, transform=default_train_augmentations(seed=0))
+        t0 = time.perf_counter()
+        raw = next(batch_iterator(ds, n, seed=1))
+        host_ms = (time.perf_counter() - t0) * 1e3
+
+    def full_step():
+        return step(to_device(raw["image"], dev), to_device(raw["label"], dev))
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        for _ in range(3):
+            full_step()
+        strict = timed(full_step, iters)
+        torch.backends.cudnn.allow_tf32 = True
+        for _ in range(3):
+            full_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        full = timed(full_step, iters)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        by_name, families, busy = device_breakdown(full_step)
+        image = to_device(raw["image"][:EVAL_BATCH], dev)
+        model.eval()
+        with torch.no_grad():
+            fwd = timed(lambda: model(image).argmax(-1), iters)
+        model.train()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    p50 = float(np.median(full))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    return {
+        "what": f"baseline {name}", "batch": n, "frames": "480x640 PNG, float32 /255",
+        "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+        "step_ms_p50": p50, "step_ms_p95": float(np.percentile(full, 95)),
+        "step_ms_p50_tf32_off": float(np.median(strict)),
+        "step_ms_p95_tf32_off": float(np.percentile(strict, 95)),
+        "frames_per_s_card": n / p50 * 1e3, "peak_memory_gb": peak_gb,
+        "eval_forward_ms_p50": float(np.median(fwd)),
+        "eval_frames_per_s": EVAL_BATCH / float(np.median(fwd)) * 1e3,
+        "host_ms_per_batch_one_thread": host_ms, "profile_steps": 3,
         "device_busy_ms_per_step": busy, "idle_share": 1.0 - busy / p50,
         "families_ms_per_step": {k: v / 3 for k, v in
                                  sorted(families.items(), key=lambda kv: -kv[1])},

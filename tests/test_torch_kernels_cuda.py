@@ -457,3 +457,86 @@ def test_vistas_and_mf_seg_steps_launch_the_kernels(dev):
         metrics = step()
         assert [k.launches - c0 for k, c0 in zip(kernels, before)] == want
         assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+@pytest.mark.parametrize("name", ["MFNet", "RTFNet", "SegNet"])
+def test_harness_baselines_card_forward_matches_the_cpu(dev, name):
+    """The MFNet harness's models, float32 with TF32 off, eval mode: the card's
+    logits within 1e-3 of max |logit| of the CPU's on the same weights and a
+    64x96 frame pair, the class maps on >= 0.999 of pixels. RTFNet at
+    layers (1,1,1,1) with its full widths. SegNet's pools on the card may
+    record another argmax where a cell's two largest values lie within
+    rounding (its unpool then moves that value by a pixel): each such switch
+    must be a near-tie (1e-5 of the cell's maximum), and the card pools at
+    the CPU's argmaxes for the logits' comparison."""
+    import copy
+    from unittest import mock
+
+    from heatnet_tpu_torch.cli.train_baseline import BASELINES
+    from heatnet_tpu_torch.models import segnet_baseline
+    from heatnet_tpu_torch.models.layers import init_params, prepare_for_inference
+
+    model = BASELINES[name](n_class=9, **({"layers": (1, 1, 1, 1)} if name == "RTFNet"
+                                          else {}))
+    init_params(model, torch.Generator().manual_seed(0))
+    x = torch.rand((2, 64, 96, 4), generator=torch.Generator().manual_seed(1))
+    cpu = prepare_for_inference(copy.deepcopy(model), torch.device("cpu"), dtype=torch.float32)
+    card = prepare_for_inference(model, dev, dtype=torch.float32)
+    real_pool = segnet_baseline.pool_with_indices
+    cpu_idx, n_card = [], []
+
+    def recording_pool(t):
+        pooled, idx = real_pool(t)
+        cpu_idx.append(idx)
+        return pooled, idx
+
+    def cpu_index_pool(t):
+        cells = segnet_baseline.pool_cells(t)
+        ref = cpu_idx[len(n_card)].to(t.device)
+        at_ref = torch.gather(cells, -1, ref[..., None])[..., 0]
+        differ = cells.argmax(-1) != ref
+        top = cells.amax(-1)
+        assert bool(((top - at_ref)[differ].abs() <= 1e-5 * top[differ].abs()).all())
+        n_card.append(int(differ.sum()))
+        return at_ref, ref
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            with mock.patch.object(segnet_baseline, "pool_with_indices", recording_pool):
+                want = cpu(x)
+            with mock.patch.object(segnet_baseline, "pool_with_indices", cpu_index_pool):
+                got = card(x.to(dev)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert len(n_card) == (5 if name == "SegNet" else 0)
+    assert got.shape == want.shape == (2, 64, 96, 9) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    assert float((got.argmax(-1) == want.argmax(-1)).float().mean()) >= 0.999
+
+
+def test_harness_train_step_launches_no_port_kernel(dev):
+    """A cli.train_baseline step (MFNet, float32, SGD) on the card launches
+    none of the port's kernels, and evaluation neither."""
+    from heatnet_tpu_torch.cli import train_baseline
+    from heatnet_tpu_torch.models.layers import init_params, prepare_for_training
+
+    kernels = (fp.INGEST, gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_FUSED,
+               gc.GROUPED_CONV3X3_DX)
+    model = train_baseline.build_model("MFNet")
+    init_params(model, torch.Generator().manual_seed(0))
+    prepare_for_training(model, dev, dtype=torch.float32)
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9, weight_decay=5e-4)
+    step = train_baseline.make_train_step(model, opt)
+    g = torch.Generator().manual_seed(2)
+    image = torch.rand((2, 96, 128, 4), generator=g).to(dev)
+    label = torch.randint(-1, 9, (2, 96, 128), generator=g).to(dev)
+    before = [k.launches for k in kernels]
+    losses = [float(step(image, label)) for _ in range(3)]
+    model.eval()
+    with torch.no_grad():
+        model(image).argmax(-1)
+    assert [k.launches for k in kernels] == before
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert next(model.parameters()).dtype == torch.float32

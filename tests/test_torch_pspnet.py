@@ -27,6 +27,7 @@ import torch
 from heatnet_tpu.models import ConfSegnet as JaxConfSegnet
 from heatnet_tpu.models import extractors as jx
 from heatnet_tpu.models import pspnet as jp
+from heatnet_tpu.models.registry import MODELS as JAX_MODELS
 from heatnet_tpu.models.registry import build_network as jax_build_network
 from heatnet_tpu_torch.eval import validate
 from heatnet_tpu_torch.io.from_jax import TRANSPOSE_NAMES, state_dict_from_jax
@@ -183,9 +184,9 @@ def test_pspnet_alternating_steps_match_jax():
 # -- the registry and serving ----------------------------------------------------------
 
 def test_registry_build_network_and_the_weight_rules():
-    assert set(MODELS) == {"net_resnext50", "net_resnext101", "net_resnext152", "pspnet"}
+    assert set(MODELS) == set(JAX_MODELS)
     assert isinstance(get_model("pspnet", backend="squeezenet"), tp.PSPNet)
-    for name, call in (("mfnet", lambda: get_model("mfnet")),
+    for name, call in (("nope", lambda: get_model("nope")),
                        ("vgg", lambda: build_network("vgg"))):
         with pytest.raises(KeyError, match=name):
             call()

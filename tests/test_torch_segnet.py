@@ -107,7 +107,7 @@ def test_registry_and_unported_variants():
                    "fuse_seg_cert")
     assert len(get_model("net_resnext101").mod4_1) == 23
     with pytest.raises(KeyError):
-        get_model("mfnet")
+        get_model("nope")
 
 
 @pytest.mark.slow
