@@ -141,16 +141,43 @@ Phases, each of which exits non-zero on failure:
        ``cli.dataset_qa freiburg`` and ``mfnet`` on phase 5f's trees: 1
        ingest + 16 fused launches per Freiburg batch of 16, 0 + 16 per MFNet
        batch, the IoUs of 5f's validators bit for bit;
-9. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
+9. int8 serving, the borders mode, reference checkpoints, the Vistas
+   relabelling (phase 4c's segnet weights):
+   9a. ``int8_conv`` (``csrc/int8_conv.cu``) at each int8 layer shape of a
+       batch-8 forward of ResNeXt-50 at 320x960 (the layers JAX's predicates
+       quantize), equal to its plain version bit for bit, with eager and card
+       times, the bound (int8 at 1979 TOPS) and ``torch._int_mm`` on the 1x1
+       layers. The inputs are post-ReLU, as the model's layers see them (half
+       zeros: the kernel's IEEE division is slower on a zero), and signed
+       for a second equality check and card time. The card times come from a
+       child process (``--int8-card-times``): once this process has
+       launched kernels outside a profiler window for a while, torch.profiler
+       loses kernel records while keeping their launches, so a late window
+       reads 0. The child reads each shape, and the int8 kernels of one
+       batch-8 int8 forward at 320x960, and holds the kernel records to the
+       launches, taking a window again where it lost some;
+   9b. ``cli.inference --quant int8 --batch 8`` on a 16-frame pack: the
+       launches against JAX's predicates, class maps against bf16 (>= 0.90)
+       and against the int8 plain versions (>= 0.99), forward p50/p95 at batch
+       8 and 32 beside bf16's, batch 1 and an uncalibrated model serving the
+       bf16 maps bit for bit with no int8 launch;
+   9c. ``--borders-data`` on a 4-frame 768x384 tree, bf16 and int8 (batch 1:
+       the float maps), its PNGs written;
+   9d. ``cli.convert_checkpoint`` of the weights under the reference's names,
+       then ``cli.inference --resume``: bf16 maps bit for bit;
+   9e. ``cli.generate_vistas`` on a 4-frame PNG Vistas tree, one ``cli.main``
+       step on its output;
+10. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
    launches on every path); the last line is ``{"ok": true, "device": {...}}``.
 
 Launch counts: the grouped-conv kernel has one count per entry point, the
 epilogue-free forward (``grouped_conv3x3``), the fused BN affine + act
 forward (``grouped_conv3x3_fused``) and the input gradient
-(``grouped_conv3x3_dx``).
+(``grouped_conv3x3_dx``); the int8 conv one (``int8_conv``).
 
 Without a card, or run from a directory that does not hold the package, it
-prints no result and exits non-zero.
+prints no result and exits non-zero. ``--int8-card-times SPEC OUT`` is phase
+9a's child process (SPEC and OUT are JSON files), not an entry point.
 """
 
 import contextlib
@@ -168,6 +195,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
+INT8_OP_PER_S = 1979e12     # dense int8 tensor-core peak, same source
 N_BATCH, H_IN, W_IN = 8, 320, 704
 # (name, C, channels per group, dilation, H, W, launches per forward) of
 # ResNeXt-50's grouped convs at a 320x704 input (trgb_segnet.py:92-96)
@@ -314,12 +342,111 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound_ms(n_bytes: float, flops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def bound_ms(n_bytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def reference_names(port_state_dict, prefix: str = "module.trgb_segnet."):
+    """A ResNeXtSeg ``state_dict`` under the reference's module names, as
+    its checkpoints hold them: each block's ``conv1``/``bn2``/``conv2``/
+    ``bn3``/``conv3`` nested in ``convs``, the stem's ``conv1``/``bn1`` as
+    ``conv1_2``/``bn1_2`` and ``prefix`` (a ``DataParallel``-wrapped
+    ``trgb_segnet``) in front."""
+    out = {}
+    for key, t in port_state_dict.items():
+        parts = key.split(".")
+        if parts[0].startswith("mod1") and len(parts) > 1 and parts[1] in ("conv1", "bn1"):
+            parts[1] += "_2"
+        elif (len(parts) > 2 and parts[0].startswith("mod") and parts[1].startswith("block")
+              and parts[2] in ("conv1", "bn2", "conv2", "bn3", "conv3")):
+            parts.insert(2, "convs")
+        out[prefix + ".".join(parts)] = t
+    return out
+
+
+def int8_card_times(spec_path: str, out_path: str) -> None:
+    """Phase 9a's child: card time (torch.profiler) of ``int8_conv`` at each
+    layer shape of ``spec["configs"]`` (cin, cout, k, s, p, d, groups, n, h,
+    w), and of the int8 kernels of one batch-8 int8 forward of ResNeXt-50
+    (random weights, seed 0, calibrated on its first frame) at
+    ``spec["frame"]``, written to ``out_path``. A window whose kernel records
+    do not match its launches reads null."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, ROOT)
+    from heatnet_tpu_torch.models import get_model
+    from heatnet_tpu_torch.models.layers import init_params, prepare_for_inference
+    from heatnet_tpu_torch.ops import fused_preproc as fp
+    from heatnet_tpu_torch.ops import int8_conv
+    from heatnet_tpu_torch.ops.quant import calibrate_int8, convert_int8
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def card_ms(fn, calls: int, tries: int = 3):
+        """[ms per call of the int8 kernels, records, launches] over calls;
+        a window that lost records (rare in a fresh process too) is taken
+        again, up to ``tries`` windows."""
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(tries):
+            before = int8_conv.INT8_CONV.launches
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            launched = int8_conv.INT8_CONV.launches - before
+            recs = [e for e in prof.events() if e.device_type.name == "CUDA"
+                    and "int8_conv" in e.name]
+            if recs and len(recs) == launched:
+                return [sum(e.device_time_total for e in recs) / 1e3 / calls, len(recs),
+                        launched]
+        return [None, len(recs), launched]
+
+    # each shape on its phase 9a inputs: a post-ReLU x (half zeros, as the
+    # layers see it) and the same x before the ReLU (signed, no zeros)
+    layers = []
+    for cin, cout, k, s, p, d, groups, n, h, w in spec["configs"]:
+        x_signed = (torch.randn((n, h, w, cin), generator=g, device=dev) * 2).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+        w_q, w_scale = int8_conv.quantize_weight(
+            torch.randn((cout, cin // groups, k, k), generator=g, device=dev))
+        w_pack = int8_conv.pack_weight(w_q, groups)
+        x_scale = (x_signed.float().abs().amax() / 100).reshape(())
+        ep = None if groups == 1 else (torch.rand(cout, generator=g, device=dev) + 0.5,
+                                       torch.randn(cout, generator=g, device=dev) * 0.1,
+                                       "relu", 0.01)
+        args = (w_scale, x_scale, None, s, p, d, groups, ep)
+        row = {}
+        for tag, x in (("relu", torch.relu(x_signed)), ("signed", x_signed)):
+            row[tag] = card_ms(lambda: int8_conv.int8_conv2d(x, w_q, w_pack, *args), 5)
+        layers.append(row)
+        del x_signed, x
+
+    model = get_model("net_resnext50", classes=13, input_channels=4)
+    init_params(model, torch.Generator().manual_seed(0))
+    convert_int8(model)
+    model = prepare_for_inference(model, dev)
+    fh, fw = spec["frame"]
+    rgb = torch.randint(0, 256, (8, fh, fw, 3), generator=g, device=dev, dtype=torch.uint8)
+    ir = torch.randint(21000, 26000, (8, fh, fw, 1), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.int16).view(torch.uint16)
+    x_in = fp.early_fusion_input(rgb, ir, 0, fw, model.compute_dtype)
+    with torch.no_grad():
+        calibrate_int8(model, [(x_in[:1],)])
+        fwd = card_ms(lambda: model(x_in), 2)
+    with open(out_path, "w") as f:
+        json.dump({"layers": layers, "forward": fwd}, f)
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--int8-card-times"]:
+        int8_card_times(*sys.argv[2:4])
+        return
     with tempfile.TemporaryDirectory() as work:
         run_phases(work)
 
@@ -2195,7 +2322,388 @@ def run_phases(work: str) -> None:
     later.update(tools)
     print(f"  phases 8a-8e: {time.perf_counter() - t_8:.1f} s", flush=True)
 
-    # 9. the record: each kernel's launches on every path, read around it
+    # 9. int8 serving (csrc/int8_conv.cu through ops/quant.py), the borders
+    # mode, reference checkpoints and the Vistas relabelling. Each path is
+    # driven with the counts set to 0 just before it and read just after.
+    from heatnet_tpu_torch.cli import convert_checkpoint, generate_vistas
+    from heatnet_tpu_torch.data.png import write_png
+    from heatnet_tpu_torch.models.layers import GroupedConv
+    from heatnet_tpu_torch.ops import int8_conv
+    from heatnet_tpu_torch.ops.quant import calibrate_int8, convert_int8
+
+    t_9 = time.perf_counter()
+    q_kernels = all_kernels + (int8_conv.INT8_CONV,)
+
+    def q_counts():
+        return {k.name: k.launches for k in q_kernels}
+
+    def zero_counts():
+        for k in q_kernels:
+            k.launches = 0
+
+    # phase 4c's segnet as a ResNeXtSeg checkpoint, and a 320x960 pack
+    saved = torch.load(adv_run.checkpoint, map_location="cpu", weights_only=True)
+    seg_sd = {k[len("trgb_segnet."):]: v for k, v in saved["state_dict"].items()
+              if k.startswith("trgb_segnet.")}
+    seg_ckpt = os.path.join(work, "conf_segnet.pth")
+    torch.save(seg_sd, seg_ckpt)
+    q_pack = os.path.join(work, "int8_pack")
+    prng = np.random.RandomState(9)
+    write_pack(q_pack, prng.randint(0, 256, (16, 320, 960, 3)).astype(np.uint8),
+               prng.randint(21000, 26000, (16, 320, 960, 1)).astype(np.uint16))
+    q_frames = [PackedFrameDataset(q_pack)[i] for i in range(16)]
+    batch8, _ = next(validate.batched(iter(q_frames), N_BATCH, ["rgb", "ir"]))
+
+    def seg_model(quant):
+        m = get_model("net_resnext50", classes=13, input_channels=4)
+        m.load_state_dict(seg_sd, strict=True)
+        if quant:
+            convert_int8(m)
+        return prepare_for_inference(m, dev)
+
+    # which layers JAX quantizes at batch 8 x 320x960, from the float model's
+    # layer inputs and JAX's predicates: Int8Conv serves int8 at H*W <= 100_000
+    # (layers.py:826) and batch >= 8 (_int8_batch_ok); GroupedConvDense's int8
+    # arm runs unless cpg >= 4 and N*H*W*cpg >= 400_000 (the native form,
+    # layers.py:458-507), at batch >= 8
+    f_model = seg_model(False)
+    shapes, hooks = {}, []
+
+    def record_shape(name):
+        def hook(mod, args):
+            shapes.setdefault(name, tuple(args[0].shape))
+        return hook
+
+    for name, m in f_model.named_modules():
+        if isinstance(m, GroupedConv) or getattr(m, "int8_ok", False):
+            hooks.append(m.register_forward_pre_hook(record_shape(name)))
+    validate.predict(f_model, batch8, "ir_rgb", dev)
+    for h in hooks:
+        h.remove()
+
+    def jax_quantizes(name, shape):
+        n, c, h, w = shape
+        m = f_model.get_submodule(name)
+        if isinstance(m, GroupedConv):
+            cpg = c // m.groups
+            return not (cpg >= 4 and n * h * w * cpg >= 400_000) and n >= 8
+        return h * w <= 100_000 and n >= 8
+
+    q_layers = [k for k, s in shapes.items() if jax_quantizes(k, s)]
+    n_grouped = sum(isinstance(f_model.get_submodule(k), GroupedConv) for k in shapes)
+    per_fwd = {"ingest": 1, "grouped_conv3x3": 0,
+               "grouped_conv3x3_fused": n_grouped - sum(
+                   isinstance(f_model.get_submodule(k), GroupedConv) for k in q_layers),
+               "grouped_conv3x3_dx": 0, "int8_conv": len(q_layers)}
+    print(f"int8 serving: by JAX's predicates a batch-8 forward of ResNeXt-50 at 320x960 "
+          f"launches {per_fwd} ({len(shapes)} conv() layers, {n_grouped} grouped)",
+          flush=True)
+
+    # 9a. the kernel against its plain version at each int8 layer shape
+    def valid_taps(size_in, size_out, k, s, p, d):
+        return sum(sum(0 <= o * s - p + t * d < size_in for o in range(size_out))
+                   for t in range(k))
+
+    def lines_read(size_in, size_out, k, s, p, d):
+        """Input rows (or columns) that some valid tap reads: a strided 1x1
+        conv reads every s-th, and NHWC rows make the skipped pixels free."""
+        return len({o * s - p + t * d for o in range(size_out) for t in range(k)}
+                   & set(range(size_in)))
+
+    configs = {}
+    for name in q_layers:
+        m = f_model.get_submodule(name)
+        n, c, h, w = shapes[name]
+        if isinstance(m, GroupedConv):
+            key = (c, c, 3, 1, m.dilation, m.dilation, m.groups, n, h, w)
+        else:
+            key = (c, m.out_channels, m.kernel_size[0], m.stride[0], m.padding[0],
+                   m.dilation[0], 1, n, h, w)
+        configs.setdefault(key, []).append(name)
+    print(f"kernels: int8_conv at the {len(configs)} layer shapes of that forward, "
+          "bit for bit against the plain version", flush=True)
+    torch.cuda.empty_cache()
+    spec_path, times_path = os.path.join(work, "int8_spec.json"), os.path.join(
+        work, "int8_card_times.json")
+    with open(spec_path, "w") as f:
+        json.dump({"configs": list(configs), "frame": [320, 960]}, f)
+    t_child = time.perf_counter()
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--int8-card-times",
+                            spec_path, times_path], capture_output=True, text=True,
+                           timeout=300)
+    if child.returncode != 0:
+        fail(f"the int8 card-time process: rc {child.returncode}\n{child.stderr[-3000:]}")
+    with open(times_path) as f:
+        card = json.load(f)
+    fwd_card_ms, fwd_recs, fwd_launched = card["forward"]
+    print(f"  card times (torch.profiler) from a process of its own, "
+          f"{time.perf_counter() - t_child:.1f} s", flush=True)
+    i8_rows, i8_err = [], 0.0
+    # inputs: a post-ReLU x, as every int8 layer of the model sees (half of
+    # it zeros), and for the equality check also the same x before the ReLU
+    for ((cin, cout, k, s, p, d, groups, n, h, w), names), card_row in zip(
+            configs.items(), card["layers"]):
+        (k_dev, n_rec, n_launch), k_dev_signed = card_row["relu"], card_row["signed"][0]
+        g = torch.Generator().manual_seed(cin + cout + k + d + h)
+        x_signed = (torch.randn((n, h, w, cin), generator=g) * 2).to(dev, torch.bfloat16)
+        x_signed = x_signed.permute(0, 3, 1, 2)
+        x = torch.relu(x_signed)
+        w_q, w_scale = int8_conv.quantize_weight(
+            torch.randn((cout, cin // groups, k, k), generator=g))
+        w_q, w_scale = w_q.to(dev), w_scale.to(dev)
+        w_pack = int8_conv.pack_weight(w_q, groups)
+        x_scale = (x_signed.float().abs().amax() / 100).reshape(())
+        ep = None if groups == 1 else ((torch.rand(cout, generator=g) + 0.5).to(dev),
+                                       (torch.randn(cout, generator=g) * 0.1).to(dev),
+                                       "relu", 0.01)
+        args = (w_scale, x_scale, None, s, p, d, groups, ep)
+        what = (f"{cin}->{cout} {k}x{k} s{s} d{d}{f' g{groups}' if groups > 1 else ''} "
+                f"at {n}x{h}x{w} (x{len(names)}, e.g. {names[0]})")
+        for xi in (x, x_signed):
+            out = int8_conv.int8_conv2d(xi, w_q, w_pack, *args)
+            ref = int8_conv.int8_conv2d_plain(xi, w_q, *args)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            i8_err = max(i8_err, err)
+            if not torch.equal(out, ref):
+                fail(f"int8_conv {what}: max |kernel - plain| {err}, not bit for bit")
+        fn = lambda: int8_conv.int8_conv2d(x, w_q, w_pack, *args)
+        k_ms = time_ms(fn)
+        p_ms = time_ms(lambda: int8_conv.int8_conv2d_plain(x, w_q, *args), reps=2)
+        ho, wo = out.shape[2], out.shape[3]
+        lib_ms = None
+        if k == 1 and groups == 1 and cin % 8 == 0 and cout % 8 == 0 and n * ho * wo > 16:
+            a = int8_conv.quantize_input(x[:, :, ::s, ::s], x_scale).to(torch.int8)
+            a = a.permute(0, 2, 3, 1).reshape(-1, cin).contiguous()
+            b = w_q.view(cout, cin).t()
+            lib_ms = time_ms(lambda: torch._int_mm(a, b))
+        macs = (n * cout * (cin // groups) * valid_taps(h, ho, k, s, p, d)
+                * valid_taps(w, wo, k, s, p, d))
+        n_bytes = (n * cin * 2 * lines_read(h, ho, k, s, p, d) * lines_read(w, wo, k, s, p, d)
+                   + n * ho * wo * cout * 2 + w_q.numel() + cout * 4)
+        b_ms, b_by = bound_ms(n_bytes, 2 * macs, INT8_OP_PER_S)
+        i8_rows.append({"layer": what, "per_forward": len(names), "ms": k_ms,
+                        "device_ms": k_dev, "device_ms_signed_x": k_dev_signed,
+                        "plain_ms": p_ms, "library_ms": lib_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+                        "ops": 2 * macs, "share_of_bound": b_ms / k_ms})
+        dev_txt = ", ".join("not measured" if v is None else f"{v:.4f}"
+                            for v in (k_dev, k_dev_signed))
+        print(f"  {what}: equal; kernel_ms {k_ms:.4f} (device {dev_txt} on the signed x, "
+              f"{n_rec} records of {n_launch} launches) plain_ms "
+              f"{p_ms:.4f} library_ms {'-' if lib_ms is None else f'{lib_ms:.4f}'} "
+              f"(_int_mm) bound_ms {b_ms:.4f} ({b_by}) share {b_ms / k_ms:.3f}",
+              flush=True)
+        del x, x_signed, out, ref
+    torch.cuda.empty_cache()
+    i8 = {key: sum(r["per_forward"] * r[key] for r in i8_rows)
+          for key in ("ms", "plain_ms")}
+    for key in ("device_ms", "device_ms_signed_x"):
+        i8[key] = (None if any(r[key] is None for r in i8_rows)
+                   else sum(r["per_forward"] * r[key] for r in i8_rows))
+    i8_bound, i8_by = bound_ms(sum(r["per_forward"] * r["bytes"] for r in i8_rows),
+                               sum(r["per_forward"] * r["ops"] for r in i8_rows), INT8_OP_PER_S)
+    lib_rows = [r for r in i8_rows if r["library_ms"] is not None]
+    i8_lib = sum(r["per_forward"] * r["library_ms"] for r in lib_rows)
+    i8_lib_kernel = sum(r["per_forward"] * r["ms"] for r in lib_rows)
+    i8_dev = ", ".join("not measured" if i8[k] is None else f"{i8[k]:.4f}"
+                       for k in ("device_ms", "device_ms_signed_x"))
+    print(f"  one forward's {len(q_layers)} int8 launches: kernel_ms {i8['ms']:.4f} (device "
+          f"{i8_dev} on the signed x) plain_ms {i8['plain_ms']:.4f} bound_ms {i8_bound:.4f} "
+          f"({i8_by}); its {sum(r['per_forward'] for r in lib_rows)} 1x1 launches "
+          f"{i8_lib_kernel:.4f} ms against _int_mm {i8_lib:.4f} ms", flush=True)
+    fwd_txt = "not measured" if fwd_card_ms is None else f"{fwd_card_ms:.4f}"
+    print(f"  the int8 kernels of one batch-8 int8 forward at 320x960 (random weights): "
+          f"device {fwd_txt} ms ({fwd_recs} records of {fwd_launched} launches, 2 "
+          "forwards)", flush=True)
+    if fwd_launched != 2 * len(q_layers):
+        fail(f"the card-time forward launched {fwd_launched} int8 kernels, want "
+             f"{2 * len(q_layers)}")
+    i8["forward_device_ms"] = fwd_card_ms
+
+    # 9b. cli.inference --quant int8 --batch 8 on phase 4c's weights
+    print("main path: cli.inference --quant int8 --batch 8, ResNeXt-50 (3,4,6,3) early "
+          "fusion, phase 4c's weights, 16 frames of 320x960, calibrated on the first "
+          "frame", flush=True)
+    iters = 3
+    q_argv = ["--data", q_pack, "--resume", seg_ckpt, "--iters", str(iters)]
+    zero_counts()
+    t0 = time.perf_counter()
+    run_q = cli.main(q_argv + ["--batch", str(N_BATCH), "--quant", "int8"])
+    torch.cuda.synchronize()
+    got_q, wall = q_counts(), time.perf_counter() - t0
+    b1 = 1 + 1 + iters  # calibration, warm-up and timing forwards, at batch 1
+    b8 = 16 // N_BATCH
+    want = {k: v * b8 for k, v in per_fwd.items()}
+    want["ingest"] += b1
+    want["grouped_conv3x3_fused"] += 16 * b1
+    print(f"  launches {got_q} ({b1} batch-1 and {b8} batch-8 forwards; want {want}); "
+          f"{run_q.frames_per_second:.1f} frames/s end to end; {wall:.1f} s", flush=True)
+    if got_q != want:
+        fail(f"cli.inference --quant int8: launches {got_q}, want {want}")
+    if run_q.maps.shape != (16, 320, 960) or run_q.maps.max() >= 13:
+        fail(f"int8 class maps {run_q.maps.shape} max {run_q.maps.max()}")
+    zero_counts()
+    run_bf = cli.main(q_argv + ["--batch", str(N_BATCH)])
+    bf_counts = q_counts()
+    agree_bf = float((run_q.maps == run_bf.maps).mean())
+
+    def int8_plain(x, w_q, w_pack, *a):
+        return int8_conv.int8_conv2d_plain(x, w_q, *a)
+
+    zero_counts()
+    with mock.patch.object(int8_conv, "int8_conv2d", int8_plain):
+        run_p = cli.main(q_argv + ["--batch", str(N_BATCH), "--quant", "int8"])
+    if q_counts()["int8_conv"] or bf_counts["int8_conv"]:
+        fail("the bf16 or the plain-version run launched the int8 kernel")
+    agree_plain = float((run_q.maps == run_p.maps).mean())
+    print(f"  class-map agreement: int8 with bf16 {agree_bf:.6f} (need >= 0.90), with the "
+          f"int8 plain versions on the card {agree_plain:.6f} (need >= 0.99)", flush=True)
+    if agree_bf < 0.90 or agree_plain < 0.99:
+        fail(f"int8 agreement: bf16 {agree_bf}, plain {agree_plain}")
+
+    q_model = seg_model(True)
+    calibrate_int8(q_model, [validate.ingest({k: q_frames[0][k] for k in ("rgb", "ir")},
+                                             "ir_rgb", dev, q_model.compute_dtype)])
+    batch32, _ = next(validate.batched(iter(q_frames * 2), 32, ["rgb", "ir"]))
+    fwd_ms, fwd_launches = {}, {}
+    for b, batch in ((N_BATCH, batch8), (32, batch32)):
+        times = {"int8": [], "bf16": []}
+        zero_counts()
+        validate.predict(q_model, batch, "ir_rgb", dev)
+        fwd_launches[b] = q_counts()["int8_conv"]
+        for _ in range(13):
+            for tag, m in (("int8", q_model), ("bf16", f_model)):
+                t1 = time.perf_counter()
+                validate.predict(m, batch, "ir_rgb", dev)
+                torch.cuda.synchronize()
+                times[tag].append((time.perf_counter() - t1) * 1e3)
+        fwd_ms[b] = {tag: (float(np.percentile(v[3:], 50)), float(np.percentile(v[3:], 95)))
+                     for tag, v in times.items()}
+        print(f"  batch {b} forward (host clock, H2D to argmax), p50/p95 ms: int8 "
+              f"{fwd_ms[b]['int8'][0]:.2f}/{fwd_ms[b]['int8'][1]:.2f}, bf16 "
+              f"{fwd_ms[b]['bf16'][0]:.2f}/{fwd_ms[b]['bf16'][1]:.2f}; "
+              f"{fwd_launches[b]} int8 launches", flush=True)
+
+    zero_counts()
+    r1q = cli.main(q_argv[:-2] + ["--iters", "1", "--quant", "int8"])  # batch 1
+    n1 = q_counts()["int8_conv"]
+    r1f = cli.main(q_argv[:-2] + ["--iters", "1"])
+    unc = seg_model(True)
+    zero_counts()
+    unc_maps = validate.predict(unc, batch8, "ir_rgb", dev)
+    n_unc = q_counts()["int8_conv"]
+    unc_equal = bool(torch.equal(unc_maps, validate.predict(f_model, batch8, "ir_rgb", dev)))
+    b1_equal = bool(np.array_equal(r1q.maps, r1f.maps))
+    print(f"  batch 1 (frame at a time) with --quant int8: {n1} int8 launches, class maps "
+          f"equal to bf16's: {b1_equal}; an uncalibrated int8 model at batch 8: {n_unc} "
+          f"int8 launches, maps equal to bf16's: {unc_equal}", flush=True)
+    if n1 or not b1_equal or n_unc or not unc_equal:
+        fail("batch-1 or uncalibrated int8 serving is not the float path")
+    later["int8_serving"] = {
+        "launches": got_q, "per_batch8_forward": per_fwd, "agreement_bf16": agree_bf,
+        "agreement_plain": agree_plain, "forward_ms_p50_p95": fwd_ms,
+        "int8_launches_per_forward": fwd_launches, "frames_per_s": run_q.frames_per_second,
+        "batch1_equal_bf16": b1_equal, "uncalibrated_equal_bf16": unc_equal}
+    del q_model, unc, f_model
+    torch.cuda.empty_cache()
+
+    # 9c. the Vistas-borders mode on a 768x384 tree the phase writes
+    print("main path: cli.inference --borders-data, RGB Vistas segnet (7x7 stem), 4 "
+          "frames of 768x384, bf16 and --quant int8", flush=True)
+    bdir = os.path.join(work, "borders")
+    os.makedirs(bdir)
+    prng = np.random.RandomState(10)
+    lines = []
+    for i in range(4):
+        borders = np.zeros((384, 768), np.uint8)
+        borders[prng.randint(0, 384, 6), :] = 1
+        borders[:, prng.randint(0, 768, 6)] = 1
+        paths = [os.path.join(bdir, f"{k}_{i}.png") for k in ("borders", "ids", "image", "dt")]
+        write_png(paths[0], borders, level=1)
+        write_png(paths[1], (prng.randint(0, 14, (384, 768)) * 256
+                             + prng.randint(0, 256, (384, 768))).astype(np.uint16), level=1)
+        write_png(paths[2], prng.randint(0, 256, (384, 768, 3)).astype(np.uint8), level=1)
+        write_png(paths[3], prng.randint(0, 30, (384, 768)).astype(np.uint8), level=1)
+        lines.append(" ".join(paths))
+    with open(os.path.join(bdir, "paths.txt"), "w") as f:
+        f.write("\n".join(lines))
+    borders_out = {}
+    for quant in ("none", "int8"):
+        out_dir = os.path.join(work, f"borders_{quant}")
+        zero_counts()
+        t0 = time.perf_counter()
+        run_b = cli.main(["--borders-data", os.path.join(bdir, "paths.txt"), "--iters", "3",
+                          "--im-save-dir", out_dir, "--quant", quant])
+        torch.cuda.synchronize()
+        pngs = sorted(os.listdir(out_dir))
+        ok = (len(pngs) == 12 and np.array_equal(
+            read_png(os.path.join(out_dir, "pred_0.png")),
+            (np.clip(color_code_labels(run_b.maps[0]), 0, 1) * 255).astype(np.uint8)))
+        borders_out[quant] = {"launches": q_counts(), "network_ms": run_b.network_seconds * 1e3,
+                              "pngs": len(pngs), "maps": run_b.maps}
+        print(f"  --quant {quant}: Network took {run_b.network_seconds * 1e3:.2f} ms; "
+              f"launches {q_counts()}; {len(pngs)} PNGs, pred_0.png the palette-coded "
+              f"map: {ok}; {time.perf_counter() - t0:.1f} s", flush=True)
+        if not ok or run_b.maps.shape[0] != 4:
+            fail(f"--borders-data --quant {quant}: {pngs}, maps {run_b.maps.shape}")
+    if borders_out["int8"]["launches"]["int8_conv"] or not np.array_equal(
+            borders_out["int8"]["maps"], borders_out["none"]["maps"]):
+        fail("--borders-data at batch 1: int8 is not the float path")
+    later["borders_serving"] = {
+        "launches": borders_out["none"]["launches"],
+        **{f"network_ms_{q}": v["network_ms"] for q, v in borders_out.items()}}
+
+    # 9d. a reference-named checkpoint through cli.convert_checkpoint
+    ref_path = os.path.join(work, "reference.pth.tar")
+    torch.save({"state_dict": reference_names(seg_sd), "epoch": 3}, ref_path)
+    conv_path = os.path.join(work, "converted.pth")
+    convert_checkpoint.main(["--torch-checkpoint", ref_path, "--out", conv_path,
+                             "--to-rename", "module.trgb_segnet.", "--rename", ""])
+    conv_sd = torch.load(conv_path, map_location="cpu", weights_only=True)["state_dict"]
+    same_tensors = set(conv_sd) == set(seg_sd) and all(
+        torch.equal(conv_sd[k], v) for k, v in seg_sd.items())
+    zero_counts()
+    run_c = cli.main(["--data", q_pack, "--resume", conv_path, "--batch", str(N_BATCH),
+                      "--iters", "1"])
+    same_maps = bool(np.array_equal(run_c.maps, run_bf.maps))
+    print(f"  9d. cli.convert_checkpoint of phase 4c's weights under the reference's names: "
+          f"tensors bit for bit {same_tensors}; cli.inference --resume maps equal to "
+          f"phase 4c's bf16 maps bit for bit: {same_maps}; launches {q_counts()}", flush=True)
+    if not (same_tensors and same_maps):
+        fail("the converted reference checkpoint does not serve phase 4c's weights")
+    later["convert_checkpoint"] = {"launches": q_counts(), "maps_equal": same_maps}
+
+    # 9e. cli.generate_vistas on a PNG Vistas tree, then one cli.main step on it
+    vroot = os.path.join(work, "vistas_src")
+    for d in ("training/images", "v1.2/instances"):
+        os.makedirs(os.path.join(vroot, d))
+    prng = np.random.RandomState(11)
+    for i in range(4):
+        write_png(os.path.join(vroot, f"training/images/s{i}.png"),
+                  prng.randint(0, 256, (960, 1280, 3)).astype(np.uint8), level=1)
+        cls = (np.arange(960)[:, None] // 120 + np.arange(1280)[None, :] // 160 + i) % 66
+        write_png(os.path.join(vroot, f"v1.2/instances/s{i}.png"),
+                  (cls * 256 + prng.randint(0, 3, (960, 1280))).astype(np.uint16), level=1)
+    gen = os.path.join(work, "vistas_gen")
+    n_gen = generate_vistas.main(["--vistas_root", vroot, "--out", gen])
+    labels = read_png(os.path.join(gen, "labels", "s0.png"))
+    zero_counts()
+    gen_run = vistas_cli.main(["--data", gen, "--valdata", gen, "--batch-size", "4",
+                               "--epochs", "1", "--checkpoint-dir",
+                               os.path.join(work, "gen_ck"), "--log-dir",
+                               os.path.join(work, "runs_9e")])
+    torch.cuda.synchronize()
+    print(f"  9e. cli.generate_vistas: {n_gen} frames, labels {labels.shape} classes "
+          f"{sorted(set((labels // 256).ravel().tolist()))}; cli.main on them: losses "
+          f"{gen_run.losses}, mIoU {gen_run.mious}; launches {q_counts()}", flush=True)
+    if (n_gen != 4 or labels.shape != (768, 1024) or int((labels // 256).max()) > 13
+            or len(gen_run.losses) != 1 or not np.isfinite(gen_run.losses).all()):
+        fail("cli.generate_vistas + cli.main did not run as expected")
+    later["generate_vistas_main"] = {"launches": q_counts(), "losses": gen_run.losses}
+    print(f"  phases 9a-9e: {time.perf_counter() - t_9:.1f} s", flush=True)
+
+    # 10. the record: each kernel's launches on every path, read around it
     paths = {"serving": launches, "train_plain": train_launches, "train_conf": adv_launches,
              **{name: r["launches"] for name, r in later.items()}}
 
@@ -2272,6 +2780,23 @@ def run_phases(work: str) -> None:
                                         "dk_library_ms": 9}),
          "work": f"one training step's 16 dx launches (3/4/6/3 per stage), batch "
                  f"{N_TRAIN}, {CROP[0]}x{CROP[1]} crop; library: conv2d_input"},
+        {"name": "int8_conv", "route": "cuda",
+         "source": "heatnet_tpu_torch/csrc/int8_conv.cu",
+         "replaces": "not a TPU kernel: XLA's int8 conv_general_dilated in "
+                     "heatnet_tpu/models/layers.py:531 (GroupedConvDense's int8 arm) and "
+                     "heatnet_tpu/models/layers.py:859 (Int8Conv)",
+         "launches": sum(by_path("int8_conv").values()),
+         "launches_by_path": by_path("int8_conv"), "max_abs_err": i8_err,
+         "ms": i8["ms"], "plain_ms": i8["plain_ms"], "bound_ms": i8_bound,
+         "bound_by": i8_by, "library_ms": i8_lib, "device_ms": i8["device_ms"],
+         "device_ms_signed_x": i8["device_ms_signed_x"],
+         "forward_device_ms": i8["forward_device_ms"],
+         "library_covers_ms": i8_lib_kernel, "stages": i8_rows,
+         "work": f"one batch-{N_BATCH} forward's {len(q_layers)} int8 launches, ResNeXt-50 "
+                 "early fusion at 320x960; bound at 1979 TOPS int8 (H100 SXM data sheet); "
+                 "library: torch._int_mm (cuBLASLt) on the 1x1 layers with 8-multiple "
+                 "channels only, beside the kernel's time on the same layers "
+                 "(library_covers_ms)"},
     ]}
     record["train_conf"] = {
         "steps": dict(zip(("critic", "seg"), (adv_run.phases.count("train_critic"),

@@ -657,6 +657,170 @@ class VistasDataset:
         return self.load(index, self.draw(index))
 
 
+# cv2.distanceTransform(src, DIST_L2, 5): the 5x5 chamfer mask (not an exact
+# Euclidean transform) with cv2's coefficients 1, 1.4 and 2.1969, in float32,
+# FLT_MAX as infinity, two border rows and columns (distransform.cpp,
+# distanceTransform_5x5)
+_DT_HV, _DT_DIAG, _DT_LONG = (np.float32(v) for v in (1.0, 1.4, 2.1969))
+_DT_MAX = np.finfo(np.float32).max
+
+
+def distance_transform_l2_5(src: np.ndarray) -> np.ndarray:
+    """``cv2.distanceTransform(src, cv2.DIST_L2, 5)`` of a uint8 mask: the
+    float32 distance of each non-zero pixel to the nearest zero one under
+    cv2's 5x5 chamfer metric (FLT_MAX where the mask has no zero), computed as
+    cv2 computes it.
+
+    cv2 makes two raster passes: forward, each pixel the minimum of its
+    already-visited neighbours (two rows above, the left one) plus their
+    coefficients; backward, the same over the bottom-right half, from the
+    bottom-right corner. A pixel (i, j) needs only pixels of smaller
+    ``j + 3 i`` in the forward pass (larger in the backward one), so the
+    pixels of one ``j + 3 i`` are computed together, in the same float32
+    operations cv2 makes in its loop."""
+    src = np.asarray(src)
+    if src.ndim != 2:
+        raise ValueError(f"expected a single-channel mask, got {src.shape}")
+    h, w = src.shape
+    b = 2
+    stride = w + 2 * b
+    t = np.full((h + 2 * b) * stride, _DT_MAX, np.float32)
+    ii, jj = np.mgrid[0:h, 0:w]
+    key = (jj + 3 * ii).ravel()
+    order = np.argsort(key, kind="stable")
+    flat = ((ii + b) * stride + jj + b).ravel()[order]
+    zero = src.ravel()[order] == 0
+    starts = np.r_[np.flatnonzero(np.diff(key[order])) + 1, key.size]
+    bounds = list(zip(np.r_[0, starts[:-1]], starts))
+    up = ((-2 * stride - 1, _DT_LONG), (-2 * stride + 1, _DT_LONG), (-stride - 2, _DT_LONG),
+          (-stride - 1, _DT_DIAG), (-stride, _DT_HV), (-stride + 1, _DT_DIAG),
+          (-stride + 2, _DT_LONG), (-1, _DT_HV))
+    for lo, hi in bounds:
+        p = flat[lo:hi]
+        v = t[p + up[0][0]] + up[0][1]
+        for off, m in up[1:]:
+            v = np.minimum(v, t[p + off] + m)
+        v[zero[lo:hi]] = 0
+        t[p] = v
+    for lo, hi in reversed(bounds):
+        p = flat[lo:hi]
+        v = t[p]
+        for off, m in up:
+            v = np.minimum(v, t[p - off] + m)
+        t[p] = v
+    return t.reshape(h + 2 * b, stride)[b:b + h, b:b + w].copy()
+
+
+def _read_rgb_any(path: str) -> np.ndarray:
+    """An 8-bit colour image as RGB: a PNG through ``data.png``, another file
+    (a Vistas JPEG) through PIL."""
+    if _is_png(path):
+        return _imread_rgb(path)
+    return np.asarray(_pil_open(path).convert("RGB"), np.uint8)
+
+
+class VistasBordersDataset:
+    """Borders, instances and distance transform of relabelled Vistas
+    (``data/vistas_borders_dataset.py:38-170``; ``heatnet_tpu/data/loaders.py:717-823``).
+
+    ``paths.txt`` holds 4 space-separated paths per line: the borders PNG
+    (uint8 0/1), the trainIds PNG (uint16 class * 256 + instance), the image
+    and the distance-transform PNG (uint8). Items are the JAX loader's dict:
+    ``borders, ids, inst, image, borders_clip, image_org, dt_borders, dt``;
+    ``dt_borders`` is ``distance_transform_l2_5(1 - borders)``, cv2's chamfer
+    transform copied. A frame smaller than (height, width) is padded with
+    ``resize_and_pad`` (borders and dt with 2, ids and inst with 11, the image
+    with 0). The train chain crops at random, flips (p 0.5) and jitters
+    brightness, contrast and saturation (p 0.6) with the JAX loader's draws
+    from ``RandomState(seed)``; the eval chain resizes to width x height.
+    ``contrast_enhancement`` (CLAHE, on by default as in JAX) raises: it is
+    not ported yet (ROADMAP item 8).
+    """
+
+    MEAN = (0.28389175985075144, 0.32513300997108185, 0.28689552631651594)
+    STD = (0.1777223070810445, 0.18099167120139084, 0.17613640748441522)
+
+    def __init__(self, paths_file: str, width: int, height: int,
+                 contrast_enhancement: bool = True, augment_data: bool = True,
+                 sub_mean: bool = True, seed: int = 0):
+        if contrast_enhancement:
+            raise NotImplementedError("contrast_enhancement (CLAHE) is not ported to "
+                                      "heatnet_tpu_torch yet (ROADMAP item 8)")
+        self.width, self.height = width, height
+        self.augment_data = augment_data
+        self.sub_mean = sub_mean
+        self._rng = np.random.RandomState(seed)
+        with open(paths_file) as f:
+            lines = [x.strip() for x in f.readlines() if x.strip()]
+        self.items = [tuple(line.split(" ")[:4]) for line in lines]
+        if not self.items:
+            raise FileNotFoundError(f"no entries in {paths_file}")
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        borders_p, ids_p, image_p, dt_p = self.items[index]
+        borders = _imread_grey(borders_p, np.uint8)
+        dt = _imread_grey(dt_p, np.uint8)
+        raw_ids = read_png(ids_p)
+        if raw_ids.ndim != 2:
+            raise ValueError(f"{ids_p}: expected a single-channel PNG, got {raw_ids.shape}")
+        inst = (raw_ids % 256).astype(np.uint8)
+        ids = (raw_ids // 256).astype(np.uint8)
+        image = _read_rgb_any(image_p)  # RGB: the JAX loader's BGR read and its swap
+
+        if not (image.shape[0] >= self.height and image.shape[1] >= self.width):
+            borders = resize_and_pad(borders, (self.height, borders.shape[1]),
+                                     pad_color=2, nearest=True)
+            dt = resize_and_pad(dt, (self.height, dt.shape[1]), pad_color=2, nearest=True)
+            ids = resize_and_pad(ids, (self.height, ids.shape[1]), pad_color=11,
+                                 nearest=True)
+            inst = resize_and_pad(inst, (self.height, inst.shape[1]), pad_color=11,
+                                  nearest=True)
+            image = resize_and_pad(image, (self.height, image.shape[1]), pad_color=0)
+
+        rng = self._rng
+        if self.augment_data:
+            i = rng.randint(0, image.shape[0] - self.height + 1)
+            j = rng.randint(0, image.shape[1] - self.width + 1)
+            sl = np.s_[i:i + self.height, j:j + self.width]
+            image, borders, dt, ids, inst = (a[sl] for a in (image, borders, dt, ids, inst))
+            if rng.rand() > 0.5:
+                image, borders, dt, ids, inst = (a[:, ::-1] for a in
+                                                 (image, borders, dt, ids, inst))
+            if rng.rand() > 0.4:
+                img = image.astype(np.float32)
+                img = img * rng.uniform(0.8, 1.2)
+                mean = img.mean()
+                img = (img - mean) * rng.uniform(0.8, 1.2) + mean
+                gray = img.mean(axis=2, keepdims=True)
+                img = (img - gray) * rng.uniform(0.8, 1.2) + gray
+                image = np.clip(img, 0, 255).astype(np.uint8)
+        else:
+            wh = (self.width, self.height)
+            image = resize(image, wh)
+            borders, dt, ids, inst = (resize(a, wh, nearest=True)
+                                      for a in (borders, dt, ids, inst))
+
+        borders = np.ascontiguousarray(borders)
+        dt_borders = distance_transform_l2_5((1 - borders).astype(np.uint8))
+        img_f = np.ascontiguousarray(image).astype(np.float32) / 255.0
+        image_org = img_f.copy()
+        if self.sub_mean:
+            img_f = (img_f - np.array(self.MEAN, np.float32)) / np.array(self.STD, np.float32)
+        return {
+            "borders": borders.astype(np.int32),
+            "ids": np.ascontiguousarray(ids).astype(np.int32),
+            "inst": np.ascontiguousarray(inst).astype(np.int32),
+            "image": img_f,
+            "borders_clip": np.clip(borders, 0, 1).astype(np.int32),
+            "image_org": image_org,
+            "dt_borders": dt_borders,
+            "dt": np.ascontiguousarray(dt).astype(np.float32),
+        }
+
+
 # Pillow's 8-bit resampling (libImaging/Resample.c): coefficients in
 # fixed point with 32 - 8 - 2 fractional bits
 _PIL_PRECISION_BITS = 22

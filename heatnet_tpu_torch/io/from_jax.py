@@ -13,7 +13,9 @@ The inverse of ``heatnet_tpu/io/torch_import.py``'s layout rules
 - BN ``scale``/``bias`` → ``weight``/``bias``, whatever the BN module is
   named (``bn``, ``bn1``, ``downsample_bn``: only a BatchNorm has a
   ``scale``); batch_stats ``mean``/``var`` → ``running_mean``/``running_var``
-  (plus ``num_batches_tracked`` = 0, a buffer of ``nn.BatchNorm2d``).
+  (plus ``num_batches_tracked`` = 0, a buffer of ``nn.BatchNorm2d``);
+- the ``quant`` collection's ``x_scale`` (int8 serving, ``calibrate_int8``)
+  → the ``x_scale`` buffer of the layer of the same path (``ops/quant.py``).
 
 Port module names are the JAX tree's, so a key is the tree path joined with
 ``.``. Given the port module (``target``), a kernel is a transposed conv's
@@ -53,10 +55,12 @@ def _tensor(a) -> torch.Tensor:
 
 
 def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
-                        target: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
-    """Convert flax ``params`` (and ``batch_stats``) to a port ``state_dict``;
-    with ``target`` (the port module the result is for) transposed convs are
-    told apart by the target's module types, else by name."""
+                        target: Optional[nn.Module] = None,
+                        quant: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """Convert flax ``params`` (and ``batch_stats``, and the int8 ``quant``
+    collection) to a port ``state_dict``; with ``target`` (the port module the
+    result is for) transposed convs are told apart by the target's module
+    types, else by name."""
     transposed = None if target is None else {
         name for name, m in target.named_modules() if isinstance(m, nn.ConvTranspose2d)}
     sd: Dict[str, torch.Tensor] = {}
@@ -86,4 +90,8 @@ def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
         sd[".".join(mods + ["running_" + name])] = _tensor(leaf)
         if name == "mean":
             sd[".".join(mods + ["num_batches_tracked"])] = torch.tensor(0)
+    for path, leaf in _leaves(quant or {}):
+        if path[-1] != "x_scale":
+            raise ValueError(f"unexpected quant leaf {'/'.join(path)}")
+        sd[".".join(path)] = _tensor(leaf)
     return sd

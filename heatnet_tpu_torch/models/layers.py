@@ -10,9 +10,14 @@ conv, ``deconv``, the pools (:1153-1188), ``resize_bilinear``,
 (:1230-1435).
 
 Only functions are ported, not XLA lowering choices: ``GroupedConvDense``'s
-dense/native/int8 dispatch is the grouped conv of ``ops/grouped_conv.py``,
+dense/native dispatch is the grouped conv of ``ops/grouped_conv.py``,
 ``banded_dilated_conv`` is ``nn.Conv2d(dilation=r, padding=r)``, and
-``SubpixelConvTranspose`` is ``nn.ConvTranspose2d``.
+``SubpixelConvTranspose`` is ``nn.ConvTranspose2d``. The int8 serving mode
+is ported as layers, because its dispatch decides the numerics:
+``Int8Conv2d`` (``Int8Conv``, :760-894) and ``Int8GroupedConv``
+(``GroupedConvDense``'s int8 arm and its predicate, :458-553), with
+``int8_batch_ok`` (:716-736); ``ops/quant.py::convert_int8`` puts them in a
+model.
 
 Modules take NCHW tensors in ``torch.channels_last`` memory. Submodule names
 are the JAX parameter tree's (``bn1``, ``conv2``, ABN's inner ``bn``), so a
@@ -36,6 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import grouped_conv as gc
+from ..ops import int8_conv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,11 +219,157 @@ class GroupedConv(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
+def int8_batch_ok(n: int, min_batch: int) -> bool:
+    """``_int8_batch_ok`` (layers.py:716-736): int8 is a throughput mode,
+    served from ``min_batch`` frames up (JAX's ``HEATNET_INT8_MIN_BATCH``,
+    default 8); below it a layer serves its float conv."""
+    return n >= min_batch
+
+
+class _Int8Layer:
+    """What the int8 layers share (``Int8Conv``, layers.py:760-894).
+
+    ``x_scale`` is a persistent float32 buffer of shape ``()``, zero until
+    calibrated: with ``calibrating`` set, each call raises it to the running
+    max of ``max|x_f32| / 127`` before it picks its branch, as the JAX layers
+    update the ``quant`` collection before ``_calibrated_branch``. A zero
+    scale serves the float conv (``_calibrated_branch``, :739-757). The
+    weight stays the float32 parameter, so the ``state_dict`` is the float
+    model's plus ``x_scale``; its quantization (``w_q``, ``w_scale``, the
+    kernel's packing) and its copy in the activations' dtype are derived on
+    first use after any change of the parameter, and are not saved.
+    """
+
+    def _init_int8(self, min_batch: int, max_hw: int) -> None:
+        self.min_batch = min_batch
+        self.max_hw = max_hw
+        self.calibrating = False
+        self.register_buffer("x_scale", torch.zeros((), dtype=torch.float32))
+        self._derived = None   # (key, w_q, w_pack, w_scale, w_float)
+        self._positive = None  # (key, x_scale > 0) read once per change of x_scale
+
+    def _weights(self, dtype: torch.dtype):
+        w = self.weight
+        key = (w._version, w.data_ptr(), w.device, dtype)
+        if self._derived is None or self._derived[0] != key:
+            if w.dtype != torch.float32:
+                raise ValueError("int8 layers quantize their float32 weight; convert "
+                                 "the float32 model (before prepare_for_inference)")
+            with torch.no_grad():
+                w_q, w_scale = int8_conv.quantize_weight(w.detach())
+                w_pack = int8_conv.pack_weight(w_q, self.groups)
+                w_float = w.detach().to(dtype)
+            self._derived = (key, w_q, w_pack, w_scale, w_float)
+        return self._derived[1:]
+
+    def _observe(self, x: torch.Tensor) -> None:
+        if self.calibrating:
+            with torch.no_grad():
+                amax = x.detach().to(torch.float32).abs().amax()
+                self.x_scale.copy_(torch.maximum(self.x_scale, amax / amax.new_tensor(127.0)))
+
+    def _calibrated(self) -> bool:
+        xs = self.x_scale
+        key = (xs._version, xs.data_ptr())
+        if self._positive is None or self._positive[0] != key:
+            self._positive = (key, bool(xs > 0))
+        return self._positive[1]
+
+    def _check_eval(self) -> None:
+        if self.training:
+            raise RuntimeError("int8 layers serve inference only (Int8Conv is not "
+                               "differentiable); call model.eval()")
+
+
+class Int8Conv2d(_Int8Layer, Conv2d):
+    """A ``conv()`` layer in the int8 serving mode (``Int8Conv``).
+
+    Built from the float ``Conv2d`` it replaces, sharing its parameters. An
+    input of more than ``max_hw`` pixels serves the float conv and records no
+    scale (full-resolution layers stay float, :826-847). Otherwise the batch
+    gate and the calibration decide: the int8 conv of ``ops/int8_conv.py``, or
+    the float conv with the weight in the activations' dtype, which is the
+    float model's conv bit for bit.
+    """
+
+    def __init__(self, conv: Conv2d, min_batch: int = 8, max_hw: int = 100_000):
+        super().__init__(conv.in_channels, conv.out_channels, conv.kernel_size,
+                         stride=conv.stride, padding=conv.padding,
+                         dilation=conv.dilation, groups=conv.groups,
+                         bias=conv.bias is not None, device="meta")
+        self.weight = conv.weight
+        self.bias = conv.bias
+        self._init_int8(min_batch, max_hw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._check_eval()
+        n, _, h, w = x.shape
+        w_q, w_pack, w_scale, w_float = self._weights(x.dtype)
+        bias = self.bias
+        if h * w <= self.max_hw:
+            self._observe(x)
+            if int8_batch_ok(n, self.min_batch) and self._calibrated():
+                return int8_conv.int8_conv2d(
+                    x, w_q, w_pack, w_scale, self.x_scale,
+                    None if bias is None else bias.to(torch.float32), self.stride[0],
+                    self.padding[0], self.dilation[0])
+        return self._conv_forward(x, w_float, None if bias is None else bias.to(x.dtype))
+
+
+class Int8GroupedConv(_Int8Layer, GroupedConv):
+    """A ``GroupedConv`` in the int8 serving mode (``GroupedConvDense``'s
+    int8 arm, :485-553).
+
+    It quantizes only where JAX's inference dispatch takes the dense
+    block-diagonal form, ``not (cpg >= 4 and N*H*W*cpg >= 400_000)`` (:458-484),
+    and the batch gate passes; the scale is recorded in either case. Otherwise
+    it serves the float grouped conv. ``epilogue`` (bn3's affine + act) rides
+    the int8 kernel's epilogue, after the dequantisation, as it rides the float
+    kernel's.
+    """
+
+    MIN_CPG_NATIVE = 4         # GroupedConvDense.min_cpg_native
+    MIN_WORK_NATIVE = 400_000  # GroupedConvDense.min_work_native (N*H*W*cpg)
+
+    def __init__(self, conv: GroupedConv, min_batch: int = 8, max_hw: int = 100_000):
+        super().__init__(conv.weight.shape[0], conv.groups, conv.dilation)
+        self.weight = conv.weight
+        self._init_int8(min_batch, max_hw)
+
+    def quantizes(self, n: int, h: int, w: int) -> bool:
+        """Whether a calibrated layer serves int8 at input (n, h, w)."""
+        cpg = self.weight.shape[1]
+        native = cpg >= self.MIN_CPG_NATIVE and n * h * w * cpg >= self.MIN_WORK_NATIVE
+        return not native and int8_batch_ok(n, self.min_batch)
+
+    def forward(self, x: torch.Tensor, epilogue=None) -> torch.Tensor:
+        self._check_eval()
+        n, _, h, w = x.shape
+        self._observe(x)
+        w_q, w_pack, w_scale, w_float = self._weights(x.dtype)
+        d = self.dilation
+        if self.quantizes(n, h, w) and self._calibrated():
+            ep = None if epilogue is None else (
+                epilogue[0], epilogue[1], epilogue[2].activation, epilogue[2].leaky_slope)
+            return int8_conv.int8_conv2d(x, w_q, w_pack, w_scale, self.x_scale, None, 1,
+                                         d, d, self.groups, ep)
+        xh = x.permute(0, 2, 3, 1)
+        if epilogue is None:
+            y = gc.differentiable_grouped_conv3x3(xh, w_float, self.groups, d)
+        else:
+            scale, bias, na = epilogue
+            y = gc.grouped_conv3x3_fused(xh, w_float, scale, bias, self.groups, d,
+                                         na.activation, na.leaky_slope)
+        return y.permute(0, 3, 1, 2)
+
+
 def conv(in_channels: int, features: int, kernel: int, stride: int = 1,
          dilation: int = 1, groups: int = 1, padding: Optional[int] = None,
          use_bias: bool = False) -> nn.Module:
     """2D conv with the JAX package's defaults (padding = dilation for 3x3,
-    0 for 1x1). A grouped 3x3 stride-1 conv is a ``GroupedConv``."""
+    0 for 1x1). A grouped 3x3 stride-1 conv is a ``GroupedConv``. A dense one
+    is a ``Conv2d`` marked ``int8_ok``: ``ops/quant.py::convert_int8`` swaps
+    exactly these (and every ``GroupedConv``) for their int8 counterparts."""
     if padding is None:
         padding = dilation if kernel == 3 else 0
     if groups > 1:
@@ -226,8 +378,10 @@ def conv(in_channels: int, features: int, kernel: int, stride: int = 1,
             raise NotImplementedError(
                 "only the grouped 3x3 stride-1 'same' conv is ported")
         return GroupedConv(features, groups, dilation)
-    return Conv2d(in_channels, features, kernel, stride=stride,
-                  padding=padding, dilation=dilation, bias=use_bias)
+    c = Conv2d(in_channels, features, kernel, stride=stride, padding=padding,
+               dilation=dilation, bias=use_bias)
+    c.int8_ok = True  # JAX routes conv()'s dense convs to Int8Conv (:927-933)
+    return c
 
 
 def deconv(in_channels: int, features: int, kernel: int, stride: int,
@@ -428,7 +582,11 @@ def _prepare(module: nn.Module, device: torch.device, cast_weights: bool,
     weight_dtype = dtype if cast_weights else torch.float32
     module.to(device)
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, _Int8Layer):
+            # the int8 layers keep the float32 weight they quantize
+            if isinstance(m, nn.Conv2d):
+                m.to(memory_format=torch.channels_last)
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             m.to(dtype=weight_dtype, memory_format=torch.channels_last)
         elif isinstance(m, (GroupedConv, nn.Linear)):
             m.to(dtype=weight_dtype)

@@ -13,7 +13,9 @@ are held against autograd of the plain version in f32 on the same
 bf16-valued inputs: dx within one bf16 step (the kernel rounds once), dk
 (cuDNN's, returned in bf16) within 1e-2 in relative L2 norm. The
 tensor-core kernel's tile edges (8 x 16 output pixels, 64 channels) are
-probed at shapes that are not multiples of them.
+probed at shapes that are not multiples of them. The int8 conv sums int8
+products exactly in int32 and rounds its dequantisation as its plain
+version does, so the two are held equal bit for bit.
 """
 
 import numpy as np
@@ -540,3 +542,118 @@ def test_harness_train_step_launches_no_port_kernel(dev):
     assert [k.launches for k in kernels] == before
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     assert next(model.parameters()).dtype == torch.float32
+
+
+# (N, Cin, Cout, k, stride, dilation, H, W, groups) of the int8 conv: the
+# layer kinds of ResNeXtSeg's int8 path (stem 3x3, strided 1x1 projection,
+# ASPP's dilated 3x3 with a rate beyond the map, the 269-channel FuseModule
+# and its 13- and 1-channel heads, the grouped 3x3 at every channels-per-
+# group), at shapes that are not multiples of the 128x64 tile
+INT8_CASES = [(8, 64, 64, 3, 1, 1, 20, 30, 1), (3, 256, 128, 1, 2, 1, 17, 23, 1),
+              (2, 512, 256, 3, 1, 12, 9, 15, 1), (2, 512, 256, 3, 1, 36, 9, 15, 1),
+              (2, 269, 269, 3, 1, 1, 11, 13, 1), (2, 269, 13, 3, 1, 1, 11, 13, 1),
+              (2, 256, 1, 1, 1, 1, 5, 7, 1), (4, 96, 40, 7, 2, 1, 19, 21, 1),
+              (3, 128, 128, 3, 1, 1, 9, 11, 64), (3, 256, 256, 3, 1, 1, 9, 11, 64),
+              (3, 512, 512, 3, 1, 2, 9, 11, 64), (3, 1024, 1024, 3, 1, 4, 9, 11, 64)]
+
+
+def _int8_operands(dev, n, cin, cout, k, groups, h, w, dtype, seed):
+    from heatnet_tpu_torch.ops import int8_conv
+
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn((n, h, w, cin), generator=g) * 2).to(dev, dtype).permute(0, 3, 1, 2)
+    wt = torch.randn((cout, cin // groups, k, k), generator=g)
+    w_q, w_scale = int8_conv.quantize_weight(wt)
+    # a scale below max|x| / 127, so the activation's tails clip at +-127
+    x_scale = (x.float().abs().amax() / 100).reshape(())
+    return (x, w_q.to(dev), int8_conv.pack_weight(w_q, groups).to(dev), w_scale.to(dev),
+            x_scale, (torch.randn(cout, generator=g) * 0.1).to(dev),
+            (torch.rand(cout, generator=g) + 0.5).to(dev))
+
+
+@pytest.mark.parametrize("n,cin,cout,k,s,d,h,w,groups", INT8_CASES)
+def test_int8_conv_kernel_equals_plain(dev, n, cin, cout, k, s, d, h, w, groups):
+    """int32 sums are exact, so the kernel's output equals the plain
+    version's bit for bit in bf16, with a bias, and for the grouped layers
+    with bn3's affine + act in the epilogue."""
+    from heatnet_tpu_torch.ops import int8_conv
+
+    pad = d * (k // 2)
+    x, w_q, w_pack, w_scale, x_scale, bias, scale = _int8_operands(
+        dev, n, cin, cout, k, groups, h, w, torch.bfloat16, seed=cin + cout + k + d)
+    variants = [dict(), dict(bias=bias)] if groups == 1 else \
+        [dict()] + [dict(epilogue=(scale, bias, act, 0.01))
+                    for act in ("relu", "leaky_relu", "elu", "none")]
+    for kw in variants:
+        before = int8_conv.INT8_CONV.launches
+        out = int8_conv.int8_conv2d(x, w_q, w_pack, w_scale, x_scale, stride=s,
+                                    padding=pad, dilation=d, groups=groups, **kw)
+        ref = int8_conv.int8_conv2d_plain(x, w_q, w_scale, x_scale, stride=s,
+                                          padding=pad, dilation=d, groups=groups, **kw)
+        torch.cuda.synchronize()
+        assert int8_conv.INT8_CONV.launches == before + 1
+        assert out.shape == ref.shape and out.dtype == ref.dtype == torch.bfloat16
+        assert torch.equal(out, ref), (list(kw), float((out.float() - ref.float()).abs().max()))
+
+
+def test_int8_conv_on_cuda_never_reaches_the_plain_version(dev):
+    from unittest import mock
+
+    from heatnet_tpu_torch.ops import int8_conv
+
+    x, w_q, w_pack, w_scale, x_scale, bias, _ = _int8_operands(
+        dev, 2, 64, 32, 3, 1, 6, 7, torch.bfloat16, seed=5)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    with mock.patch.object(int8_conv, "int8_conv2d_plain", refuse):
+        int8_conv.int8_conv2d(x, w_q, w_pack, w_scale, x_scale, bias, padding=1)
+        for dtype in (torch.float16, torch.float32):
+            with pytest.raises(ValueError, match="takes bf16"):
+                int8_conv.int8_conv2d(x.to(dtype), w_q, w_pack, w_scale, x_scale, padding=1)
+        with pytest.raises(ValueError, match="pack_weight"):
+            int8_conv.int8_conv2d(x, w_q, None, w_scale, x_scale, padding=1)
+        with pytest.raises(ValueError, match="float32"):
+            int8_conv.int8_conv2d(x, w_q, w_pack, w_scale.double(), x_scale, padding=1)
+
+
+def test_int8_model_serves_through_the_kernel(dev):
+    """A converted, calibrated ResNeXtSeg (1,1,1,1) at batch 8: the int8
+    kernel serves the quantized layers (the fused grouped conv none of them at
+    this size), its class maps agree with the same model on the plain int8
+    version on >= 0.99 of pixels, and at batch 1 it is the bf16 model bit for
+    bit with no int8 launch."""
+    from unittest import mock
+
+    from heatnet_tpu_torch.models import ResNeXtSeg
+    from heatnet_tpu_torch.models.layers import init_params, prepare_for_inference
+    from heatnet_tpu_torch.ops import int8_conv
+    from heatnet_tpu_torch.ops.quant import calibrate_int8, convert_int8
+
+    def build(quant):
+        m = ResNeXtSeg(structure=(1, 1, 1, 1))
+        init_params(m, torch.Generator().manual_seed(0))
+        if quant:
+            convert_int8(m)
+        return prepare_for_inference(m, dev)
+
+    g = torch.Generator().manual_seed(3)
+    x = (torch.rand((8, 64, 96, 4), generator=g) * 2 - 1).to(dev)
+    q, f = build(True), build(False)
+    calibrate_int8(q, [(x[:1],)])
+    with torch.no_grad():
+        before = int8_conv.INT8_CONV.launches
+        seg = q(x)[0]
+        n_int8 = int8_conv.INT8_CONV.launches - before
+        with mock.patch.object(int8_conv, "int8_conv2d",
+                               lambda x, w_q, w_pack, *a, **kw:
+                               int8_conv.int8_conv2d_plain(x, w_q, *a, **kw)):
+            seg_plain = q(x)[0]
+        before = int8_conv.INT8_CONV.launches
+        one, one_f = q(x[:1])[0], f(x[:1])[0]
+        assert int8_conv.INT8_CONV.launches == before
+    assert n_int8 == 3 + 2 * 4 + 4 + 4 + 8 + 3  # stem, blocks, proj, grouped, ASPP, fuse
+    agree = float((seg.argmax(-1) == seg_plain.argmax(-1)).float().mean())
+    assert agree >= 0.99 and bool(torch.isfinite(seg).all())
+    assert torch.equal(one, one_f)
