@@ -143,19 +143,23 @@ Phases, each of which exits non-zero on failure:
        batch, the IoUs of 5f's validators bit for bit;
 9. int8 serving, the borders mode, reference checkpoints, the Vistas
    relabelling (phase 4c's segnet weights):
-   9a. ``int8_conv`` (``csrc/int8_conv.cu``) at each int8 layer shape of a
-       batch-8 forward of ResNeXt-50 at 320x960 (the layers JAX's predicates
-       quantize), equal to its plain version bit for bit, with eager and card
-       times, the bound (int8 at 1979 TOPS) and ``torch._int_mm`` on the 1x1
-       layers. The inputs are post-ReLU, as the model's layers see them (half
-       zeros: the kernel's IEEE division is slower on a zero), and signed
-       for a second equality check and card time. The card times come from a
-       child process (``--int8-card-times``): once this process has
-       launched kernels outside a profiler window for a while, torch.profiler
-       loses kernel records while keeping their launches, so a late window
-       reads 0. The child reads each shape, and the int8 kernels of one
-       batch-8 int8 forward at 320x960, and holds the kernel records to the
-       launches, taking a window again where it lost some;
+   9a. ``int8_conv`` (``csrc/int8_conv.cu``: one launch runs its quantize
+       pass and its product) at each int8 layer shape of a batch-8 forward of
+       ResNeXt-50 at 320x960 (the layers JAX's predicates quantize, found by
+       ``tools/int8_compare.py::jax_int8_layers``), equal to its plain
+       version bit for bit, with eager and card times (the quantize pass and
+       the product apart, their sum and its share of the bound), the bound
+       (int8 at 1979 TOPS), ``torch._int_mm`` on the 1x1 layers and cuDNN's
+       bf16 ``F.conv2d`` of the same shape (another function's time, a
+       yardstick only). The inputs are post-ReLU, as the model's layers see
+       them (half zeros), and signed for a second equality check and card
+       time. The card times come from a child process
+       (``--int8-card-times``): once this process has launched kernels
+       outside a profiler window for a while, torch.profiler loses kernel
+       records while keeping their launches, so a late window reads 0. The
+       child reads each shape, and the int8 kernels of one batch-8 int8
+       forward at 320x960, and holds the kernel records to two per launch,
+       taking a window again where it lost some;
    9b. ``cli.inference --quant int8 --batch 8`` on a 16-frame pack: the
        launches against JAX's predicates, class maps against bf16 (>= 0.90)
        and against the int8 plain versions (>= 0.99), forward p50/p95 at batch
@@ -388,9 +392,11 @@ def int8_card_times(spec_path: str, out_path: str) -> None:
     g = torch.Generator(device=dev).manual_seed(0)
 
     def card_ms(fn, calls: int, tries: int = 3):
-        """[ms per call of the int8 kernels, records, launches] over calls;
-        a window that lost records (rare in a fresh process too) is taken
-        again, up to ``tries`` windows."""
+        """[ms per call of the int8 kernels, of their quantize passes, of
+        their products, records, launches] over calls. A launch runs two
+        kernels (int8_conv_quantize, int8_conv_gemm), so a window holds two
+        records per launch; one that lost records (rare in a fresh process
+        too) is taken again, up to ``tries`` windows."""
         fn()
         torch.cuda.synchronize()
         for _ in range(tries):
@@ -402,10 +408,12 @@ def int8_card_times(spec_path: str, out_path: str) -> None:
             launched = int8_conv.INT8_CONV.launches - before
             recs = [e for e in prof.events() if e.device_type.name == "CUDA"
                     and "int8_conv" in e.name]
-            if recs and len(recs) == launched:
-                return [sum(e.device_time_total for e in recs) / 1e3 / calls, len(recs),
-                        launched]
-        return [None, len(recs), launched]
+            quant = [e for e in recs if "int8_conv_quantize" in e.name]
+            if recs and len(recs) == 2 * launched and len(quant) == launched:
+                total, q = (sum(e.device_time_total for e in r) / 1e3 / calls
+                            for r in (recs, quant))
+                return [total, q, total - q, len(recs), launched]
+        return [None, None, None, len(recs), launched]
 
     # each shape on its phase 9a inputs: a post-ReLU x (half zeros, as the
     # layers see it) and the same x before the ReLU (signed, no zeros)
@@ -2330,6 +2338,7 @@ def run_phases(work: str) -> None:
     from heatnet_tpu_torch.models.layers import GroupedConv
     from heatnet_tpu_torch.ops import int8_conv
     from heatnet_tpu_torch.ops.quant import calibrate_int8, convert_int8
+    from heatnet_tpu_torch.tools.int8_compare import jax_int8_layers
 
     t_9 = time.perf_counter()
     q_kernels = all_kernels + (int8_conv.INT8_CONV,)
@@ -2362,34 +2371,10 @@ def run_phases(work: str) -> None:
         return prepare_for_inference(m, dev)
 
     # which layers JAX quantizes at batch 8 x 320x960, from the float model's
-    # layer inputs and JAX's predicates: Int8Conv serves int8 at H*W <= 100_000
-    # (layers.py:826) and batch >= 8 (_int8_batch_ok); GroupedConvDense's int8
-    # arm runs unless cpg >= 4 and N*H*W*cpg >= 400_000 (the native form,
-    # layers.py:458-507), at batch >= 8
+    # layer inputs and JAX's predicates (tools/int8_compare.py)
     f_model = seg_model(False)
-    shapes, hooks = {}, []
-
-    def record_shape(name):
-        def hook(mod, args):
-            shapes.setdefault(name, tuple(args[0].shape))
-        return hook
-
-    for name, m in f_model.named_modules():
-        if isinstance(m, GroupedConv) or getattr(m, "int8_ok", False):
-            hooks.append(m.register_forward_pre_hook(record_shape(name)))
-    validate.predict(f_model, batch8, "ir_rgb", dev)
-    for h in hooks:
-        h.remove()
-
-    def jax_quantizes(name, shape):
-        n, c, h, w = shape
-        m = f_model.get_submodule(name)
-        if isinstance(m, GroupedConv):
-            cpg = c // m.groups
-            return not (cpg >= 4 and n * h * w * cpg >= 400_000) and n >= 8
-        return h * w <= 100_000 and n >= 8
-
-    q_layers = [k for k, s in shapes.items() if jax_quantizes(k, s)]
+    shapes, q_layers, configs = jax_int8_layers(
+        f_model, lambda: validate.predict(f_model, batch8, "ir_rgb", dev))
     n_grouped = sum(isinstance(f_model.get_submodule(k), GroupedConv) for k in shapes)
     per_fwd = {"ingest": 1, "grouped_conv3x3": 0,
                "grouped_conv3x3_fused": n_grouped - sum(
@@ -2410,16 +2395,6 @@ def run_phases(work: str) -> None:
         return len({o * s - p + t * d for o in range(size_out) for t in range(k)}
                    & set(range(size_in)))
 
-    configs = {}
-    for name in q_layers:
-        m = f_model.get_submodule(name)
-        n, c, h, w = shapes[name]
-        if isinstance(m, GroupedConv):
-            key = (c, c, 3, 1, m.dilation, m.dilation, m.groups, n, h, w)
-        else:
-            key = (c, m.out_channels, m.kernel_size[0], m.stride[0], m.padding[0],
-                   m.dilation[0], 1, n, h, w)
-        configs.setdefault(key, []).append(name)
     print(f"kernels: int8_conv at the {len(configs)} layer shapes of that forward, "
           "bit for bit against the plain version", flush=True)
     torch.cuda.empty_cache()
@@ -2435,15 +2410,17 @@ def run_phases(work: str) -> None:
         fail(f"the int8 card-time process: rc {child.returncode}\n{child.stderr[-3000:]}")
     with open(times_path) as f:
         card = json.load(f)
-    fwd_card_ms, fwd_recs, fwd_launched = card["forward"]
+    fwd_card_ms, fwd_q_ms, fwd_g_ms, fwd_recs, fwd_launched = card["forward"]
     print(f"  card times (torch.profiler) from a process of its own, "
           f"{time.perf_counter() - t_child:.1f} s", flush=True)
     i8_rows, i8_err = [], 0.0
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"  # noqa: E731
     # inputs: a post-ReLU x, as every int8 layer of the model sees (half of
     # it zeros), and for the equality check also the same x before the ReLU
     for ((cin, cout, k, s, p, d, groups, n, h, w), names), card_row in zip(
             configs.items(), card["layers"]):
-        (k_dev, n_rec, n_launch), k_dev_signed = card_row["relu"], card_row["signed"][0]
+        (k_dev, k_q, k_g, n_rec, n_launch) = card_row["relu"]
+        k_dev_signed = card_row["signed"][0]
         g = torch.Generator().manual_seed(cin + cout + k + d + h)
         x_signed = (torch.randn((n, h, w, cin), generator=g) * 2).to(dev, torch.bfloat16)
         x_signed = x_signed.permute(0, 3, 1, 2)
@@ -2477,28 +2454,37 @@ def run_phases(work: str) -> None:
             a = a.permute(0, 2, 3, 1).reshape(-1, cin).contiguous()
             b = w_q.view(cout, cin).t()
             lib_ms = time_ms(lambda: torch._int_mm(a, b))
+        # a yardstick only: cuDNN's bf16 conv of the same shape computes
+        # another function (float operands, no quantization)
+        w_bf = w_q.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        cudnn_ms = time_ms(lambda: F.conv2d(x, w_bf, None, s, p, d, groups))
+        del w_bf
         macs = (n * cout * (cin // groups) * valid_taps(h, ho, k, s, p, d)
                 * valid_taps(w, wo, k, s, p, d))
         n_bytes = (n * cin * 2 * lines_read(h, ho, k, s, p, d) * lines_read(w, wo, k, s, p, d)
                    + n * ho * wo * cout * 2 + w_q.numel() + cout * 4)
         b_ms, b_by = bound_ms(n_bytes, 2 * macs, INT8_OP_PER_S)
         i8_rows.append({"layer": what, "per_forward": len(names), "ms": k_ms,
-                        "device_ms": k_dev, "device_ms_signed_x": k_dev_signed,
+                        "device_ms": k_dev, "device_ms_quantize": k_q,
+                        "device_ms_gemm": k_g, "device_ms_signed_x": k_dev_signed,
                         "plain_ms": p_ms, "library_ms": lib_ms,
+                        "cudnn_bf16_ms": cudnn_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-                        "ops": 2 * macs, "share_of_bound": b_ms / k_ms})
-        dev_txt = ", ".join("not measured" if v is None else f"{v:.4f}"
-                            for v in (k_dev, k_dev_signed))
-        print(f"  {what}: equal; kernel_ms {k_ms:.4f} (device {dev_txt} on the signed x, "
-              f"{n_rec} records of {n_launch} launches) plain_ms "
-              f"{p_ms:.4f} library_ms {'-' if lib_ms is None else f'{lib_ms:.4f}'} "
-              f"(_int_mm) bound_ms {b_ms:.4f} ({b_by}) share {b_ms / k_ms:.3f}",
-              flush=True)
+                        "ops": 2 * macs, "share_of_bound": b_ms / k_ms,
+                        "card_share_of_bound": None if k_dev is None else b_ms / k_dev})
+        print(f"  {what}: equal; card ms quantize {fmt(k_q)} + product {fmt(k_g)} = "
+              f"{fmt(k_dev)} ({fmt(k_dev_signed)} on the signed x; {n_rec} records of "
+              f"{n_launch} launches), bound_ms {b_ms:.4f} ({b_by}), share of the bound "
+              f"{fmt(None if k_dev is None else b_ms / k_dev)} (card), {b_ms / k_ms:.3f} "
+              f"(eager); kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f}; _int_mm "
+              f"{'-' if lib_ms is None else f'{lib_ms:.4f}'}; cuDNN bf16 F.conv2d "
+              f"{cudnn_ms:.4f} (another function's time, a yardstick only)", flush=True)
         del x, x_signed, out, ref
     torch.cuda.empty_cache()
     i8 = {key: sum(r["per_forward"] * r[key] for r in i8_rows)
           for key in ("ms", "plain_ms")}
-    for key in ("device_ms", "device_ms_signed_x"):
+    for key in ("device_ms", "device_ms_quantize", "device_ms_gemm", "device_ms_signed_x",
+                "cudnn_bf16_ms"):
         i8[key] = (None if any(r[key] is None for r in i8_rows)
                    else sum(r["per_forward"] * r[key] for r in i8_rows))
     i8_bound, i8_by = bound_ms(sum(r["per_forward"] * r["bytes"] for r in i8_rows),
@@ -2506,15 +2492,21 @@ def run_phases(work: str) -> None:
     lib_rows = [r for r in i8_rows if r["library_ms"] is not None]
     i8_lib = sum(r["per_forward"] * r["library_ms"] for r in lib_rows)
     i8_lib_kernel = sum(r["per_forward"] * r["ms"] for r in lib_rows)
-    i8_dev = ", ".join("not measured" if i8[k] is None else f"{i8[k]:.4f}"
-                       for k in ("device_ms", "device_ms_signed_x"))
-    print(f"  one forward's {len(q_layers)} int8 launches: kernel_ms {i8['ms']:.4f} (device "
-          f"{i8_dev} on the signed x) plain_ms {i8['plain_ms']:.4f} bound_ms {i8_bound:.4f} "
-          f"({i8_by}); its {sum(r['per_forward'] for r in lib_rows)} 1x1 launches "
-          f"{i8_lib_kernel:.4f} ms against _int_mm {i8_lib:.4f} ms", flush=True)
-    fwd_txt = "not measured" if fwd_card_ms is None else f"{fwd_card_ms:.4f}"
+    i8_lib_card = (None if any(r["device_ms"] is None for r in lib_rows)
+                   else sum(r["per_forward"] * r["device_ms"] for r in lib_rows))
+    print(f"  one forward's {len(q_layers)} int8 launches: card ms quantize "
+          f"{fmt(i8['device_ms_quantize'])} + product {fmt(i8['device_ms_gemm'])} = "
+          f"{fmt(i8['device_ms'])} ({fmt(i8['device_ms_signed_x'])} on the signed x), "
+          f"bound_ms {i8_bound:.4f} ({i8_by}), share of the bound "
+          f"{fmt(None if i8['device_ms'] is None else i8_bound / i8['device_ms'])}; "
+          f"kernel_ms {i8['ms']:.4f} plain_ms {i8['plain_ms']:.4f}; its "
+          f"{sum(r['per_forward'] for r in lib_rows)} 1x1 launches card {fmt(i8_lib_card)} "
+          f"(eager {i8_lib_kernel:.4f}) ms against _int_mm {i8_lib:.4f} ms; cuDNN bf16 "
+          f"F.conv2d on the same shapes {i8['cudnn_bf16_ms']:.4f} ms (another function, "
+          "a yardstick only)", flush=True)
     print(f"  the int8 kernels of one batch-8 int8 forward at 320x960 (random weights): "
-          f"device {fwd_txt} ms ({fwd_recs} records of {fwd_launched} launches, 2 "
+          f"device {fmt(fwd_card_ms)} ms, quantize {fmt(fwd_q_ms)}, product "
+          f"{fmt(fwd_g_ms)} ({fwd_recs} records of {fwd_launched} launches, 2 "
           "forwards)", flush=True)
     if fwd_launched != 2 * len(q_layers):
         fail(f"the card-time forward launched {fwd_launched} int8 kernels, want "
@@ -2790,13 +2782,17 @@ def run_phases(work: str) -> None:
          "ms": i8["ms"], "plain_ms": i8["plain_ms"], "bound_ms": i8_bound,
          "bound_by": i8_by, "library_ms": i8_lib, "device_ms": i8["device_ms"],
          "device_ms_signed_x": i8["device_ms_signed_x"],
+         "device_ms_quantize": i8["device_ms_quantize"],
+         "device_ms_gemm": i8["device_ms_gemm"], "cudnn_bf16_ms": i8["cudnn_bf16_ms"],
          "forward_device_ms": i8["forward_device_ms"],
-         "library_covers_ms": i8_lib_kernel, "stages": i8_rows,
+         "library_covers_ms": i8_lib_kernel, "library_covers_device_ms": i8_lib_card,
+         "stages": i8_rows,
          "work": f"one batch-{N_BATCH} forward's {len(q_layers)} int8 launches, ResNeXt-50 "
                  "early fusion at 320x960; bound at 1979 TOPS int8 (H100 SXM data sheet); "
                  "library: torch._int_mm (cuBLASLt) on the 1x1 layers with 8-multiple "
                  "channels only, beside the kernel's time on the same layers "
-                 "(library_covers_ms)"},
+                 "(library_covers_ms, _device_ms); cudnn_bf16_ms: cuDNN's bf16 conv of "
+                 "each shape, another function's time, a yardstick only"},
     ]}
     record["train_conf"] = {
         "steps": dict(zip(("critic", "seg"), (adv_run.phases.count("train_critic"),

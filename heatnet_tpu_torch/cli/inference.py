@@ -22,10 +22,10 @@ unless ``--device cpu``. Not ported yet: orbax checkpoints (ROADMAP item 8).
 model goes through ``ops/quant.py::convert_int8`` and is calibrated on the
 first frame, at batch 1, before anything is timed. Below batch 8
 (``--batch 0``'s frame-at-a-time loop included) every layer serves its float
-conv. The int8 kernel (``csrc/int8_conv.cu``) is exact but untuned: on an
-H100 80GB HBM3 at 700 W, ``chip_smoke.py`` phase 9b measures an int8
-forward about 7x slower than the bf16 one at batch 8 and 32, so bf16 is the
-mode to serve with until the kernel is made faster (ROADMAP §2).
+conv. The int8 kernel (``csrc/int8_conv.cu``: a quantize pass, then int8
+``wgmma``) is exact; on an H100 80GB HBM3 at 700 W, ``chip_smoke.py`` phase
+9b measures an int8 forward within 10 % of the bf16 one's time at batch 8
+and 32 (PERF.md).
 
 ``--borders-data paths.txt`` is the reference's ``scripts/inference.py:91-143``
 mode (:54-119): the RGB-only Vistas segnet (7x7 stem) on
@@ -89,8 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quant", default="none", choices=["none", "int8"],
                    help="int8: serve the int8 mode (ops/quant.py), calibrating the "
                         "activation scales on the first frame; float below batch 8. "
-                        "Its kernel is untuned: on an H100 80GB HBM3 (700 W) it "
-                        "serves about 7x slower than bf16 (chip_smoke.py phase 9b, "
+                        "On an H100 80GB HBM3 (700 W) a forward takes about bf16's "
+                        "time, within 10 %% at batch 8 and 32 (chip_smoke.py phase 9b, "
                         "PERF.md)")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")

@@ -33,6 +33,14 @@ dtype, runs ``int8_conv2d_plain``, ``F.conv2d`` in float64 on the
 integer-valued operands (exact, then ``.to(torch.int32)``). Layout: NCHW tensors as the port's modules
 pass them (channels_last memory on the card); the kernel reads and writes
 NHWC.
+
+The kernel's layouts, kept here where the CPU tests reach them: its first
+pass writes ``quantize_padded``'s int8 NHWC (each block's channels padded to
+a multiple of ``CHAN_ALIGN``) into a scratch tensor this wrapper allocates;
+its product reads ``pack_weight``'s ``(blocks, rows, kh*kw*cin_pad)`` in
+``K_STEP``-wide steps, one tap's at a time where cin_pad is a multiple of
+``K_STEP`` (else across taps), and skips, per tile of 128 or 256 output
+pixels, the taps ``tile_taps`` rules out (across taps, whole kernel rows).
 """
 
 from __future__ import annotations
@@ -49,11 +57,17 @@ from .grouped_conv import ACTS, apply_act
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 INT8_CONV = Kernel("int8_conv", "hn_int8_conv",
-                   [_P] * 8 + [_I] * 17 + [ctypes.c_float, _P])
+                   [_P] * 9 + [_I] * 17 + [ctypes.c_float, _P])
 
-BLOCK = 64     # a grouped conv's channel block in the kernel
-TILE_N = 64    # the kernel's output-channel tile
-TILE_K = 64    # the kernel's K step
+BLOCK = 64        # a grouped conv's channel block in the kernel
+CHAN_ALIGN = 32   # x_q's and the weight's channels per block and tap, padded
+ROW_ALIGN = 64    # the weight's output channels per block, padded
+K_STEP = 128      # the kernel's K step (bytes of a swizzled row)
+TILE_M = (128, 256)  # output pixels per kernel tile (256 beside a 128-channel tile)
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 Epilogue = Optional[Tuple[torch.Tensor, torch.Tensor, str, float]]
 
@@ -69,33 +83,73 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def pack_weight(w_q: torch.Tensor, groups: int = 1) -> torch.Tensor:
-    """``w_q`` ``(O, I/g, kh, kw)`` int8 → the kernel's ``(blocks,
-    cout_g_pad, k_pad)``: K in (ky, kx, ci) order, each block's output
-    channels padded to a multiple of 64 and K to a multiple of 64, with zeros.
+    """``w_q`` ``(O, I/g, kh, kw)`` int8 → the kernel's ``(blocks, rows,
+    kh*kw*cin_pad)``: K in (ky, kx, ci) order, each tap's channels
+    zero-padded to ``cin_pad`` (a multiple of ``CHAN_ALIGN``, as
+    ``quantize_padded``'s) and each block's output channels to ``rows`` (a
+    multiple of ``ROW_ALIGN``).
 
     A dense conv is one block. A grouped conv is ``C / 64`` blocks of 64 input
     and 64 output channels, the weight block-diagonal within each (zero
     between groups)."""
     o, cpg, kh, kw = w_q.shape
     if groups == 1:
-        blocks = w_q.permute(0, 2, 3, 1).reshape(1, o, kh * kw * cpg)
+        blocks = w_q.permute(0, 2, 3, 1).unsqueeze(0)  # block, co, ky, kx, ci
     else:
         if o % BLOCK or BLOCK % cpg or o // cpg != groups:
             raise ValueError(f"grouped int8 conv needs C % {BLOCK} == 0 and channels "
                              f"per group dividing {BLOCK}, got C={o}, groups={groups}")
         nb = o // BLOCK
-        dense = torch.zeros((nb, BLOCK, kh, kw, BLOCK), dtype=torch.int8,
-                            device=w_q.device)
+        blocks = torch.zeros((nb, BLOCK, kh, kw, BLOCK), dtype=torch.int8,
+                             device=w_q.device)
         wv = w_q.view(nb, BLOCK // cpg, cpg, cpg, kh, kw)  # block, group, co, ci, ky, kx
         for gi in range(BLOCK // cpg):
             sl = slice(gi * cpg, (gi + 1) * cpg)
-            dense[:, sl, :, :, sl] = wv[:, gi].permute(0, 1, 3, 4, 2)
-        blocks = dense.view(nb, BLOCK, kh * kw * BLOCK)
-    nb, cout_g, k = blocks.shape
-    out = torch.zeros((nb, -(-cout_g // TILE_N) * TILE_N, -(-k // TILE_K) * TILE_K),
-                      dtype=torch.int8, device=w_q.device)
-    out[:, :cout_g, :k] = blocks
-    return out
+            blocks[:, sl, :, :, sl] = wv[:, gi].permute(0, 1, 3, 4, 2)
+    nb, cout_g, _, _, cin_g = blocks.shape
+    out = torch.zeros((nb, _round_up(cout_g, ROW_ALIGN), kh, kw,
+                       _round_up(cin_g, CHAN_ALIGN)), dtype=torch.int8, device=w_q.device)
+    out[:, :cout_g, :, :, :cin_g] = blocks
+    return out.view(nb, out.shape[1], -1)
+
+
+def quantize_padded(x: torch.Tensor, x_scale: torch.Tensor,
+                    groups: int = 1) -> torch.Tensor:
+    """The kernel's first pass, plainly: NCHW ``x`` → int8 NHWC ``x_q``
+    (``quantize_input``), each block's channels (64 for a grouped conv, all
+    of them for a dense one) zero-padded to a multiple of ``CHAN_ALIGN``."""
+    n, c, h, w = x.shape
+    cin_g = c if groups == 1 else BLOCK
+    q = quantize_input(x, x_scale).to(torch.int8).permute(0, 2, 3, 1)
+    out = torch.zeros((n, h, w, c // cin_g, _round_up(cin_g, CHAN_ALIGN)),
+                      dtype=torch.int8, device=x.device)
+    out[..., :cin_g] = q.reshape(n, h, w, c // cin_g, cin_g)
+    return out.view(n, h, w, -1)
+
+
+def tile_taps(m0: int, m: int, ho: int, wo: int, h: int, w: int, kh: int, kw: int,
+              stride: int, padding: int, dilation: int,
+              tile: int = TILE_M[0]) -> Tuple[range, range]:
+    """The taps (ky, kx ranges) the kernel multiplies for the output pixels
+    ``m0 .. m0+tile-1`` of ``m``: those that read inside the image for some
+    pixel of the tile (``csrc/int8_conv.cu::tile_taps``). A tile within one
+    output row bounds ox, within one image oy; one across images reads every
+    row. A tap left out reads only zero padding for the whole tile."""
+    last = min(m0 + tile, m) - 1
+    i0, r0 = divmod(m0, ho * wo)
+    i1, r1 = divmod(last, ho * wo)
+    oy, ox = (0, ho - 1), (0, wo - 1)
+    if i0 == i1:
+        oy = (r0 // wo, r1 // wo)
+        if oy[0] == oy[1]:
+            ox = (r0 % wo, r1 % wo)
+
+    def valid(lo_hi, k, size):
+        ok = [t for t in range(k) if lo_hi[1] * stride - padding + t * dilation >= 0
+              and lo_hi[0] * stride - padding + t * dilation <= size - 1]
+        return range(ok[0], ok[-1] + 1) if ok else range(0)
+
+    return valid(oy, kh, h), valid(ox, kw, w)
 
 
 def quantize_input(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
@@ -105,20 +159,22 @@ def quantize_input(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x.to(torch.float32) / xs), -127, 127)
 
 
-def int8_conv2d_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
-                      x_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                      stride: int = 1, padding: int = 0, dilation: int = 1,
-                      groups: int = 1, epilogue: Epilogue = None) -> torch.Tensor:
-    """Plain version: the quantized operands convolved in float64 (exact for
-    int8 operands), the sums as int32, then dequantised in x's dtype ``T``,
-    rounding where the JAX layer does: ``T(sum) * T(x_scale * w_scale)``,
-    ``+ T(bias)``, then the epilogue in f32 and one rounding. The result is
-    channels_last, as the kernel writes it (a float64 convolution may return
-    another layout)."""
+def int8_sums_plain(x: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                    stride: int = 1, padding: int = 0, dilation: int = 1,
+                    groups: int = 1) -> torch.Tensor:
+    """The int32 sums of the int8 conv, NCHW: the quantized operands convolved
+    in float64 (exact for int8 operands)."""
     xq = quantize_input(x, x_scale).to(torch.float64)
-    acc = F.conv2d(xq, w_q.to(torch.float64), None, stride, padding, dilation,
-                   groups).to(torch.int32)
-    dtype = x.dtype
+    return F.conv2d(xq, w_q.to(torch.float64), None, stride, padding, dilation,
+                    groups).to(torch.int32)
+
+
+def dequantize(acc: torch.Tensor, dtype: torch.dtype, w_scale: torch.Tensor,
+               x_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+               epilogue: Epilogue = None) -> torch.Tensor:
+    """NCHW int32 sums → ``dtype`` ``T``, rounding where the JAX layer does:
+    ``T(sum) * T(x_scale * w_scale)``, ``+ T(bias)``, then the epilogue in
+    f32 and one rounding. channels_last, as the kernel writes it."""
     s = (torch.clamp_min(x_scale.to(torch.float32), 1e-12) * w_scale).to(dtype)
     y = acc.to(dtype) * s.view(1, -1, 1, 1)
     if bias is not None:
@@ -128,6 +184,17 @@ def int8_conv2d_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
         y = apply_act(y.to(torch.float32) * scale.view(1, -1, 1, 1)
                       + ebias.view(1, -1, 1, 1), act, slope).to(dtype)
     return y.contiguous(memory_format=torch.channels_last)
+
+
+def int8_conv2d_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                      x_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                      stride: int = 1, padding: int = 0, dilation: int = 1,
+                      groups: int = 1, epilogue: Epilogue = None) -> torch.Tensor:
+    """Plain version: ``int8_sums_plain``, then ``dequantize`` in x's dtype.
+    The result is channels_last, as the kernel writes it (a float64
+    convolution may return another layout)."""
+    acc = int8_sums_plain(x, w_q, x_scale, stride, padding, dilation, groups)
+    return dequantize(acc, x.dtype, w_scale, x_scale, bias, epilogue)
 
 
 def int8_conv2d(x: torch.Tensor, w_q: torch.Tensor, w_pack: Optional[torch.Tensor],
@@ -153,10 +220,11 @@ def int8_conv2d(x: torch.Tensor, w_q: torch.Tensor, w_pack: Optional[torch.Tenso
     if x.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernel takes bf16 x, got {x.dtype}")
     cin_g, cout_g = (c, o) if groups == 1 else (BLOCK, BLOCK)
+    want = (c // cin_g, _round_up(cout_g, ROW_ALIGN),
+            kh * kw * _round_up(cin_g, CHAN_ALIGN))
     if w_pack is None or w_pack.dtype != torch.int8 or not w_pack.is_contiguous() \
-            or tuple(w_pack.shape[:1]) != (c // cin_g,) or w_pack.shape[1] < cout_g \
-            or w_pack.shape[2] < kh * kw * cin_g:
-        raise ValueError(f"w_pack must be pack_weight(w_q, {groups}), got "
+            or tuple(w_pack.shape) != want:
+        raise ValueError(f"w_pack must be pack_weight(w_q, {groups}) {want}, got "
                          f"{None if w_pack is None else tuple(w_pack.shape)}")
     f32 = [t for t in (w_scale, x_scale, bias) if t is not None]
     if epilogue is not None:
@@ -174,9 +242,12 @@ def int8_conv2d(x: torch.Tensor, w_q: torch.Tensor, w_pack: Optional[torch.Tenso
     if not xh.is_contiguous():
         xh = xh.contiguous()
     out = torch.empty((n, ho, wo, o), dtype=x.dtype, device=x.device)
+    xq = torch.empty((n, h, w, (c // cin_g) * _round_up(cin_g, CHAN_ALIGN)),
+                     dtype=torch.int8, device=x.device)
     ep_scale, ep_bias, act, slope = epilogue if epilogue is not None else \
         (None, None, "none", 0.0)
-    args = (xh.data_ptr(), w_pack.data_ptr(), w_scale.data_ptr(), x_scale.data_ptr(),
+    args = (xh.data_ptr(), xq.data_ptr(), w_pack.data_ptr(), w_scale.data_ptr(),
+            x_scale.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if ep_scale is None else ep_scale.data_ptr(),
             None if ep_bias is None else ep_bias.data_ptr(), out.data_ptr(),

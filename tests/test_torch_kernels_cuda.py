@@ -544,20 +544,37 @@ def test_harness_train_step_launches_no_port_kernel(dev):
     assert next(model.parameters()).dtype == torch.float32
 
 
-# (N, Cin, Cout, k, stride, dilation, H, W, groups) of the int8 conv: the
+# (N, Cin, Cout, k, stride, dilation, H, W, groups, x) of the int8 conv: the
 # layer kinds of ResNeXtSeg's int8 path (stem 3x3, strided 1x1 projection,
 # ASPP's dilated 3x3 with a rate beyond the map, the 269-channel FuseModule
 # and its 13- and 1-channel heads, the grouped 3x3 at every channels-per-
-# group), at shapes that are not multiples of the 128x64 tile
-INT8_CASES = [(8, 64, 64, 3, 1, 1, 20, 30, 1), (3, 256, 128, 1, 2, 1, 17, 23, 1),
-              (2, 512, 256, 3, 1, 12, 9, 15, 1), (2, 512, 256, 3, 1, 36, 9, 15, 1),
-              (2, 269, 269, 3, 1, 1, 11, 13, 1), (2, 269, 13, 3, 1, 1, 11, 13, 1),
-              (2, 256, 1, 1, 1, 1, 5, 7, 1), (4, 96, 40, 7, 2, 1, 19, 21, 1),
-              (3, 128, 128, 3, 1, 1, 9, 11, 64), (3, 256, 256, 3, 1, 1, 9, 11, 64),
-              (3, 512, 512, 3, 1, 2, 9, 11, 64), (3, 1024, 1024, 3, 1, 4, 9, 11, 64)]
+# group), at shapes that are not multiples of the 128-pixel tile; then the
+# kernel's paths: an all-zero x, an x_scale that saturates most values, M a
+# multiple of the tile and one more (1x1 at stride 1: the TMA-fed
+# activation), cout 2048 and ASPP's global branch at 1x1 spatial (M = 8),
+# 2048->256 at rate 36 on 40x120 (taps skipped for whole tiles), 1024->2048
+# 1x1 (the widest N tile), the decoder's 269->269 at its 80x240 map. x:
+# "randn" (a scale of max|x| / 100, so the tails clip), "zeros", "saturate"
+# (a scale of max|x| / 4000)
+INT8_CASES = [(8, 64, 64, 3, 1, 1, 20, 30, 1, "randn"), (3, 256, 128, 1, 2, 1, 17, 23, 1, "randn"),
+              (2, 512, 256, 3, 1, 12, 9, 15, 1, "randn"), (2, 512, 256, 3, 1, 36, 9, 15, 1, "randn"),
+              (2, 269, 269, 3, 1, 1, 11, 13, 1, "randn"), (2, 269, 13, 3, 1, 1, 11, 13, 1, "randn"),
+              (2, 256, 1, 1, 1, 1, 5, 7, 1, "randn"), (4, 96, 40, 7, 2, 1, 19, 21, 1, "randn"),
+              (3, 128, 128, 3, 1, 1, 9, 11, 64, "randn"), (3, 256, 256, 3, 1, 1, 9, 11, 64, "randn"),
+              (3, 512, 512, 3, 1, 2, 9, 11, 64, "randn"),
+              (3, 1024, 1024, 3, 1, 4, 9, 11, 64, "randn"),
+              (2, 269, 269, 3, 1, 1, 11, 13, 1, "zeros"), (3, 256, 256, 3, 1, 1, 9, 11, 64, "zeros"),
+              (2, 512, 256, 3, 1, 1, 9, 15, 1, "saturate"),
+              (3, 128, 128, 3, 1, 1, 9, 11, 64, "saturate"),
+              (2, 256, 256, 1, 1, 1, 8, 16, 1, "randn"), (1, 256, 256, 1, 1, 1, 1, 257, 1, "randn"),
+              (2, 64, 64, 3, 1, 1, 8, 16, 1, "randn"), (1, 64, 64, 3, 1, 1, 1, 257, 1, "randn"),
+              (8, 256, 2048, 1, 1, 1, 1, 1, 1, "randn"), (8, 2048, 256, 1, 1, 1, 1, 1, 1, "randn"),
+              (2, 2048, 256, 3, 1, 36, 40, 120, 1, "randn"),
+              (2, 1024, 2048, 1, 1, 1, 40, 120, 1, "randn"),
+              (2, 269, 269, 3, 1, 1, 80, 240, 1, "randn")]
 
 
-def _int8_operands(dev, n, cin, cout, k, groups, h, w, dtype, seed):
+def _int8_operands(dev, n, cin, cout, k, groups, h, w, dtype, seed, x_kind="randn"):
     from heatnet_tpu_torch.ops import int8_conv
 
     g = torch.Generator().manual_seed(seed)
@@ -565,35 +582,61 @@ def _int8_operands(dev, n, cin, cout, k, groups, h, w, dtype, seed):
     wt = torch.randn((cout, cin // groups, k, k), generator=g)
     w_q, w_scale = int8_conv.quantize_weight(wt)
     # a scale below max|x| / 127, so the activation's tails clip at +-127
-    x_scale = (x.float().abs().amax() / 100).reshape(())
+    x_scale = (x.float().abs().amax() / (4000 if x_kind == "saturate" else 100)).reshape(())
+    if x_kind == "zeros":
+        x = torch.zeros_like(x)
     return (x, w_q.to(dev), int8_conv.pack_weight(w_q, groups).to(dev), w_scale.to(dev),
             x_scale, (torch.randn(cout, generator=g) * 0.1).to(dev),
             (torch.rand(cout, generator=g) + 0.5).to(dev))
 
 
-@pytest.mark.parametrize("n,cin,cout,k,s,d,h,w,groups", INT8_CASES)
-def test_int8_conv_kernel_equals_plain(dev, n, cin, cout, k, s, d, h, w, groups):
+@pytest.mark.parametrize("n,cin,cout,k,s,d,h,w,groups,x_kind", INT8_CASES)
+def test_int8_conv_kernel_equals_plain(dev, n, cin, cout, k, s, d, h, w, groups, x_kind):
     """int32 sums are exact, so the kernel's output equals the plain
-    version's bit for bit in bf16, with a bias, and for the grouped layers
-    with bn3's affine + act in the epilogue."""
+    version's bit for bit in bf16, on signed and post-ReLU x, with a bias,
+    and for the grouped layers with bn3's affine + act in the epilogue; one
+    launch per call."""
     from heatnet_tpu_torch.ops import int8_conv
 
     pad = d * (k // 2)
     x, w_q, w_pack, w_scale, x_scale, bias, scale = _int8_operands(
-        dev, n, cin, cout, k, groups, h, w, torch.bfloat16, seed=cin + cout + k + d)
+        dev, n, cin, cout, k, groups, h, w, torch.bfloat16, seed=cin + cout + k + d,
+        x_kind=x_kind)
     variants = [dict(), dict(bias=bias)] if groups == 1 else \
         [dict()] + [dict(epilogue=(scale, bias, act, 0.01))
                     for act in ("relu", "leaky_relu", "elu", "none")]
-    for kw in variants:
-        before = int8_conv.INT8_CONV.launches
-        out = int8_conv.int8_conv2d(x, w_q, w_pack, w_scale, x_scale, stride=s,
-                                    padding=pad, dilation=d, groups=groups, **kw)
-        ref = int8_conv.int8_conv2d_plain(x, w_q, w_scale, x_scale, stride=s,
-                                          padding=pad, dilation=d, groups=groups, **kw)
-        torch.cuda.synchronize()
-        assert int8_conv.INT8_CONV.launches == before + 1
-        assert out.shape == ref.shape and out.dtype == ref.dtype == torch.bfloat16
-        assert torch.equal(out, ref), (list(kw), float((out.float() - ref.float()).abs().max()))
+    for xi in (x, torch.relu(x)):
+        for kw in variants:
+            before = int8_conv.INT8_CONV.launches
+            out = int8_conv.int8_conv2d(xi, w_q, w_pack, w_scale, x_scale, stride=s,
+                                        padding=pad, dilation=d, groups=groups, **kw)
+            ref = int8_conv.int8_conv2d_plain(xi, w_q, w_scale, x_scale, stride=s,
+                                              padding=pad, dilation=d, groups=groups, **kw)
+            torch.cuda.synchronize()
+            assert int8_conv.INT8_CONV.launches == before + 1
+            assert out.shape == ref.shape and out.dtype == ref.dtype == torch.bfloat16
+            assert torch.equal(out, ref), (list(kw), float((out.float() - ref.float()).abs().max()))
+
+
+@pytest.mark.parametrize("x_scale", [1.0, 0.5, 3.0, 1 / 3, 0.0137, 2.0 ** -20])
+def test_int8_quantize_pass_equals_the_division_on_every_bf16(dev, x_scale):
+    """The quantize pass rounds x * (1 / x_scale) and divides only where the
+    two could round apart. On every finite bf16 value (scales 0.5, 1 and 3
+    make exact .5 ties; 2^-20 saturates nearly all), through a 1x1 conv whose
+    weight keeps each channel (127 * x_q), the kernel equals the plain
+    version's IEEE division bit for bit."""
+    from heatnet_tpu_torch.ops import int8_conv
+
+    v = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    v = v[torch.isfinite(v.float())]
+    x = v.view(1, 1, -1, 64).to(dev).permute(0, 3, 1, 2)
+    w_q, w_scale = int8_conv.quantize_weight(torch.eye(64).view(64, 64, 1, 1))
+    w_q, w_scale = w_q.to(dev), w_scale.to(dev)
+    xs = torch.tensor(x_scale, dtype=torch.float32, device=dev)
+    out = int8_conv.int8_conv2d(x, w_q, int8_conv.pack_weight(w_q), w_scale, xs)
+    ref = int8_conv.int8_conv2d_plain(x, w_q, w_scale, xs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
 
 
 def test_int8_conv_on_cuda_never_reaches_the_plain_version(dev):
