@@ -171,7 +171,35 @@ Phases, each of which exits non-zero on failure:
        then ``cli.inference --resume``: bf16 maps bit for bit;
    9e. ``cli.generate_vistas`` on a 4-frame PNG Vistas tree, one ``cli.main``
        step on its output;
-10. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
+10. Freiburg PNG training trees and packs, and the serving artifact, on
+    trees the phase writes with the port's PNG writer (650x1920 frames, so
+    every resize to 960x320 runs):
+   10a. a train tree of 32 day and 16 night frames, 4 day stamps shared with
+       an 8-frame test tree: ``cli.pack_frames --train`` with the test trees
+       and again with ``--split test``; frame counts, ``meta.json``, the
+       excluded stamps, and the pack's items against
+       ``FreiburgThermalDataset``'s on the tree, bit for bit; host ms per
+       batch of 16 from the tree and from the pack (one thread);
+   10b. ``cli.train_conf`` at phase 4c's operating point with ``--dataroot``
+       the tree and the test trees given: 2 critic steps of 32/0/0 and 2 seg
+       steps of 32/32/16 launches (forward/dx/fused), finite losses, step
+       p50 and the run's wall time;
+   10c. ``cli.train_plain`` (batch 10) and ``cli.train_uncertainty`` (batch
+       4) on the tree, 2 steps each: 16 + 16 launches per step;
+   10d. ``cli.pack_frames`` of a 32-frame capture tree, then
+       ``cli.inference --batch 8`` on the pack and on the tree with phase
+       4c's weights: class maps bit for bit, 1 ingest + 16 fused launches
+       per forward;
+   10e. ``cli.export_model`` of phase 4c's weights (ResNeXt-50, raw inputs,
+       320x704, symbolic batch, on the card); a child process
+       (``--serve-artifact``) that imports torch and
+       ``heatnet_tpu_torch.ops`` only loads it and serves batch 1 and 8: 1
+       ingest + 16 fused launches per call counted there, its class maps
+       against 10d's ``cli.inference`` maps, batch-8 p50/p95 beside the
+       eager forward's; then ``--quant int8 --calib-data`` the capture tree:
+       the int8 launches by JAX's predicates at a symbolic batch, the maps
+       against the in-process int8 model's (>= 0.99);
+11. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
    launches on every path); the last line is ``{"ok": true, "device": {...}}``.
 
 Launch counts: the grouped-conv kernel has one count per entry point, the
@@ -181,7 +209,8 @@ forward (``grouped_conv3x3_fused``) and the input gradient
 
 Without a card, or run from a directory that does not hold the package, it
 prints no result and exits non-zero. ``--int8-card-times SPEC OUT`` is phase
-9a's child process (SPEC and OUT are JSON files), not an entry point.
+9a's child process (SPEC and OUT are JSON files), ``--serve-artifact SPEC
+OUT`` phase 10e's; neither is an entry point.
 """
 
 import contextlib
@@ -249,6 +278,12 @@ N_VIS, VIS_HW, VIS_EPOCHS, N_VIS_VAL, N_MF, MF_CROP = 30, (384, 768), 2, 20, 16,
 HARNESS_MODELS = ("MFNet", "RTFNet", "SegNet")
 N_HARNESS, N_HARNESS_TRAIN, N_HARNESS_TEST, HARNESS_EPOCHS, N_DEMO = 8, 24, 5, 2, 4
 HARNESS_CHECK_HW, HARNESS_AGREE, HARNESS_REL_TOL = (192, 256), 0.999, 1e-3
+# Freiburg training trees (phase 10): source frames of 650x1920 (the size
+# tools/png_decode_time.py takes for Freiburg's frames), 32 day and 16 night
+# frames, 4 day stamps shared with an 8-frame test tree; a 32-frame capture
+# tree; the artifact's agreement with cli.inference (bit for bit expected)
+TREE_HW, TREE_FRAMES, TREE_SHARED, N_TREE_TEST = (650, 1920), (32, 16), 4, 8
+EXPORT_AGREE, EXPORT_INT8_AGREE = 0.999, 0.99
 VIS_MF_STAGES = tuple(
     (which, n, c, cpg, d, h if c == 128 else h // 2, w if c == 128 else w // 2)
     for which, n, h, w in (("fwd_dx", N_VIS, 96, 192), ("fused", EVAL_BATCH, 96, 192),
@@ -324,6 +359,37 @@ def write_vistas_tree(root: str, n: int, seed: int, copies: int = 1) -> str:
             for d in ("images", "labels"):
                 shutil.copy(os.path.join(root, d, name),
                             os.path.join(root, d, f"v{i:05d}_{k}.png"))
+    return root
+
+
+def write_fr_train_tree(root: str, n_day: int, n_night: int, hw, seed: int,
+                        shared_stamps=()) -> str:
+    """A Freiburg train tree (``*/*/fl_{rgb,ir_aligned,rgb_labels}/*.png``,
+    ``data/synthetic.py::make_freiburg_train``'s layout) of ``hw`` frames:
+    8-bit RGB, 16-bit IR in [21000, 26000), labels 0-12 in bands; night
+    frames have no labels. The first day frames take ``shared_stamps``
+    ((sec, nsec) of a test tree's frames)."""
+    from heatnet_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    bands = ((np.arange(h)[:, None] * 5 // h + np.arange(w)[None, :] * 6 // w) % 13
+             ).astype(np.uint8)
+    for i in range(n_day + n_night):
+        night = i >= n_day
+        base = os.path.join(root, "seq01_night" if night else "seq00_day", "drive0")
+        sec, nsec = (shared_stamps[i] if i < len(shared_stamps)
+                     else (1500000000 + 1000 * seed + i, 1000 * i))
+        stamp = f"{sec}_{nsec:09d}.png"
+        for d in ("fl_rgb", "fl_ir_aligned") + (() if night else ("fl_rgb_labels",)):
+            os.makedirs(os.path.join(base, d), exist_ok=True)
+        write_png(os.path.join(base, "fl_ir_aligned", "fl_ir_aligned_" + stamp),
+                  rng.randint(21000, 26000, (h, w)).astype(np.uint16), level=1)
+        write_png(os.path.join(base, "fl_rgb", "fl_rgb_" + stamp),
+                  rng.randint(0, 256, (h, w, 3)).astype(np.uint8), level=1)
+        if not night:
+            write_png(os.path.join(base, "fl_rgb_labels", "fl_rgb_labels_" + stamp),
+                      np.roll(bands, i, axis=1), level=1)
     return root
 
 
@@ -451,9 +517,61 @@ def int8_card_times(spec_path: str, out_path: str) -> None:
         json.dump({"layers": layers, "forward": fwd}, f)
 
 
+def serve_artifact(spec_path: str, out_path: str) -> None:
+    """Phase 10e's child: load ``spec["artifact"]`` (``cli.export_model``)
+    with ``torch`` and ``heatnet_tpu_torch.ops`` and nothing else of the
+    port, serve the frames of ``spec["rgb"]`` / ``spec["ir"]`` (.npy) at
+    batch 1 and 8 and all of them in batches of 8, and write the class maps,
+    the launches of each call, the batch-8 p50/p95 (host clock, frames on
+    the card, to a synchronise) and the port's modules it imported to
+    ``out_path`` (.npz)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import heatnet_tpu_torch.ops as ops
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device("cuda")
+    rgb = torch.from_numpy(np.load(spec["rgb"])).to(dev)
+    ir = torch.from_numpy(np.load(spec["ir"]).view(np.int16)).to(dev).view(torch.uint16)
+    t0 = time.perf_counter()
+    serve = torch.export.load(spec["artifact"]).module()
+    load_s = time.perf_counter() - t0
+    kernels = (ops.fused_preproc.INGEST, ops.grouped_conv.GROUPED_CONV3X3,
+               ops.grouped_conv.GROUPED_CONV3X3_FUSED, ops.grouped_conv.GROUPED_CONV3X3_DX,
+               ops.int8_conv.INT8_CONV)
+
+    def counts():
+        return {k.name: k.launches for k in kernels}
+
+    calls = {}
+    with torch.no_grad():
+        for n in (1, 8):
+            before = counts()
+            serve(rgb[:n], ir[:n])
+            torch.cuda.synchronize()
+            calls[n] = {k: v - before[k] for k, v in counts().items()}
+        maps = torch.cat([serve(rgb[i:i + 8], ir[i:i + 8]) for i in range(0, len(rgb), 8)])
+        ms = []
+        for i in range(23):
+            t1 = time.perf_counter()
+            serve(rgb[:8], ir[:8])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+    np.savez(out_path, maps=maps.cpu().numpy(), meta=json.dumps({
+        "launches_batch1": calls[1], "launches_batch8": calls[8], "total": counts(),
+        "ms_p50_p95": [float(np.percentile(ms[3:], 50)), float(np.percentile(ms[3:], 95))],
+        "load_s": load_s, "dtype": str(maps.dtype),
+        "modules": sorted(m for m in sys.modules if m.startswith("heatnet_tpu_torch"))}))
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--int8-card-times"]:
         int8_card_times(*sys.argv[2:4])
+        return
+    if sys.argv[1:2] == ["--serve-artifact"]:
+        serve_artifact(*sys.argv[2:4])
         return
     with tempfile.TemporaryDirectory() as work:
         run_phases(work)
@@ -2695,7 +2813,287 @@ def run_phases(work: str) -> None:
     later["generate_vistas_main"] = {"launches": q_counts(), "losses": gen_run.losses}
     print(f"  phases 9a-9e: {time.perf_counter() - t_9:.1f} s", flush=True)
 
-    # 10. the record: each kernel's launches on every path, read around it
+    # 10. Freiburg PNG training trees and packs, and the serving artifact.
+    # Each path is driven with the counts set to 0 just before it and read
+    # just after.
+    from heatnet_tpu_torch.cli import export_model, pack_frames, train_uncertainty
+    from heatnet_tpu_torch.data.loaders import (FreiburgInferDataset, FreiburgThermalDataset,
+                                                get_test_paths, get_test_stamps)
+
+    t_10 = time.perf_counter()
+    n_day, n_night = TREE_FRAMES
+    print(f"main path: Freiburg PNG training tree of {n_day} day + {n_night} night frames "
+          f"at {TREE_HW[0]}x{TREE_HW[1]} (resized to 960x320), {TREE_SHARED} day stamps "
+          f"shared with an {N_TREE_TEST}-frame test tree", flush=True)
+    t0 = time.perf_counter()
+    tree_test_day = write_fr_tree(os.path.join(work, "tree_test_day"), N_TREE_TEST, 7)
+    tree_test_night = write_fr_tree(os.path.join(work, "tree_test_night"), N_TREE_TEST, 8)
+    test_stamps = get_test_stamps(get_test_paths([tree_test_night, tree_test_day])[2])
+    shared = sorted(get_test_stamps(get_test_paths([tree_test_day])[2]))[:TREE_SHARED]
+    tree = write_fr_train_tree(os.path.join(work, "fr_train_tree"), n_day, n_night,
+                               TREE_HW, 12, shared)
+    print(f"  trees written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 10a. the packer, against the tree's own items
+    tree_pack = os.path.join(work, "fr_train_pack")
+    t0 = time.perf_counter()
+    packed_day = pack_frames.main(["--data", tree, "--out", tree_pack, "--train", "--quiet",
+                                   "--testroot_day", tree_test_day,
+                                   "--testroot_night", tree_test_night])
+    pack_s = time.perf_counter() - t0
+    test_pack = os.path.join(work, "fr_test_split_pack")
+    pack_frames.main(["--data", tree, "--out", test_pack, "--train", "--quiet",
+                      "--split", "test", "--testroot_day", tree_test_day,
+                      "--testroot_night", tree_test_night])
+    metas = []
+    for d in (tree_pack, test_pack):
+        with open(os.path.join(d, "meta.json")) as f:
+            metas.append(json.load(f))
+    kept_day = n_day - TREE_SHARED
+    want_test = (-(-kept_day // 100), -(-n_night // 100))  # ceil(1 %) of each set
+    want_metas = [{"format": "heatnet-train-pack-v1", "split": split, "n_day": nd,
+                   "n_night": nn, "height": 320, "width": 960, "test_stamps_filtered": True}
+                  for split, nd, nn in (("train", kept_day - want_test[0],
+                                         n_night - want_test[1]),
+                                        ("test",) + want_test)]
+    tree_ds = FreiburgThermalDataset(tree, test_stamps=test_stamps)
+    excluded = {tuple(int(t) for t in os.path.basename(p).split(".")[0].split("_")[-2:])
+                for p in tree_ds.ir_day_files} & set(shared)
+    pack_ds = PackedFreiburgTrainDataset(tree_pack)
+    t0 = time.perf_counter()
+    tree_items = [tree_ds[i] for i in range(len(tree_ds))]
+    tree_item_s = (time.perf_counter() - t0) / len(tree_ds)
+    t0 = time.perf_counter()
+    pack_items = [pack_ds[i] for i in range(len(pack_ds))]
+    pack_item_s = (time.perf_counter() - t0) / len(pack_ds)
+    items_equal = len(tree_items) == len(pack_items) == packed_day and all(
+        np.array_equal(a[k], b[k]) for a, b in zip(tree_items, pack_items) for k in a)
+    del tree_items, pack_items
+    host_ms = {}
+    for what, ds in (("tree", FreiburgThermalDataset(tree, test_stamps=test_stamps)),
+                     ("pack", PackedFreiburgTrainDataset(tree_pack))):
+        t0 = time.perf_counter()
+        items = [ds[i] for i in range(N_ADV)]
+        {k: np.stack([it[k] for it in items]) for k in items[0]}
+        host_ms[what] = (time.perf_counter() - t0) * 1e3
+    print(f"  10a. cli.pack_frames --train: {packed_day} day frames in {pack_s:.1f} s; "
+          f"meta {metas[0]}; --split test meta {metas[1]}; test stamps left in the tree's "
+          f"day set: {sorted(excluded)}; pack items = tree items bit for bit: {items_equal} "
+          f"({1e3 * tree_item_s:.1f} ms per item from the tree, {1e3 * pack_item_s:.2f} from "
+          f"the pack); host ms per batch of {N_ADV} (one thread): tree {host_ms['tree']:.1f}, "
+          f"pack {host_ms['pack']:.1f}", flush=True)
+    if metas != want_metas or excluded or not items_equal:
+        fail(f"cli.pack_frames: meta {metas} (want {want_metas}), stamps {excluded}, "
+             f"items equal {items_equal}")
+    later["pack_frames_train"] = {"launches": {}, "pack_s": pack_s, "meta": metas[0],
+                                  "items_equal_tree": items_equal,
+                                  "tree_ms_per_item": tree_item_s * 1e3,
+                                  "host_ms_per_batch16": host_ms}
+
+    # 10b. train_conf at phase 4c's operating point from the PNG tree
+    print(f"main path: cli.train_conf from the PNG tree, ResNeXt-50 (3,4,6,3) + 6 cyclegan "
+          f"critics, batch {N_ADV}, {CROP[0]}x{CROP[1]} crop, --moddrop --irscale, IR teacher, "
+          "2 critic + 2 seg steps", flush=True)
+    per_step.clear()
+    tree_argv = ["--dataroot", tree, "--batch_size", str(N_ADV), "--discarch", "cyclegan",
+                 "--num_critics", "6", "--moddrop", "--irscale",
+                 "--night_supervision_model", teacher_ckpt,
+                 "--iter_initial_critic_phase", "2", "--iter_critic_phase", "2",
+                 "--iter_seg_phase", "2", "--n_epochs", "2",
+                 "--testroot_day", tree_test_day, "--testroot_night", tree_test_night,
+                 "--eval_everyn", "1000", "--checkpointname", os.path.join(work, "tree_conf"),
+                 "--log_dir", os.path.join(work, "runs_10b")]
+    zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_conf, "make_adversarial_steps", counted_steps):
+        tree_run = train_conf.main(tree_argv)
+    torch.cuda.synchronize()
+    tree_wall = time.perf_counter() - t0
+    tree_launches = q_counts()
+    tree_steps = {}
+    for phase in ("train_critic", "train_seg"):
+        seen = [c for p, c in per_step if p == phase]
+        ms = [t * 1e3 for t, p in zip(tree_run.step_seconds, tree_run.phases) if p == phase]
+        tree_steps[phase] = float(np.percentile(ms, 50))
+        print(f"  per {phase} step: {seen} (want {want_step[phase]}); losses "
+              f"{[round(v, 6) for v in tree_run.losses[phase]]}; step ms (host, augmentation "
+              f"to loss) {[round(v, 2) for v in ms]}", flush=True)
+        if (len(seen) != 2 or any(c != want_step[phase] for c in seen)
+                or not all(np.isfinite(tree_run.losses[phase]))):
+            fail(f"train_conf from a PNG tree, {phase}: launches {seen}, losses "
+                 f"{tree_run.losses[phase]}")
+    print(f"  {len(tree_run.phases)} steps in {tree_wall:.1f} s wall (eval at epoch 0, "
+          f"the tree's host chain on one producer thread)", flush=True)
+    later["train_conf_tree"] = {"launches": tree_launches, "wall_s": tree_wall,
+                                "step_ms_p50": tree_steps}
+
+    # 10c. train_plain and train_uncertainty on the tree, 2 steps each
+    tree_trainers = {}
+    for what, mod, extra, want in (
+            ("train_plain", train_plain,
+             ["--batch_size", str(N_TRAIN), "--max_iters_per_epoch", "2"], 16),
+            ("train_uncertainty", train_uncertainty,
+             ["--batch_size", str(N_UNC), "--max_iters_per_epoch", "2"], 16)):
+        zero_counts()
+        t0 = time.perf_counter()
+        run = mod.main(["--dataroot", tree, "--n_epochs", "1", *extra, "--checkpointname",
+                        os.path.join(work, f"tree_{what}"),
+                        "--log_dir", os.path.join(work, f"runs_10c_{what}")])
+        torch.cuda.synchronize()
+        got = q_counts()
+        steps = len(run.losses)
+        want_c = {"ingest": 0, "grouped_conv3x3": want * steps, "grouped_conv3x3_fused": 0,
+                  "grouped_conv3x3_dx": want * steps, "int8_conv": 0}
+        print(f"  10c. cli.{what} from the tree: {steps} steps, losses "
+              f"{[round(float(v), 6) for v in run.losses]}, launches {got} (want {want_c}); "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if steps != 2 or got != want_c or not np.isfinite(run.losses).all():
+            fail(f"cli.{what} from a PNG tree: {steps} steps, launches {got}")
+        tree_trainers[what] = {"launches": got, "losses": [float(v) for v in run.losses]}
+    later.update({f"{k}_tree": v for k, v in tree_trainers.items()})
+
+    # 10d. a capture tree and its pack through cli.inference at batch 8
+    capture = os.path.join(tree, "seq00_day", "drive0")  # fl_rgb/ + fl_ir_aligned/
+    cap_pack = os.path.join(work, "capture_pack")
+    t0 = time.perf_counter()
+    n_cap = pack_frames.main(["--data", capture, "--out", cap_pack, "--quiet"])
+    cap_pack_s = time.perf_counter() - t0
+    served = {}
+    for what, data in (("pack", cap_pack), ("tree", capture)):
+        zero_counts()
+        run = cli.main(["--data", data, "--resume", seg_ckpt, "--batch", str(N_BATCH),
+                        "--iters", "1"])
+        served[what] = (run, q_counts())
+    n_fwd = 2 + -(-n_cap // N_BATCH)  # warm-up + 1 timed at batch 1, then batches of 8
+    want_d = {"ingest": n_fwd, "grouped_conv3x3": 0, "grouped_conv3x3_fused": 16 * n_fwd,
+              "grouped_conv3x3_dx": 0, "int8_conv": 0}
+    cap_equal = bool(np.array_equal(served["pack"][0].maps, served["tree"][0].maps))
+    print(f"  10d. cli.pack_frames: {n_cap} frames in {cap_pack_s:.1f} s; cli.inference "
+          f"--batch {N_BATCH} on the pack and on the tree, phase 4c's weights: maps "
+          f"{served['pack'][0].maps.shape} bit for bit {cap_equal}; launches "
+          f"{served['pack'][1]} and {served['tree'][1]} (want {want_d}); frames/s "
+          f"{served['pack'][0].frames_per_second:.1f} and "
+          f"{served['tree'][0].frames_per_second:.1f}", flush=True)
+    if not cap_equal or any(c != want_d for _, c in served.values()):
+        fail("cli.inference on a pack and on its capture tree disagree")
+    later["inference_capture_pack"] = {"launches": served["pack"][1],
+                                       "frames_per_s": served["pack"][0].frames_per_second}
+    later["inference_capture_tree"] = {"launches": served["tree"][1],
+                                       "frames_per_s": served["tree"][0].frames_per_second}
+    cli_maps = served["pack"][0].maps
+
+    # 10e. the serving artifact, served by a child process without the model code
+    cap_frames = PackedFrameDataset(cap_pack)
+    spec = {"rgb": os.path.join(work, "art_rgb.npy"), "ir": os.path.join(work, "art_ir.npy")}
+    np.save(spec["rgb"], np.asarray(cap_frames.rgb))
+    np.save(spec["ir"], np.asarray(cap_frames.ir))
+
+    def serve_in_child(artifact):
+        spec_path, out = os.path.join(work, "art_spec.json"), os.path.join(work, "art_out.npz")
+        with open(spec_path, "w") as f:
+            json.dump(dict(spec, artifact=artifact), f)
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-artifact",
+                                spec_path, out], capture_output=True, text=True, timeout=900)
+        if child.returncode != 0:
+            fail(f"the artifact's child process failed:\n{child.stderr[-4000:]}")
+        res = np.load(out)
+        return res["maps"], json.loads(str(res["meta"]))
+
+    def eager_ms(model, batch):
+        rgb = torch.from_numpy(batch["rgb"]).to(dev)
+        ir = torch.from_numpy(batch["ir"].view(np.int16)).to(dev).view(torch.uint16)
+        ms = []
+        with torch.no_grad():
+            for _ in range(23):
+                t1 = time.perf_counter()
+                model(*validate.normalize_frames([rgb, ir], model.compute_dtype))[0].argmax(-1)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+        return [float(np.percentile(ms[3:], 50)), float(np.percentile(ms[3:], 95))]
+
+    print("main path: cli.export_model of phase 4c's weights (ResNeXt-50, raw inputs, "
+          f"{H_IN}x{W_IN}, symbolic batch, cuda), served by a child process", flush=True)
+    artifact = os.path.join(work, "heatnet.pt2")
+    t0 = time.perf_counter()
+    export_model.main(["--resume", seg_ckpt, "--out", artifact])
+    export_s = time.perf_counter() - t0
+    art_maps, art = serve_in_child(artifact)
+    agree = float((art_maps == cli_maps).mean())
+    cap8, _ = next(validate.batched((cap_frames[i] for i in range(N_BATCH)), N_BATCH,
+                                    ["rgb", "ir"]))
+    f_model = seg_model(False)
+    eager = eager_ms(f_model, cap8)
+    del f_model
+    want_call = {"ingest": 1, "grouped_conv3x3": 0, "grouped_conv3x3_fused": 16,
+                 "grouped_conv3x3_dx": 0, "int8_conv": 0}
+    foreign = [m for m in art["modules"] if not m.startswith(
+        ("heatnet_tpu_torch.ops", "heatnet_tpu_torch.kernels")) and m != "heatnet_tpu_torch"]
+    print(f"  10e. exported in {export_s:.1f} s ({os.path.getsize(artifact) / 1e6:.1f} MB), "
+          f"loaded in the child in {art['load_s']:.1f} s; its port modules {art['modules']}; "
+          f"launches per call: batch 1 {art['launches_batch1']}, batch 8 "
+          f"{art['launches_batch8']} (want {want_call}); maps {art_maps.shape} {art['dtype']}, "
+          f"agreement with cli.inference {agree:.6f} (need >= {EXPORT_AGREE}); batch-8 p50/p95 "
+          f"ms: artifact {art['ms_p50_p95'][0]:.2f}/{art['ms_p50_p95'][1]:.2f}, eager forward "
+          f"{eager[0]:.2f}/{eager[1]:.2f}", flush=True)
+    if (foreign or art["launches_batch1"] != want_call or art["launches_batch8"] != want_call
+            or art_maps.shape != cli_maps.shape or agree < EXPORT_AGREE):
+        fail(f"the exported artifact: modules {foreign}, launches {art['launches_batch8']}, "
+             f"agreement {agree}")
+    later["export_serving"] = {"launches": art["total"], "export_s": export_s,
+                               "agreement_cli_inference": agree,
+                               "ms_p50_p95_batch8": art["ms_p50_p95"],
+                               "eager_ms_p50_p95_batch8": eager}
+
+    print("main path: cli.export_model --quant int8 --calib-data the capture tree, served "
+          "by a child process", flush=True)
+    artifact8 = os.path.join(work, "heatnet_int8.pt2")
+    t0 = time.perf_counter()
+    export_model.main(["--resume", seg_ckpt, "--out", artifact8, "--quant", "int8",
+                       "--calib-data", capture])
+    export8_s = time.perf_counter() - t0
+    art8_maps, art8 = serve_in_child(artifact8)
+    q_model = seg_model(True)
+    cap_ds = FreiburgInferDataset(capture)
+    calibrate_int8(q_model, [validate.ingest({k: cap_ds[i][k] for k in ("rgb", "ir")},
+                                             "ir_rgb", dev, q_model.compute_dtype)
+                             for i in range(min(len(cap_ds), 8))])
+    zero_counts()
+    q_maps = torch.cat([validate.predict(q_model, b, "ir_rgb", dev) for b, _ in
+                        validate.batched((cap_frames[i] for i in range(n_cap)), N_BATCH,
+                                         ["rgb", "ir"])]).cpu().numpy()
+    q_per_fwd = {k: v // -(-n_cap // N_BATCH) for k, v in q_counts().items()}
+    f_model = seg_model(False)
+    shapes8, q_layers8, _ = jax_int8_layers(
+        f_model, lambda: validate.predict(f_model, cap8, "ir_rgb", dev))
+    del f_model
+    n_gr8 = sum(isinstance(q_model.get_submodule(k), GroupedConv) for k in shapes8)
+    want8 = {"ingest": 1, "grouped_conv3x3": 0,
+             "grouped_conv3x3_fused": n_gr8 - sum(
+                 isinstance(q_model.get_submodule(k), GroupedConv) for k in q_layers8),
+             "grouped_conv3x3_dx": 0, "int8_conv": len(q_layers8)}
+    q_eager = eager_ms(q_model, cap8)
+    del q_model
+    agree8 = float((art8_maps == q_maps).mean())
+    print(f"  10e. --quant int8: exported in {export8_s:.1f} s; launches per call: batch 1 "
+          f"{art8['launches_batch1']}, batch 8 {art8['launches_batch8']}; the in-process int8 "
+          f"model per batch-8 forward {q_per_fwd}; JAX's predicates at a symbolic batch "
+          f"(batch 8) {want8}; agreement with the in-process int8 model {agree8:.6f} (need >= "
+          f"{EXPORT_INT8_AGREE}); batch-8 p50/p95 ms: artifact {art8['ms_p50_p95'][0]:.2f}/"
+          f"{art8['ms_p50_p95'][1]:.2f}, eager int8 {q_eager[0]:.2f}/{q_eager[1]:.2f}",
+          flush=True)
+    if (art8["launches_batch8"] != want8 or art8["launches_batch1"] != want8
+            or q_per_fwd != want8 or agree8 < EXPORT_INT8_AGREE):
+        fail(f"the int8 artifact: launches {art8['launches_batch8']} (want {want8}), "
+             f"agreement {agree8}")
+    later["export_serving_int8"] = {"launches": art8["total"], "export_s": export8_s,
+                                    "agreement_in_process": agree8,
+                                    "per_call": art8["launches_batch8"],
+                                    "ms_p50_p95_batch8": art8["ms_p50_p95"],
+                                    "eager_ms_p50_p95_batch8": q_eager}
+    torch.cuda.empty_cache()
+    print(f"  phases 10a-10e: {time.perf_counter() - t_10:.1f} s", flush=True)
+
+    # 11. the record: each kernel's launches on every path, read around it
     paths = {"serving": launches, "train_plain": train_launches, "train_conf": adv_launches,
              **{name: r["launches"] for name, r in later.items()}}
 

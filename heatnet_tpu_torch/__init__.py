@@ -20,14 +20,18 @@ Conventions:
 Package map:
 
 - ``ops``     ingest normalisers, the grouped 3x3 conv and its autograd
-              Function (kernels + plain), train augmentation, IoU counts
+              Function, the int8 conv (kernels + plain; the kernels also
+              as ``torch.ops.heatnet.*`` custom ops, which a traced
+              program calls), train augmentation, IoU counts
 - ``models``  layers (eval and train mode), ``ResNeXtSeg``, PSPNet, the
               CycleGAN nets, the MFNet harness's baselines (MFNet, RTFNet,
               SegNet) and UNets, and the registry
 - ``kernels`` the nvcc build and ctypes binding of ``csrc/*.cu``
-- ``io``      JAX parameter trees → ``state_dict``; checkpoints; run logs
-- ``data``    inference and train packs, a PNG codec (zlib + numpy), eval
-              and training loaders of PNG trees (Vistas, MFNet, KAIST,
+- ``io``      JAX parameter trees → ``state_dict``; checkpoints; run logs;
+              serving artifacts (``torch.export``)
+- ``data``    inference and train packs and their packers, a PNG codec
+              (zlib + numpy), eval and training loaders of PNG trees
+              (Freiburg, Vistas, MFNet, KAIST,
               the MFNet harness with its augmentation suite) with numpy
               copies of cv2's and Pillow's image calls, batches,
               augmentation on the device
@@ -39,8 +43,8 @@ Package map:
               ``train_plain``, ``train_conf``, ``train_cyclegan``,
               ``test_cyclegan``, ``train_uncertainty``, ``train_baseline``
               and ``run_demo`` (the MFNet harness), ``eval_hotnet`` and
-              ``dataset_qa`` entry points (``train_conf`` also evaluates
-              and infers)
+              ``dataset_qa``, ``pack_frames`` and ``export_model`` entry
+              points (``train_conf`` also evaluates and infers)
 - ``tools``   profilers of the forward and the training steps on the card,
               the PNG decoder's timing
 """

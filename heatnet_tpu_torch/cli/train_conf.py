@@ -9,8 +9,10 @@ feature taps, optional ``--feedback_seg`` downscale nets and
 ``--iter_critic_phase`` critic and ``--iter_seg_phase`` seg iterations in
 turn), one RMSprop with a StepLR(gamma .5) schedule per phase. With conf
 on, ``n_epochs`` and ``half_lr_every_epoch`` double (:204-208). The chain
-per step: a heatnet-train-pack-v1 directory (day frames with labels, night
-frames) → numpy batches → augmentation on the device → the phase's step
+per step: a Freiburg PNG training tree or a heatnet-train-pack-v1 directory
+(day frames with labels, night frames; ``open_freiburg_train``, the
+``--testroot_*`` trees' stamps filtered out of a tree and required of a
+pack) → numpy batches → augmentation on the device → the phase's step
 (``train/adversarial.py``) → ``Current loss``. With ``--trainsetname MF``
 (:317-320) the frames come from an MFNet tree (``MFNetTrainDataset``: RGBA
 PNGs, day labels from ``labels_from_rgbteacher/``), cropped to 384x384 by
@@ -57,7 +59,7 @@ Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
 
 Usage::
 
-    python -m heatnet_tpu_torch.cli.train_conf --dataroot TRAIN_PACK --moddrop --irscale
+    python -m heatnet_tpu_torch.cli.train_conf --dataroot TREE_OR_PACK --moddrop --irscale
     python -m heatnet_tpu_torch.cli.train_conf --eval FR_day --testroot_day TREE --resume CK
 """
 
@@ -66,8 +68,6 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
-import json
-import os
 import time
 from typing import Dict, List
 
@@ -77,8 +77,7 @@ import torch
 from ..data.loaders import (BDDValDataset, DeviceAugment, FreiburgInferDataset,
                             FreiburgThermalTestDataset, MFNetDataset, MFNetTrainDataset,
                             batch_iterator, get_test_paths, get_test_stamps,
-                            prefetch_items)
-from ..data.packed import PackedFreiburgTrainDataset, is_train_pack_dir
+                            open_freiburg_train, prefetch_items)
 from ..device import resolve
 from ..eval.validate import (eval_batch_size, inference, validate_model,
                              validate_model_bdd, validate_model_mfnet)
@@ -101,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--epoch', type=int, default=0, help='starting epoch')
     p.add_argument('--n_epochs', type=int, default=100)
     p.add_argument('--dataroot', type=str, default='',
-                   help='heatnet-train-pack-v1 directory (needed to train)')
+                   help='Freiburg PNG training tree or heatnet-train-pack-v1 '
+                        'directory (needed to train)')
     p.add_argument('--testroot_day', type=str, default='')
     p.add_argument('--testroot_night', type=str, default='')
     p.add_argument('--testroot_fence', type=str, default='')
@@ -189,26 +189,6 @@ def _refuse_unported(opt: argparse.Namespace) -> None:
                          "--trainsetname MF --moddrop has no behaviour to follow")
 
 
-def open_train_pack(path: str, test_stamps) -> PackedFreiburgTrainDataset:
-    """The train pack, refused where training on it could include eval
-    frames: a pack of another split, or one packed without test-stamp
-    filtering while test trees are given (``open_freiburg_train``,
-    ``heatnet_tpu/data/loaders.py:159-194``)."""
-    if not is_train_pack_dir(path):
-        raise SystemExit(f"{path!r} is not a heatnet-train-pack-v1 directory "
-                         "(PNG training trees are not read by the port yet)")
-    with open(os.path.join(path, "meta.json")) as f:
-        meta = json.load(f)
-    if meta.get("split", "train") != "train":
-        raise ValueError(f"train pack {path} was packed with split={meta['split']!r}, "
-                         "not 'train'")
-    if test_stamps and not meta.get("test_stamps_filtered", False):
-        raise ValueError(f"train pack {path} was packed without test-stamp filtering "
-                         "but --testroot_* trees were given; training on it would "
-                         "include eval frames")
-    return PackedFreiburgTrainDataset(path)
-
-
 def eval_copy(segnet: torch.nn.Module, device: torch.device) -> torch.nn.Module:
     """A copy of ``segnet`` prepared for inference; ``prepare_for_inference``
     casts weights in place and sets eval mode, which must not reach the
@@ -277,9 +257,9 @@ def main(argv=None):
     if training and opt.trainsetname == "MF":
         ds = MFNetTrainDataset(opt.dataroot)
     elif training:
-        ds = open_train_pack(opt.dataroot,
-                             get_test_stamps(get_test_paths(test_roots)[2]) if test_roots
-                             else None)
+        ds = open_freiburg_train(opt.dataroot, split="train",
+                                 test_stamps=get_test_stamps(get_test_paths(test_roots)[2])
+                                 if test_roots else None)
     logger = RunLogger("hotnet", log_dir=opt.log_dir)
 
     model = init_model(ConfSegnet(

@@ -3,8 +3,9 @@
 Counterpart of ``heatnet_tpu/cli/train_plain.py:12-118``: early-fusion
 ResNeXtSeg (4 input channels), cross-entropy on the day labels only,
 Adam(0.5, 0.999) with the CycleGAN linear-decay schedule, one checkpoint per
-epoch. The chain per step: a heatnet-train-pack-v1 directory → numpy
-batches → augmentation on the device → train-mode forward (bf16 activations
+epoch. The chain per step: a Freiburg PNG training tree or a
+heatnet-train-pack-v1 directory (``data/loaders.py::open_freiburg_train``,
+``split="train"``) → numpy batches → augmentation on the device → train-mode forward (bf16 activations
 on the card) → loss → backward → Adam step → schedule step. It prints the
 same ``Current loss`` line per step.
 
@@ -12,11 +13,12 @@ Weights are random from seed 0; ``--resume_partial`` loads the entries of a
 PyTorch checkpoint that match in name and shape. Checkpoints are
 ``torch.save({"epoch", "state_dict"})`` files, ``<checkpointname>.pth``,
 which ``cli/inference.py --resume`` loads. Runs on the card unless
-``--device cpu``. PNG training trees (their loader needs cv2) are not read.
+``--device cpu``. A tree decodes five PNGs per item on the host; its pack
+(``cli/pack_frames.py --train``) serves the same items with no decode.
 
 Usage::
 
-    python -m heatnet_tpu_torch.cli.train_plain --dataroot TRAIN_PACK --n_epochs 1
+    python -m heatnet_tpu_torch.cli.train_plain --dataroot TREE_OR_PACK --n_epochs 1
 """
 
 from __future__ import annotations
@@ -28,8 +30,7 @@ from typing import Dict, List
 
 import torch
 
-from ..data.loaders import DeviceAugment, batch_iterator
-from ..data.packed import PackedFreiburgTrainDataset, is_train_pack_dir
+from ..data.loaders import DeviceAugment, batch_iterator, open_freiburg_train
 from ..device import resolve
 from ..io.checkpoint import load_state_dict, restore_partial, save_checkpoint
 from ..io.logging import AverageMeter, RunLogger
@@ -47,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--n_epochs', type=int, default=200)
     p.add_argument('--batchSize', type=int, default=2, help='parity alias')
     p.add_argument('--dataroot', type=str, required=True,
-                   help='heatnet-train-pack-v1 directory')
+                   help='Freiburg PNG training tree or heatnet-train-pack-v1 directory')
     p.add_argument('--lr', type=float, default=0.0002)
     p.add_argument('--decay_epoch', type=int, default=100)
     p.add_argument('--size', type=int, default=256)
@@ -98,16 +99,13 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> torch.Tenso
 def main(argv=None) -> TrainRun:
     opt = build_parser().parse_args(argv)
     device = resolve(opt.device)
-    if not is_train_pack_dir(opt.dataroot):
-        raise SystemExit(f"{opt.dataroot} is not a heatnet-train-pack-v1 directory "
-                         "(PNG training trees are not read by the port yet)")
     logger = RunLogger("HotNetConf", log_dir=opt.log_dir)
 
     model = init_model(ResNeXtSeg(structure=tuple(opt.structure), input_channels=4),
                        seed=0, device=device)
     if opt.resume_partial:
         restore_partial(model, load_state_dict(opt.resume_partial))
-    ds = PackedFreiburgTrainDataset(opt.dataroot)
+    ds = open_freiburg_train(opt.dataroot, split="train")
     augment = DeviceAugment(crop_hw=CROP, device=device)
 
     steps_per_epoch = max(len(ds) // opt.batch_size, 1)

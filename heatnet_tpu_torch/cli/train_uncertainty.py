@@ -4,8 +4,8 @@ Counterpart of ``heatnet_tpu/cli/train_uncertainty.py:13-125`` (the same
 flags plus ``--device``): two ``ResNeXtEncoder``s (``--structure``, 1-channel
 IR, 12 and 1 classes), a seg decoder and a sigmoid uncertainty decoder,
 trained by ``train.uncertainty``'s step under one Adam(0.5, 0.999) with the
-CycleGAN linear decay. The chain per step: a heatnet-train-pack-v1
-directory → numpy batches → ``DeviceAugment`` (320x640 crops on the card)
+CycleGAN linear decay. The chain per step: a Freiburg PNG training tree or
+a heatnet-train-pack-v1 directory (``open_freiburg_train``) → numpy batches → ``DeviceAugment`` (320x640 crops on the card)
 → the day IR and labels subsampled ``[:, ::4, ::4]`` to 80x160 → the step.
 It prints the meters' ``Segmentation loss``/``Uncertainty Loss`` line per
 step and writes ``{"epoch", "state_dict"}`` to ``<checkpointname>.pth``
@@ -13,11 +13,10 @@ every epoch (keys ``encoder1.``, ``encoder2.``, ``seg_decoder.``,
 ``unc_decoder.``).
 
 Weights are random (seeds 0-3); runs on the card unless ``--device cpu``.
-PNG training trees are not read, as in ``cli.train_plain``.
 
 Usage::
 
-    python -m heatnet_tpu_torch.cli.train_uncertainty --dataroot TRAIN_PACK --n_epochs 1
+    python -m heatnet_tpu_torch.cli.train_uncertainty --dataroot TREE_OR_PACK --n_epochs 1
 """
 
 from __future__ import annotations
@@ -27,8 +26,7 @@ import time
 
 import torch
 
-from ..data.loaders import DeviceAugment, batch_iterator
-from ..data.packed import PackedFreiburgTrainDataset, is_train_pack_dir
+from ..data.loaders import DeviceAugment, batch_iterator, open_freiburg_train
 from ..device import resolve
 from ..io.checkpoint import save_checkpoint
 from ..io.logging import AverageMeter, RunLogger
@@ -46,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--epoch', type=int, default=0)
     p.add_argument('--n_epochs', type=int, default=100)
     p.add_argument('--dataroot', type=str, required=True,
-                   help='heatnet-train-pack-v1 directory')
+                   help='Freiburg PNG training tree or heatnet-train-pack-v1 directory')
     p.add_argument('--lr', type=float, default=0.0001)
     p.add_argument('--decay_epoch', type=int, default=50)
     p.add_argument('--batch_size', type=int, default=4)
@@ -81,13 +79,10 @@ def subsample(aug: dict) -> dict:
 def main(argv=None) -> TrainRun:
     opt = build_parser().parse_args(argv)
     device = resolve(opt.device)
-    if not is_train_pack_dir(opt.dataroot):
-        raise SystemExit(f"{opt.dataroot} is not a heatnet-train-pack-v1 directory "
-                         "(PNG training trees are not read by the port yet)")
     logger = RunLogger("hotnet-uncertainty", log_dir=opt.log_dir)
 
     mods = build_modules(opt.structure, device)
-    ds = PackedFreiburgTrainDataset(opt.dataroot)
+    ds = open_freiburg_train(opt.dataroot, split="train")
     augment = DeviceAugment(crop_hw=CROP, device=device)
     steps_per_epoch = max(len(ds) // opt.batch_size, 1)
     if opt.max_iters_per_epoch:

@@ -1,6 +1,12 @@
 """Eval loaders of PNG trees, training batches, and the augmentation on the card.
 
-Counterpart of ``heatnet_tpu/data/loaders.py:43-67,216-339,386-591,936-983``.
+Counterpart of ``heatnet_tpu/data/loaders.py:43-339,386-591,936-983``.
+
+The Freiburg training trees (``FreiburgThermalDataset``, with
+``sort_day_night``, ``holdout_split``, ``filter_test_data`` and
+``open_freiburg_train``, which also opens train packs) decode and resize on
+the host as the JAX loader does; ``holdout_split`` is sklearn's split in
+numpy.
 
 The eval loaders (``FreiburgThermalTestDataset``, ``FreiburgInferDataset``,
 ``MFNetDataset``, ``BDDValDataset``) return the JAX loaders' items: same
@@ -36,13 +42,14 @@ version vmaps the chain over per-sample keys).
 
 from __future__ import annotations
 
+import math
 import os
 import queue
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from glob import glob
-from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -323,6 +330,170 @@ def stamp_sort_key(path: str) -> float:
         if fn.isdigit():
             digits.append(int(fn))
     return float(str(digits[0]).zfill(10) + "." + str(digits[1]).zfill(10))
+
+
+def sort_day_night(fl_ir_files: Sequence[str]):
+    """Split an aligned-IR file list into labelled day and night sets
+    (sort_day_night, thermal_loader.py:105-150). Sibling paths come from a
+    replace over the full path, so directories and file names both follow
+    the ``fl_ir_aligned`` / ``fl_rgb`` / ``fl_rgb_labels`` convention."""
+    day_rgb, day_ir, day_label = [], [], []
+    night_rgb, night_ir = [], []
+    for ir_file in fl_ir_files:
+        rgb_file = ir_file.replace("fl_ir_aligned", "fl_rgb")
+        label_file = ir_file.replace("fl_ir_aligned", "fl_rgb_labels")
+        if not os.path.exists(rgb_file):
+            continue
+        if "night" in ir_file:
+            night_rgb.append(rgb_file)
+            night_ir.append(ir_file)
+        else:
+            if not os.path.exists(label_file):
+                continue
+            day_rgb.append(rgb_file)
+            day_ir.append(ir_file)
+            day_label.append(label_file)
+    return day_rgb, day_ir, day_label, night_rgb, night_ir
+
+
+def holdout_split(items: Sequence[list], test_size: float = 0.01, seed: int = 42):
+    """sklearn's ``train_test_split(idx, test_size=0.01, random_state=42)``
+    (thermal_loader.py:525-540) applied to parallel lists, in numpy: the
+    permutation of ``RandomState(seed)``, its first ``ceil(test_size * n)``
+    indices the test side and the rest the train side. An empty train side
+    raises ``ValueError``, as sklearn does."""
+    n = len(items[0])
+    n_test = math.ceil(test_size * n)
+    if n - n_test <= 0:
+        raise ValueError(f"With n_samples={n}, test_size={test_size} and "
+                         "train_size=None, the resulting train set will be empty. "
+                         "Adjust any of the aforementioned parameters.")
+    perm = np.random.RandomState(seed).permutation(n)
+    test_idx, train_idx = perm[:n_test], perm[n_test:]
+    return ([[lst[i] for i in train_idx] for lst in items],
+            [[lst[i] for i in test_idx] for lst in items])
+
+
+def filter_test_data(paths: Sequence[str], stamps) -> List[str]:
+    """Exclude the files whose (sec, nsec) stamp is in ``stamps``.
+
+    The reference (thermal_loader.py:60-78) keeps a file that mismatches
+    any stamp, so it filters nothing; the JAX package excludes the exact
+    matches, and so does this copy. The stamp is the first two digit
+    tokens of the file name with ``.`` read as ``_``."""
+    stamp_set = {tuple(t) for t in stamps}
+    out = []
+    for p in paths:
+        digits = [int(s) for s in
+                  os.path.basename(p).replace(".", "_").split("_") if s.isdigit()]
+        if len(digits) >= 2 and (digits[0], digits[1]) in stamp_set:
+            continue
+        out.append(p)
+    return out
+
+
+class FreiburgThermalDataset:
+    """Freiburg Thermal training items from a PNG tree (ThermalDataLoader,
+    :501-746): a labelled day frame and a night frame drawn at random,
+    decoded and resized to 960x320 (IR and RGB linearly, labels nearest).
+
+    The tree is ``db_path/*/*/fl_ir_aligned/*.png`` with ``fl_rgb`` and
+    ``fl_rgb_labels`` siblings; frames whose path holds ``night`` are night
+    frames. The test stamps are filtered out, the day and night sets split
+    1 % / 99 % (``holdout_split``), and ``split`` picks a side. Each
+    ``__getitem__`` draws its night frame from a ``RandomState(seed)``
+    stream, once per call in call order, as ``PackedFreiburgTrainDataset``
+    does: a pack of the same tree gives the same items.
+    """
+
+    def __init__(self, db_path: str, split: str = "train", test_stamps=None,
+                 seed: int = 0):
+        fl_ir_files = sorted(glob(os.path.join(db_path, "*/*/fl_ir_aligned/*.png")))
+        if test_stamps:
+            fl_ir_files = filter_test_data(fl_ir_files, test_stamps)
+        day_rgb, day_ir, day_label, night_rgb, night_ir = sort_day_night(fl_ir_files)
+        if not day_rgb or not night_rgb:
+            raise FileNotFoundError(
+                f"no Freiburg Thermal data under {db_path!r}: found "
+                f"{len(fl_ir_files)} aligned-IR files, {len(day_rgb)} labeled "
+                f"day pairs, {len(night_rgb)} night pairs (expected "
+                "*/*/fl_ir_aligned/*.png with fl_rgb/fl_rgb_labels siblings)")
+        day_train, day_test = holdout_split([day_rgb, day_ir, day_label])
+        night_train, night_test = holdout_split([night_rgb, night_ir])
+        if split == "train":
+            day, night = day_train, night_train
+        elif split == "test":
+            day, night = day_test, night_test
+        else:
+            raise ValueError(f"unknown split {split}")
+        self.rgb_day_files, self.ir_day_files, self.label_day_files = day
+        self.rgb_night_files, self.ir_night_files = night
+        self._rng = np.random.RandomState(seed)
+        if not self.rgb_day_files or not self.rgb_night_files:
+            raise FileNotFoundError(
+                f"no day/night pairs under {db_path} (found "
+                f"{len(self.rgb_day_files)} day, {len(self.rgb_night_files)} night)")
+
+    def __len__(self) -> int:
+        return len(self.rgb_day_files)
+
+    @staticmethod
+    def read_day(rgb_path: str, ir_path: str, label_path: str):
+        """One day frame: RGB, IR and labels at 960x320."""
+        return (resize(_imread_rgb(rgb_path), IR_RES),
+                resize(_imread_grey(ir_path, np.uint16), IR_RES),
+                resize(_imread_grey(label_path, np.uint8), IR_RES, nearest=True))
+
+    @staticmethod
+    def read_night(rgb_path: str, ir_path: str):
+        """One night frame: RGB and IR at 960x320."""
+        return (resize(_imread_rgb(rgb_path), IR_RES),
+                resize(_imread_grey(ir_path, np.uint16), IR_RES))
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        rand_idx = self._rng.randint(0, len(self.rgb_night_files))
+        rgb_day, ir_day, label_day = self.read_day(
+            self.rgb_day_files[index], self.ir_day_files[index],
+            self.label_day_files[index])
+        rgb_night, ir_night = self.read_night(self.rgb_night_files[rand_idx],
+                                              self.ir_night_files[rand_idx])
+        return {"rgb_day": rgb_day, "ir_day": ir_day, "label_day": label_day,
+                "rgb_night": rgb_night, "ir_night": ir_night}
+
+
+def open_freiburg_train(db_path: str, split: str = "train", test_stamps=None,
+                        seed: int = 0):
+    """A train pack (``cli/pack_frames.py --train``) as
+    ``PackedFreiburgTrainDataset``, else the PNG tree as
+    ``FreiburgThermalDataset`` (``heatnet_tpu/data/loaders.py:159-194``).
+    Every Freiburg trainer opens its data here.
+
+    A pack's choices are held against the caller's: a pack of another
+    ``split``, or one packed without test-stamp filtering while
+    ``test_stamps`` are given, would train on eval frames, and raises.
+    """
+    import json
+
+    from .packed import PackedFreiburgTrainDataset, is_train_pack_dir
+
+    if is_train_pack_dir(db_path):
+        with open(os.path.join(db_path, "meta.json")) as f:
+            meta = json.load(f)
+        if meta.get("split", "train") != split:
+            raise ValueError(
+                f"train pack {db_path} was packed with split="
+                f"{meta.get('split', 'train')!r} but split={split!r} was "
+                f"requested; re-pack with cli/pack_frames.py --split {split}")
+        if test_stamps is not None and len(test_stamps) > 0 \
+                and not meta.get("test_stamps_filtered", False):
+            raise ValueError(
+                f"train pack {db_path} was packed WITHOUT test-stamp "
+                "filtering but --testroot_* test stamps were passed; "
+                "training on it would include eval frames. Re-pack with "
+                "cli/pack_frames.py --testroot_day/--testroot_night")
+        return PackedFreiburgTrainDataset(db_path, seed=seed)
+    return FreiburgThermalDataset(db_path, split=split, test_stamps=test_stamps,
+                                  seed=seed)
 
 
 def get_test_paths(db_paths: Sequence[str]):

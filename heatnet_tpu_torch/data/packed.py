@@ -1,8 +1,12 @@
 """Frame packs: decode-free directory inference and training.
 
-The port's own copy of ``heatnet_tpu/data/packed.py:37-48,149-214`` (numpy
-only) plus ``write_pack`` and ``write_train_pack``, which write packs from
-arrays. An inference pack (heatnet-pack-v1)::
+The port's own copy of ``heatnet_tpu/data/packed.py`` (numpy only), plus
+``write_pack`` and ``write_train_pack``, which write packs from arrays.
+``pack_inference_dir`` and ``pack_freiburg_train`` pack PNG trees through
+the loaders of ``data/loaders.py`` (no cv2), streaming one frame at a time
+into ``np.lib.format.open_memmap`` files: a Freiburg train split holds tens
+of thousands of 960x320 frames, tens of GB. An inference pack
+(heatnet-pack-v1)::
 
     pack/
       meta.json   {"n": N, "height": H, "width": W, "names": [...],
@@ -23,8 +27,6 @@ A train pack (heatnet-train-pack-v1) holds full 960x320 frames::
       ir_day.npy     uint16 (N, H, W)       ir_night.npy   uint16 (M, H, W)
       label_day.npy  uint8  (N, H, W)
 
-Packing PNG trees (``pack_inference_dir``, ``pack_freiburg_train``) is not
-ported; the eval loaders of ``data/loaders.py`` read PNG trees directly.
 """
 
 from __future__ import annotations
@@ -47,6 +49,87 @@ def is_pack_dir(path: str) -> bool:
 def is_train_pack_dir(path: str) -> bool:
     return os.path.isfile(os.path.join(path, "meta.json")) and \
         os.path.isfile(os.path.join(path, "rgb_day.npy"))
+
+
+def pack_inference_dir(src_dir: str, out_dir: str, verbose: bool = False) -> int:
+    """Pack a ``fl_rgb/`` + ``fl_ir_aligned/`` capture directory.
+
+    Decodes every frame through ``FreiburgInferDataset`` (the stamp sort,
+    resize and window crop of PNG-tree serving) and writes the inference
+    pack. Returns the number of frames packed.
+    """
+    from .loaders import FreiburgInferDataset
+
+    ds = FreiburgInferDataset(src_dir)
+    n = len(ds)
+    if n == 0:
+        raise ValueError(f"no frames under {src_dir}")
+    first = ds[0]
+    h, w = first["rgb"].shape[1:3]
+    os.makedirs(out_dir, exist_ok=True)
+    rgb = np.lib.format.open_memmap(os.path.join(out_dir, "rgb.npy"), mode="w+",
+                                    dtype=np.uint8, shape=(n, h, w, 3))
+    ir = np.lib.format.open_memmap(os.path.join(out_dir, "ir.npy"), mode="w+",
+                                   dtype=np.uint16, shape=(n, h, w, 1))
+    names = []
+    for i in range(n):
+        item = first if i == 0 else ds[i]
+        rgb[i] = item["rgb"][0]
+        ir[i] = item["ir"][0]
+        names.append(os.path.splitext(os.path.basename(ds.ir_files[i]))[0])
+        if verbose and (i + 1) % 100 == 0:
+            print(f"packed {i + 1}/{n}")
+    rgb.flush()
+    ir.flush()
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump({"format": FORMAT, "n": n, "height": h, "width": w,
+                   "names": names}, f)
+    return n
+
+
+def pack_freiburg_train(db_path: str, out_dir: str, split: str = "train",
+                        test_stamps=None, verbose: bool = False) -> Tuple[int, int]:
+    """Pack a Freiburg Thermal train tree for decode-free training.
+
+    ``FreiburgThermalDataset``'s discovery, day/night sort, holdout split
+    and test-stamp filtering, then each file decoded once (the same resize)
+    into the five arrays of a train pack. The day + random-night pairing
+    stays at serve time (``PackedFreiburgTrainDataset``), so training sees
+    what it sees from the tree. Returns (n_day, n_night).
+    """
+    from .loaders import IR_RES, FreiburgThermalDataset
+
+    ds = FreiburgThermalDataset(db_path, split=split, test_stamps=test_stamps)
+    n_day, n_night = len(ds.rgb_day_files), len(ds.rgb_night_files)
+    w, h = IR_RES
+    os.makedirs(out_dir, exist_ok=True)
+
+    def mm(name, dtype, shape):
+        return np.lib.format.open_memmap(os.path.join(out_dir, name + ".npy"),
+                                         mode="w+", dtype=dtype, shape=shape)
+
+    rgb_day = mm("rgb_day", np.uint8, (n_day, h, w, 3))
+    ir_day = mm("ir_day", np.uint16, (n_day, h, w))
+    label_day = mm("label_day", np.uint8, (n_day, h, w))
+    rgb_night = mm("rgb_night", np.uint8, (n_night, h, w, 3))
+    ir_night = mm("ir_night", np.uint16, (n_night, h, w))
+    for i in range(n_day):
+        rgb_day[i], ir_day[i], label_day[i] = ds.read_day(
+            ds.rgb_day_files[i], ds.ir_day_files[i], ds.label_day_files[i])
+        if verbose and (i + 1) % 100 == 0:
+            print(f"packed day {i + 1}/{n_day}")
+    for i in range(n_night):
+        rgb_night[i], ir_night[i] = ds.read_night(ds.rgb_night_files[i],
+                                                  ds.ir_night_files[i])
+        if verbose and (i + 1) % 100 == 0:
+            print(f"packed night {i + 1}/{n_night}")
+    for arr in (rgb_day, ir_day, label_day, rgb_night, ir_night):
+        arr.flush()
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump({"format": TRAIN_FORMAT, "split": split, "n_day": n_day,
+                   "n_night": n_night, "height": h, "width": w,
+                   "test_stamps_filtered": bool(test_stamps)}, f)
+    return n_day, n_night
 
 
 def write_pack(out_dir: str, rgb: np.ndarray, ir: np.ndarray,

@@ -1,8 +1,10 @@
-"""Synthetic KAIST, MFNet and Vistas trees in the reference on-disk layouts.
+"""Synthetic Freiburg, KAIST, MFNet and Vistas trees in the reference layouts.
 
-The port's copies of ``heatnet_tpu/data/synthetic.py:79-171`` (``make_mfnet``,
-``make_vistas``, ``make_kaist``), written with ``data.png.write_png`` instead
-of cv2. ``make_mfnet`` and ``make_vistas`` write the JAX copies' files: the
+The port's copies of ``heatnet_tpu/data/synthetic.py:23-171``
+(``make_freiburg_train``, ``make_freiburg_test``, ``make_freiburg_infer``,
+``make_mfnet``, ``make_vistas``, ``make_kaist``), written with
+``data.png.write_png`` instead of cv2. All but ``make_kaist`` write the JAX
+copies' files: the
 same draws in the same order, colour frames stored as cv2 stores the
 arrays it is given (BGR(A) in, so R and B swap on disk). ``make_kaist``'s
 files all hold PNG bytes, the ``.jpg`` names included (the JAX copy's cv2
@@ -32,6 +34,67 @@ def _write_as_cv2(path: str, arr: np.ndarray) -> None:
     if arr.ndim == 3:
         arr = np.concatenate([swap_rb(arr[..., :3]), arr[..., 3:]], -1)
     _write(path, arr)
+
+
+def make_freiburg_train(root: str, n_day: int = 4, n_night: int = 3,
+                        hw: Tuple[int, int] = (64, 192), seed: int = 0) -> str:
+    """``root/*/*/fl_{rgb,ir_aligned,rgb_labels}/*.png``: day frames under
+    ``seq00_day/drive0`` (stamps ``1500000000 + i``), night frames (no
+    labels) under ``seq01_night/drive0`` (``1600000000 + i``). Sibling paths
+    derive by a full-path replace of ``fl_ir_aligned``, so directories and
+    file-name prefixes both follow it."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    for i in range(n_day):
+        base = os.path.join(root, "seq00_day", "drive0")
+        stamp = f"{1500000000 + i}_{i * 1000:09d}.png"
+        _write(os.path.join(base, "fl_ir_aligned", "fl_ir_aligned_" + stamp),
+               rng.randint(21000, 26000, (h, w)).astype(np.uint16))
+        _write_as_cv2(os.path.join(base, "fl_rgb", "fl_rgb_" + stamp),
+                      rng.randint(0, 255, (h, w, 3)).astype(np.uint8))
+        _write(os.path.join(base, "fl_rgb_labels", "fl_rgb_labels_" + stamp),
+               rng.randint(0, 13, (h, w)).astype(np.uint8))
+    for i in range(n_night):
+        base = os.path.join(root, "seq01_night", "drive0")
+        stamp = f"{1600000000 + i}_{i * 1000:09d}.png"
+        _write(os.path.join(base, "fl_ir_aligned", "fl_ir_aligned_" + stamp),
+               rng.randint(21000, 26000, (h, w)).astype(np.uint16))
+        _write_as_cv2(os.path.join(base, "fl_rgb", "fl_rgb_" + stamp),
+                      rng.randint(0, 40, (h, w, 3)).astype(np.uint8))
+    return root
+
+
+def make_freiburg_test(root: str, n: int = 2, hw: Tuple[int, int] = (64, 192),
+                       seed: int = 1) -> str:
+    """``ImagesIR/``, ``ImagesRGB/`` and ``SegmentationClass/*.npy`` (getPaths),
+    stamps ``1700000000 + i``."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    os.makedirs(os.path.join(root, "SegmentationClass"), exist_ok=True)
+    for i in range(n):
+        stamp = f"{1700000000 + i}_{i * 100:09d}"
+        _write(os.path.join(root, "ImagesIR", f"{stamp}_ir.png"),
+               rng.randint(21000, 26000, (h, w)).astype(np.uint16))
+        _write_as_cv2(os.path.join(root, "ImagesRGB", f"{stamp}_rgb.png"),
+                      rng.randint(0, 255, (h, w, 3)).astype(np.uint8))
+        np.save(os.path.join(root, "SegmentationClass", f"{stamp}.npy"),
+                rng.randint(0, 13, (h, w)).astype(np.uint8))
+    return root
+
+
+def make_freiburg_infer(root: str, n: int = 2, hw: Tuple[int, int] = (64, 192),
+                        seed: int = 2) -> str:
+    """A capture tree, ``fl_ir_aligned/`` and ``fl_rgb/`` (stamps
+    ``1800000000 + i``)."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    for i in range(n):
+        stamp = f"{1800000000 + i}_{i * 1000:09d}.png"
+        _write(os.path.join(root, "fl_ir_aligned", "fl_ir_aligned_" + stamp),
+               rng.randint(21000, 26000, (h, w)).astype(np.uint16))
+        _write_as_cv2(os.path.join(root, "fl_rgb", "fl_rgb_" + stamp),
+                      rng.randint(0, 255, (h, w, 3)).astype(np.uint8))
+    return root
 
 
 def make_mfnet(root: str, n_train: int = 4, n_test: int = 2,

@@ -101,7 +101,16 @@ def ingest(batch: Dict[str, np.ndarray], modalities: str, device: torch.device,
     the 4-channel early-fusion tensor, or with ``late_fusion`` the pair
     ``(rgb_n, ir_n)``. Float frames are already normalised and are only cast.
     """
-    frames = [to_device(batch[k], device) for k in modality_keys(modalities)]
+    return normalize_frames([to_device(batch[k], device) for k in modality_keys(modalities)],
+                            dtype, late_fusion)
+
+
+def normalize_frames(frames, dtype: torch.dtype,
+                     late_fusion: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Frames on the device (RGB before IR) → the model's NHWC inputs, as
+    ``_device_normalize`` (:52-68) reads them: uint8 is RGB, uint16 is IR,
+    and both take one launch of the ingest kernel; float frames are only
+    cast. Also the in-graph normalisation of an exported program."""
     if any(t.is_floating_point() for t in frames):
         return tuple(t.to(dtype) for t in frames)
     if len(frames) == 2:
@@ -110,7 +119,7 @@ def ingest(batch: Dict[str, np.ndarray], modalities: str, device: torch.device,
             return fused_preproc.inference_preprocess_fused(rgb, ir, 0, rgb.shape[-2],
                                                             dtype)
         return (fused_preproc.early_fusion_input(rgb, ir, 0, rgb.shape[-2], dtype),)
-    if "rgb" in modalities:
+    if frames[0].dtype == torch.uint8:
         return (fused_preproc.rgb_normalize_fused(frames[0], dtype),)
     return (fused_preproc.ir_normalize_fused(frames[0], dtype),)
 

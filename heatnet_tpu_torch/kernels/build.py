@@ -11,6 +11,10 @@ build it safely.
 
 Nothing here runs at import: ``import heatnet_tpu_torch`` works on a machine
 with no ``nvcc`` and no card. The first launch of a kernel builds and loads.
+
+A wrapper that is traced (``torch.export``, ``torch.compile``; ``tracing``)
+does not launch: it calls its op registered in ``ops/library.py``, whose
+CUDA implementation launches, and counts, when the traced program runs.
 """
 
 from __future__ import annotations
@@ -23,6 +27,9 @@ import subprocess
 import tempfile
 import threading
 from typing import List, Optional
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -137,3 +144,10 @@ class Kernel:
             msg = library().hn_error_string(err).decode()
             raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")
         self.launches += 1
+
+
+def tracing(t) -> bool:
+    """Whether the tensor ``t`` is being traced rather than computed: inside
+    ``torch.export`` or ``torch.compile``, or a fake tensor. A wrapper then
+    calls its registered op instead of launching (``ops/library.py``)."""
+    return torch.compiler.is_compiling() or isinstance(t, FakeTensor)

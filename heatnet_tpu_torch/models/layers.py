@@ -219,11 +219,13 @@ class GroupedConv(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
-def int8_batch_ok(n: int, min_batch: int) -> bool:
+def int8_batch_ok(n, min_batch: int) -> bool:
     """``_int8_batch_ok`` (layers.py:716-736): int8 is a throughput mode,
     served from ``min_batch`` frames up (JAX's ``HEATNET_INT8_MIN_BATCH``,
-    default 8); below it a layer serves its float conv."""
-    return n >= min_batch
+    default 8); below it a layer serves its float conv. A symbolic batch
+    (``torch.export``'s) counts as the throughput regime, as JAX counts an
+    exported artifact's, with no guard on the batch."""
+    return isinstance(n, torch.SymInt) or n >= min_batch
 
 
 class _Int8Layer:
@@ -238,6 +240,11 @@ class _Int8Layer:
     model's plus ``x_scale``; its quantization (``w_q``, ``w_scale``, the
     kernel's packing) and its copy in the activations' dtype are derived on
     first use after any change of the parameter, and are not saved.
+
+    ``freeze()`` fixes them, and whether the layer is calibrated, for
+    ``torch.export`` (``io/export.py``): a traced layer can read neither a
+    tensor's address nor its value. The derived weights become buffers that
+    the exported program carries; ``thaw()`` undoes it.
     """
 
     def _init_int8(self, min_batch: int, max_hw: int) -> None:
@@ -247,8 +254,27 @@ class _Int8Layer:
         self.register_buffer("x_scale", torch.zeros((), dtype=torch.float32))
         self._derived = None   # (key, w_q, w_pack, w_scale, w_float)
         self._positive = None  # (key, x_scale > 0) read once per change of x_scale
+        self._frozen = None    # (dtype, calibrated) while frozen
+
+    _FROZEN = ("frozen_w_q", "frozen_w_pack", "frozen_w_scale", "frozen_w_float")
+
+    def freeze(self, dtype: torch.dtype) -> None:
+        """Hold the weights derived for activations of ``dtype`` as buffers,
+        and the calibration state as it is, until ``thaw()``."""
+        for name, t in zip(self._FROZEN, self._weights(dtype)):
+            self.register_buffer(name, t, persistent=False)
+        self._frozen = (dtype, self._calibrated())
+
+    def thaw(self) -> None:
+        for name in self._FROZEN:
+            delattr(self, name)
+        self._frozen = None
 
     def _weights(self, dtype: torch.dtype):
+        if self._frozen is not None:
+            if dtype != self._frozen[0]:
+                raise ValueError(f"frozen for {self._frozen[0]} activations, got {dtype}")
+            return tuple(getattr(self, name) for name in self._FROZEN)
         w = self.weight
         key = (w._version, w.data_ptr(), w.device, dtype)
         if self._derived is None or self._derived[0] != key:
@@ -269,6 +295,8 @@ class _Int8Layer:
                 self.x_scale.copy_(torch.maximum(self.x_scale, amax / amax.new_tensor(127.0)))
 
     def _calibrated(self) -> bool:
+        if self._frozen is not None:
+            return self._frozen[1]
         xs = self.x_scale
         key = (xs._version, xs.data_ptr())
         if self._positive is None or self._positive[0] != key:
@@ -336,10 +364,13 @@ class Int8GroupedConv(_Int8Layer, GroupedConv):
         self.weight = conv.weight
         self._init_int8(min_batch, max_hw)
 
-    def quantizes(self, n: int, h: int, w: int) -> bool:
-        """Whether a calibrated layer serves int8 at input (n, h, w)."""
+    def quantizes(self, n, h: int, w: int) -> bool:
+        """Whether a calibrated layer serves int8 at input (n, h, w). A
+        symbolic batch counts as 8 frames in the volume rule, as JAX's
+        dispatch counts an exported artifact's (:458-463)."""
         cpg = self.weight.shape[1]
-        native = cpg >= self.MIN_CPG_NATIVE and n * h * w * cpg >= self.MIN_WORK_NATIVE
+        volume = (8 if isinstance(n, torch.SymInt) else n) * h * w * cpg
+        native = cpg >= self.MIN_CPG_NATIVE and volume >= self.MIN_WORK_NATIVE
         return not native and int8_batch_ok(n, self.min_batch)
 
     def forward(self, x: torch.Tensor, epilogue=None) -> torch.Tensor:

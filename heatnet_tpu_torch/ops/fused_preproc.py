@@ -11,6 +11,9 @@ path serves ``(0, W)`` and full 960-wide frames ``(148, 852)``.
 
 Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 the plain PyTorch version below, which repeats the kernel's arithmetic.
+Traced (``torch.export``), the wrappers call ``heatnet::ingest``
+(``ops/library.py``), whose implementations are ``ingest_cuda`` and
+``ingest_plain``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..kernels.build import Kernel
+from ..kernels.build import Kernel, tracing
 from .preprocess import ir_normalize, normalize
 
 _P = ctypes.c_void_p
@@ -63,21 +66,23 @@ def _check(rgb: Optional[torch.Tensor], ir: Optional[torch.Tensor],
     return ref
 
 
-def _ingest(rgb: Optional[torch.Tensor], ir: Optional[torch.Tensor],
-            col_lo: int, col_hi: int, out_dtype, cat: bool):
-    """(rgb_n or None, ir_n or None), or the fused tensor when ``cat``."""
-    ref = _check(rgb, ir, col_lo, col_hi, out_dtype)
+def ingest_plain(rgb: Optional[torch.Tensor], ir: Optional[torch.Tensor],
+                 col_lo: int, col_hi: int, out_dtype, cat: bool):
+    """Plain version of the kernel: (rgb_n or None, ir_n or None), or the
+    fused tensor when ``cat``."""
+    rgb_n = (None if rgb is None
+             else rgb_plain(rgb[..., col_lo:col_hi, :]).to(out_dtype))
+    ir_n = (None if ir is None
+            else ir_plain(ir[..., col_lo:col_hi, :]).to(out_dtype))
+    return torch.cat([rgb_n, ir_n], -1) if cat else (rgb_n, ir_n)
+
+
+def ingest_cuda(rgb: Optional[torch.Tensor], ir: Optional[torch.Tensor],
+                col_lo: int, col_hi: int, out_dtype, cat: bool):
+    """One launch of ``csrc/ingest.cu``; the results of ``ingest_plain``."""
+    ref = rgb if rgb is not None else ir
     lead = tuple(ref.shape[:-2])
     w_out = col_hi - col_lo
-
-    if ref.device.type == "cpu":
-        rgb_n = (None if rgb is None
-                 else rgb_plain(rgb[..., col_lo:col_hi, :]).to(out_dtype))
-        ir_n = (None if ir is None
-                else ir_plain(ir[..., col_lo:col_hi, :]).to(out_dtype))
-        return torch.cat([rgb_n, ir_n], -1) if cat else (rgb_n, ir_n)
-    if ref.device.type != "cuda":
-        raise ValueError(f"unsupported device {ref.device}")
 
     def empty(c):
         return torch.empty(lead + (w_out, c), dtype=out_dtype, device=ref.device)
@@ -96,6 +101,23 @@ def _ingest(rgb: Optional[torch.Tensor], ir: Optional[torch.Tensor],
                       int(out_dtype == torch.bfloat16), rows, ref.shape[-2],
                       col_lo, col_hi, stream)
     return out_cat if cat else (out_rgb, out_ir)
+
+
+def _ingest(rgb: Optional[torch.Tensor], ir: Optional[torch.Tensor],
+            col_lo: int, col_hi: int, out_dtype, cat: bool):
+    """(rgb_n or None, ir_n or None), or the fused tensor when ``cat``."""
+    if tracing(rgb if rgb is not None else ir):
+        outs = list(torch.ops.heatnet.ingest(rgb, ir, col_lo, col_hi, out_dtype, cat))
+        if cat:
+            return outs[0]
+        return (outs.pop(0) if rgb is not None else None,
+                outs.pop(0) if ir is not None else None)
+    ref = _check(rgb, ir, col_lo, col_hi, out_dtype)
+    if ref.device.type == "cpu":
+        return ingest_plain(rgb, ir, col_lo, col_hi, out_dtype, cat)
+    if ref.device.type != "cuda":
+        raise ValueError(f"unsupported device {ref.device}")
+    return ingest_cuda(rgb, ir, col_lo, col_hi, out_dtype, cat)
 
 
 def rgb_normalize_fused(rgb_u8: torch.Tensor,

@@ -19,7 +19,10 @@ multiple of 64, 1/2/4/8/16 channels per group, dilation 1 to 8), which
 multiplies the weight's 16x16 block-diagonal tiles (``pack_weight_tiles``
 defines them) on tensor cores, or raises; a CPU tensor runs
 ``grouped_conv3x3_plain``, the 9-tap shifted-slice sum in f32, which relies
-on no library convolution.
+on no library convolution. Traced (``torch.export``), the forward and the
+fused forward call ``heatnet::grouped_conv3x3`` and
+``heatnet::grouped_conv3x3_fused`` (``ops/library.py``); training keeps
+``GroupedConv3x3Function``.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels.build import Kernel
+from ..kernels.build import Kernel, tracing
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -128,8 +131,8 @@ def pack_weight_tiles(w: torch.Tensor, groups: int,
     return tiles.masked_fill_(co // cpg != ci // cpg, 0)
 
 
-def _conv(x, w, groups, dilation, scale, bias, act, slope,
-          kernel: Kernel = GROUPED_CONV3X3, transpose_flip: bool = False):
+def check_operands(x, w, groups, dilation, scale, bias, act) -> None:
+    """The operands' shapes and the epilogue, on any device."""
     if x.dim() != 4 or x.shape[-1] % groups != 0:
         raise ValueError(f"x must be NHWC with C divisible by groups={groups}, "
                          f"got {tuple(x.shape)}")
@@ -145,13 +148,14 @@ def _conv(x, w, groups, dilation, scale, bias, act, slope,
     for t, name in ((scale, "scale"), (bias, "bias")):
         if t is not None and (t.shape != (c,) or t.device != x.device):
             raise ValueError(f"{name} must be ({c},) on {x.device}")
-    if x.device.type == "cpu":
-        return grouped_conv3x3_plain(
-            x, dx_weight(w, groups) if transpose_flip else w, groups, dilation,
-            scale, bias, act, slope)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
 
+
+def launch(x, w, groups, dilation, scale, bias, act, slope,
+           kernel: Kernel = GROUPED_CONV3X3, transpose_flip: bool = False):
+    """One launch of ``csrc/grouped_conv3x3.cu`` on checked operands; raises
+    where the kernel does not take them."""
+    c = x.shape[-1]
+    cpg = c // groups
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernel takes bf16 x and w, got {x.dtype}, {w.dtype}")
     if cpg not in _KERNEL_CPG or c % _KERNEL_CHANNELS != 0:
@@ -184,9 +188,24 @@ def _conv(x, w, groups, dilation, scale, bias, act, slope,
     return out
 
 
+def _conv(x, w, groups, dilation, scale, bias, act, slope,
+          kernel: Kernel = GROUPED_CONV3X3, transpose_flip: bool = False):
+    check_operands(x, w, groups, dilation, scale, bias, act)
+    if x.device.type == "cpu":
+        return grouped_conv3x3_plain(
+            x, dx_weight(w, groups) if transpose_flip else w, groups, dilation,
+            scale, bias, act, slope)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return launch(x, w, groups, dilation, scale, bias, act, slope, kernel,
+                  transpose_flip)
+
+
 def grouped_conv3x3(x: torch.Tensor, w: torch.Tensor, groups: int,
                     dilation: int = 1) -> torch.Tensor:
     """Grouped 3x3 stride-1 conv, padding = dilation, NHWC in and out."""
+    if tracing(x):
+        return torch.ops.heatnet.grouped_conv3x3(x, w, groups, dilation)
     return _conv(x, w, groups, dilation, None, None, "none", 0.0)
 
 
@@ -195,6 +214,9 @@ def grouped_conv3x3_fused(x: torch.Tensor, w: torch.Tensor,
                           dilation: int = 1, act: str = "relu",
                           slope: float = 0.01) -> torch.Tensor:
     """``act(grouped_conv3x3(x, w) * scale + bias)``, the epilogue in f32."""
+    if tracing(x):
+        return torch.ops.heatnet.grouped_conv3x3_fused(x, w, scale, bias, groups,
+                                                       dilation, act, float(slope))
     return _conv(x, w, groups, dilation, scale, bias, act, slope,
                  GROUPED_CONV3X3_FUSED)
 

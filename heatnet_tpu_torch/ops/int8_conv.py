@@ -32,7 +32,9 @@ bf16 on the card), any other CUDA tensor raises; a CPU tensor, of any float
 dtype, runs ``int8_conv2d_plain``, ``F.conv2d`` in float64 on the
 integer-valued operands (exact, then ``.to(torch.int32)``). Layout: NCHW tensors as the port's modules
 pass them (channels_last memory on the card); the kernel reads and writes
-NHWC.
+NHWC. Traced (``torch.export``), ``int8_conv2d`` calls ``heatnet::int8_conv``
+(``ops/library.py``), whose implementations are ``int8_conv2d_cuda`` and
+``int8_conv2d_plain``.
 
 The kernel's layouts, kept here where the CPU tests reach them: its first
 pass writes ``quantize_padded``'s int8 NHWC (each block's channels padded to
@@ -51,7 +53,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.build import Kernel
+from ..kernels.build import Kernel, tracing
 from .grouped_conv import ACTS, apply_act
 
 _P = ctypes.c_void_p
@@ -197,6 +199,18 @@ def int8_conv2d_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     return dequantize(acc, x.dtype, w_scale, x_scale, bias, epilogue)
 
 
+def check_operands(x: torch.Tensor, w_q: torch.Tensor, groups: int,
+                   epilogue: Epilogue) -> None:
+    """The operands' shapes and the epilogue's activation, on any device."""
+    o, cpg = w_q.shape[:2]
+    c = x.shape[1]
+    if w_q.dtype != torch.int8 or c != cpg * groups or o % groups:
+        raise ValueError(f"bad int8 conv operands: x {tuple(x.shape)}, w_q "
+                         f"{tuple(w_q.shape)} {w_q.dtype}, groups {groups}")
+    if epilogue is not None and epilogue[2] not in ACTS:
+        raise ValueError(f"unknown activation {epilogue[2]}")
+
+
 def int8_conv2d(x: torch.Tensor, w_q: torch.Tensor, w_pack: Optional[torch.Tensor],
                 w_scale: torch.Tensor, x_scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, stride: int = 1,
@@ -205,18 +219,32 @@ def int8_conv2d(x: torch.Tensor, w_q: torch.Tensor, w_pack: Optional[torch.Tenso
     """The int8 conv of NCHW ``x`` (bf16 on the card) with ``w_q``; ``w_pack`` is
     ``pack_weight(w_q, groups)``, which the kernel reads. Returns NCHW in
     x's dtype (channels_last memory from the kernel)."""
-    o, cpg, kh, kw = w_q.shape
-    n, c, h, w = x.shape
-    if w_q.dtype != torch.int8 or c != cpg * groups or o % groups:
-        raise ValueError(f"bad int8 conv operands: x {tuple(x.shape)}, w_q "
-                         f"{tuple(w_q.shape)} {w_q.dtype}, groups {groups}")
-    if epilogue is not None and epilogue[2] not in ACTS:
-        raise ValueError(f"unknown activation {epilogue[2]}")
+    if tracing(x):
+        ep_scale, ep_bias, act, slope = epilogue if epilogue is not None else \
+            (None, None, "none", 0.0)
+        return torch.ops.heatnet.int8_conv(x, w_q, w_pack, w_scale, x_scale, bias,
+                                           stride, padding, dilation, groups, ep_scale,
+                                           ep_bias, act, float(slope))
+    check_operands(x, w_q, groups, epilogue)
     if x.device.type == "cpu":
         return int8_conv2d_plain(x, w_q, w_scale, x_scale, bias, stride, padding,
                                  dilation, groups, epilogue)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    return int8_conv2d_cuda(x, w_pack, w_scale, x_scale, bias, stride, padding,
+                            dilation, groups, epilogue, w_q.shape)
+
+
+def int8_conv2d_cuda(x: torch.Tensor, w_pack: Optional[torch.Tensor],
+                     w_scale: torch.Tensor, x_scale: torch.Tensor,
+                     bias: Optional[torch.Tensor], stride: int, padding: int,
+                     dilation: int, groups: int, epilogue: Epilogue,
+                     w_shape) -> torch.Tensor:
+    """One launch of ``csrc/int8_conv.cu`` (quantize pass and product) on
+    checked operands, ``w_shape`` the shape of ``w_q``; raises where the
+    kernel does not take them."""
+    o, cpg, kh, kw = w_shape
+    n, c, h, w = x.shape
     if x.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernel takes bf16 x, got {x.dtype}")
     cin_g, cout_g = (c, o) if groups == 1 else (BLOCK, BLOCK)
@@ -236,12 +264,13 @@ def int8_conv2d(x: torch.Tensor, w_q: torch.Tensor, w_pack: Optional[torch.Tenso
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("w_scale, x_scale, bias and the epilogue must be "
                              "contiguous float32")
-    ho = (h + 2 * padding - dilation * (kh - 1) - 1) // stride + 1
-    wo = (w + 2 * padding - dilation * (kw - 1) - 1) // stride + 1
+    ho, wo = output_hw(h, w, kh, kw, stride, padding, dilation)
     xh = x.permute(0, 2, 3, 1)
     if not xh.is_contiguous():
         xh = xh.contiguous()
-    out = torch.empty((n, ho, wo, o), dtype=x.dtype, device=x.device)
+    # NCHW in channels_last memory: the NHWC tensor the kernel writes
+    out = torch.empty((n, o, ho, wo), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
     xq = torch.empty((n, h, w, (c // cin_g) * _round_up(cin_g, CHAN_ALIGN)),
                      dtype=torch.int8, device=x.device)
     ep_scale, ep_bias, act, slope = epilogue if epilogue is not None else \
@@ -260,4 +289,11 @@ def int8_conv2d(x: torch.Tensor, w_q: torch.Tensor, w_pack: Optional[torch.Tenso
     else:
         with torch.cuda.device(dev):
             INT8_CONV.launch(*args, stream)
-    return out.permute(0, 3, 1, 2)
+    return out
+
+
+def output_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: int,
+              dilation: int) -> Tuple[int, int]:
+    """The conv's output height and width."""
+    return ((h + 2 * padding - dilation * (kh - 1) - 1) // stride + 1,
+            (w + 2 * padding - dilation * (kw - 1) - 1) // stride + 1)

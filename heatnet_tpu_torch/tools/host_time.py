@@ -6,8 +6,12 @@ Prints the card's name and power limit, then one JSON line:
 
 - ``per_call_us``: host time per call at mod3's serving shape (batch 8,
   40x88, C 256, cpg 4), the mean of 300 calls enqueued without a
-  synchronise: the fused grouped conv, its dx and ``F.conv2d(groups=64)``
-  (the library's call, a yardstick);
+  synchronise, the median of 7 such rounds taken in turn with the other
+  calls': the fused grouped conv, the same without the wrapper's check for
+  a trace (``kernels/build.py::tracing``), the same call through its
+  registered op (``torch.ops.heatnet.grouped_conv3x3_fused``, the route an
+  exported program takes; ``ops/library.py``), its dx and
+  ``F.conv2d(groups=64)`` (the library's call, a yardstick);
 - ``forward_ms``: for batches 1 and 8 of the serving forward (ingest ->
   ResNeXt-50 -> argmax), the p50 over 50 forwards of the host's enqueue time
   (``step()`` returning) and of the wall time to a synchronise. Where the two
@@ -55,13 +59,20 @@ def main() -> None:
     w = torch.randn((c, cpg, 3, 3), generator=g).to(dev, torch.bfloat16)
     s, b = torch.rand(c, device=dev) + 0.5, torch.rand(c, device=dev)
     x_cl = x.permute(0, 3, 1, 2)
-    per_call = {
-        "grouped_conv3x3_fused": host_us(
-            lambda: gc.grouped_conv3x3_fused(x, w, s, b, c // cpg, d)),
-        "grouped_conv3x3_dx": host_us(lambda: gc.grouped_conv3x3_dx(x, w, c // cpg, d)),
-        "F.conv2d": host_us(lambda: F.conv2d(x_cl, w, padding=d, dilation=d,
-                                             groups=c // cpg)),
+    calls = {
+        "grouped_conv3x3_fused": lambda: gc.grouped_conv3x3_fused(x, w, s, b, c // cpg, d),
+        "grouped_conv3x3_fused without the trace check": lambda: gc._conv(
+            x, w, c // cpg, d, s, b, "relu", 0.01, gc.GROUPED_CONV3X3_FUSED),
+        "torch.ops.heatnet.grouped_conv3x3_fused": lambda: (
+            torch.ops.heatnet.grouped_conv3x3_fused(x, w, s, b, c // cpg, d, "relu", 0.01)),
+        "grouped_conv3x3_dx": lambda: gc.grouped_conv3x3_dx(x, w, c // cpg, d),
+        "F.conv2d": lambda: F.conv2d(x_cl, w, padding=d, dilation=d, groups=c // cpg),
     }
+    rounds = {k: [] for k in calls}
+    for _ in range(7):
+        for k, fn in calls.items():
+            rounds[k].append(host_us(fn))
+    per_call = {k: float(np.median(v)) for k, v in rounds.items()}
 
     model = get_model("net_resnext50", classes=13, input_channels=4)
     init_params(model, torch.Generator().manual_seed(0))

@@ -700,3 +700,104 @@ def test_int8_model_serves_through_the_kernel(dev):
     agree = float((seg.argmax(-1) == seg_plain.argmax(-1)).float().mean())
     assert agree >= 0.99 and bool(torch.isfinite(seg).all())
     assert torch.equal(one, one_f)
+
+
+def test_registered_ops_launch_on_cuda_and_equal_their_plain_versions(dev):
+    """``torch.ops.heatnet.*`` (``ops/library.py``): the CUDA implementation
+    launches the kernel, counted once per call, and agrees with the CPU
+    implementation (the plain version) as the wrappers do."""
+    from heatnet_tpu_torch.ops import int8_conv
+
+    ops = torch.ops.heatnet
+    rgb, ir = _frames(11, 2, 5, 960)
+    before = fp.INGEST.launches
+    for cat in (True, False):
+        got = ops.ingest(rgb.to(dev), _to(ir, dev), 148, 852, torch.bfloat16, cat)
+        want = ops.ingest(rgb, ir, 148, 852, torch.bfloat16, cat)
+        assert len(got) == len(want) == (1 if cat else 2)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.cpu().float().numpy(), b.float().numpy(),
+                                       atol=2.0 ** -8)
+    got = ops.ingest(rgb.to(dev), None, 0, 960, torch.bfloat16, False)
+    assert len(got) == 1 and got[0].shape == (2, 5, 960, 3)
+    assert fp.INGEST.launches == before + 3
+
+    g = torch.Generator().manual_seed(12)
+    c, cpg, d = 256, 4, 2
+    x = torch.randn((2, 13, 37, c), generator=g).to(torch.bfloat16)
+    w = (torch.randn((c, cpg, 3, 3), generator=g) / (9 * cpg) ** 0.5).to(torch.bfloat16)
+    s, b = torch.rand(c, generator=g) + 0.5, torch.randn(c, generator=g) * 0.1
+    before = (gc.GROUPED_CONV3X3.launches, gc.GROUPED_CONV3X3_FUSED.launches)
+    _close(ops.grouped_conv3x3(x.to(dev), w.to(dev), c // cpg, d).cpu(),
+           ops.grouped_conv3x3(x, w, c // cpg, d))
+    _close(ops.grouped_conv3x3_fused(x.to(dev), w.to(dev), s.to(dev), b.to(dev), c // cpg, d,
+                                     "relu", 0.01).cpu(),
+           ops.grouped_conv3x3_fused(x, w, s, b, c // cpg, d, "relu", 0.01))
+    assert (gc.GROUPED_CONV3X3.launches, gc.GROUPED_CONV3X3_FUSED.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+    for groups, k, cin in ((1, 3, 96), (64, 3, 256)):
+        x8, w_q, w_pack, w_scale, x_scale, bias, scale = _int8_operands(
+            dev, 2, cin, cin if groups > 1 else 40, k, groups, 9, 11, torch.bfloat16, seed=13)
+        ep = (scale, bias, "relu", 0.01) if groups > 1 else (None, None, "none", 0.0)
+        bias_arg = None if groups > 1 else bias
+        before = int8_conv.INT8_CONV.launches
+        out = ops.int8_conv(x8, w_q, w_pack, w_scale, x_scale, bias_arg, 1, 1, 1, groups, *ep)
+        ref = ops.int8_conv(x8.cpu(), w_q.cpu(), w_pack.cpu(), w_scale.cpu(), x_scale.cpu(),
+                            None if bias_arg is None else bias_arg.cpu(), 1, 1, 1, groups,
+                            *[t.cpu() if isinstance(t, torch.Tensor) else t for t in ep])
+        torch.cuda.synchronize()
+        assert int8_conv.INT8_CONV.launches == before + 1
+        assert out.stride() == ref.stride() and torch.equal(out.cpu(), ref)
+
+
+def test_exported_forward_launches_the_kernels_through_the_ops(dev, tmp_path):
+    """A ResNeXtSeg (1,1,1,1) exported on the card with a symbolic batch and
+    loaded back: each call launches 1 ingest + 4 fused grouped convs through
+    the registered ops, and its class maps are the eager model's bit for bit;
+    int8 converted and calibrated, it launches the int8 kernel where the
+    eager model does at batch 8 (JAX's rule for a symbolic batch)."""
+    from heatnet_tpu_torch.eval.validate import normalize_frames
+    from heatnet_tpu_torch.io.export import export_inference, load_exported, save_exported
+    from heatnet_tpu_torch.models import ResNeXtSeg
+    from heatnet_tpu_torch.models.layers import init_params, prepare_for_inference
+    from heatnet_tpu_torch.ops import int8_conv
+    from heatnet_tpu_torch.ops.quant import calibrate_int8, convert_int8
+
+    h, w = 64, 128
+    shapes = [(1, h, w, 3), (1, h, w, 1)]
+    rng = np.random.RandomState(14)
+    rgb = torch.from_numpy(rng.randint(0, 256, (8, h, w, 3)).astype(np.uint8)).to(dev)
+    ir = _to(torch.from_numpy(rng.randint(21000, 26000, (8, h, w, 1)).astype(np.uint16)), dev)
+    for quant in (False, True):
+        m = ResNeXtSeg(structure=(1, 1, 1, 1))
+        init_params(m, torch.Generator().manual_seed(0))
+        if quant:
+            convert_int8(m)
+        prepare_for_inference(m, dev)
+        if quant:
+            calibrate_int8(m, [normalize_frames([rgb[:1], ir[:1]], m.compute_dtype)])
+        path = str(tmp_path / f"q{quant}.pt2")
+        save_exported(path, export_inference(m, shapes, [torch.uint8, torch.uint16],
+                                             normalize=True))
+        serve = load_exported(path)
+
+        def counts():
+            return (fp.INGEST.launches, gc.GROUPED_CONV3X3_FUSED.launches,
+                    int8_conv.INT8_CONV.launches)
+
+        with torch.no_grad():
+            before = counts()
+            want = m(*normalize_frames([rgb, ir], m.compute_dtype))[0].argmax(-1)
+            eager = [a - b for a, b in zip(counts(), before)]
+            for n in (8, 1):
+                before = counts()
+                got = serve(rgb[:n], ir[:n])
+                torch.cuda.synchronize()
+                launched = [a - b for a, b in zip(counts(), before)]
+                assert launched == eager, (quant, n, launched, eager)
+                assert torch.equal(got, want[:n].to(torch.int32)) or n == 1
+        if not quant:
+            assert eager == [1, 4, 0]
+        else:
+            assert eager[2] > 0 and eager[1] + eager[2] >= 4

@@ -183,5 +183,6 @@ def test_cli_trains_on_a_train_pack(tmp_path):
     assert saved["epoch"] == 1
     mods = train_uncertainty.build_modules(TINY, torch.device("cpu"))
     torch.nn.ModuleDict(mods).load_state_dict(load_state_dict(run.checkpoint), strict=True)
-    with pytest.raises(SystemExit, match="train-pack"):
+    # a directory that is neither a train pack nor a Freiburg tree
+    with pytest.raises(FileNotFoundError, match="no Freiburg Thermal data"):
         train_uncertainty.main(["--dataroot", str(tmp_path), "--device", "cpu"])
