@@ -199,7 +199,37 @@ Phases, each of which exits non-zero on failure:
        eager forward's; then ``--quant int8 --calib-data`` the capture tree:
        the int8 launches by JAX's predicates at a symbolic batch, the maps
        against the in-process int8 model's (>= 0.99);
-11. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
+11. the trainers' remaining parts:
+   11a. ``cli.train_plain`` at 4b's operating point for 4 steps under
+       ``HEATNET_BN_IMPL=lean`` and under the default BN, from the same
+       weights and batches: 16/16/0 launches per step read around each, the
+       losses within 1e-2 relative, step p50/p95 (after the first step) and
+       peak memory of both; one
+       step's loss and gradients, lean against default, each gradient within
+       max(0.05, 2x the distance of the default BN with cuDNN's grouped conv);
+       ``lean_bn_act`` on the card against its float32 CPU counterpart;
+   11b. ``cli.train_conf --vis --log_everyn 1`` at 4c's operating point for 2
+       critic and 2 seg steps, and the same run without ``--vis``: the JAX
+       trainer's panel names, 32 fused launches per vis forward, the model,
+       RNG and train flags unchanged by each, the label maps against the
+       plain versions (>= 0.99), the losses bit for bit (both runs with
+       cuDNN deterministic and the critics' bilinear resizes given a
+       fixed-order backward: CUDA's adds with atomics, so without it no two
+       runs agree from the second seg step on);
+   11c. CLAHE: ``VistasDataset(contrast_enhancement=True)`` (eval and train
+       chains) and the default ``VistasBordersDataset`` on trees the phase
+       writes, against the same loaders with cv2's CLAHE where cv2 imports,
+       and the Lab conversions on 2^20 colours; host ms per item with and
+       without CLAHE;
+   11d. ``cli.main`` (structure 1 1 1 1, batch 4 of 192x384, 2 steps and a
+       validation) alone and as rank 0 of 1 under a torchrun-style
+       environment (NCCL): losses, weights, BN statistics and IoUs bit for
+       bit, the same launches;
+   11e. a child process (``--profile-serving``) serves 3 batch-8 forwards
+       inside ``utils/profiling.trace`` and ``annotate``: the trace names the
+       ingest and fused grouped-conv kernels and the span;
+       ``scan_benchmark`` of the forward beside the CUDA-event p50;
+12. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
    launches on every path); the last line is ``{"ok": true, "device": {...}}``.
 
 Launch counts: the grouped-conv kernel has one count per entry point, the
@@ -210,7 +240,8 @@ forward (``grouped_conv3x3_fused``) and the input gradient
 Without a card, or run from a directory that does not hold the package, it
 prints no result and exits non-zero. ``--int8-card-times SPEC OUT`` is phase
 9a's child process (SPEC and OUT are JSON files), ``--serve-artifact SPEC
-OUT`` phase 10e's; neither is an entry point.
+OUT`` phase 10e's, ``--profile-serving OUT`` phase 11e's; none is an entry
+point.
 """
 
 import contextlib
@@ -238,6 +269,7 @@ MIN_AGREEMENT = 0.99
 # The training path: batch 10 of 320x640 crops from 320x960 frames, and the
 # grouped convs at that crop (the same stages at 80x160 and 40x80)
 N_TRAIN, CROP, TRAIN_STEPS = 10, (320, 640), 4
+LEAN_STEPS = 4  # phase 11a: cli.train_plain steps under each BN
 TRAIN_STAGES = (("mod2", 128, 2, 1, 80, 160, 3), ("mod3", 256, 4, 1, 40, 80, 4),
                 ("mod4", 512, 8, 2, 40, 80, 6), ("mod5", 1024, 16, 4, 40, 80, 3))
 DK_TOL = 1e-2       # relative L2 of dk (cuDNN's, bf16) against autograd of plain
@@ -407,6 +439,15 @@ def capture_tree_from(fr_root: str, root: str) -> str:
     return root
 
 
+def free_port() -> int:
+    """A free TCP port on localhost."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -566,12 +607,83 @@ def serve_artifact(spec_path: str, out_path: str) -> None:
         "modules": sorted(m for m in sys.modules if m.startswith("heatnet_tpu_torch"))}))
 
 
+def profile_serving(out_path: str) -> None:
+    """Phase 11e's child: ResNeXt-50 (random weights, seed 0) serving batch 8
+    of raw frames at 320x704; 3 forwards inside ``utils/profiling.trace``,
+    each in an ``annotate`` span; the trace's kernel and span events, the
+    launches counted around the window, ``scan_benchmark`` of the forward and
+    the CUDA-event p50 of 20 forwards, written to ``out_path`` (.json). A
+    fresh process, so that the profiler keeps every kernel record."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from heatnet_tpu_torch.models import get_model
+    from heatnet_tpu_torch.models.layers import init_params, prepare_for_inference
+    from heatnet_tpu_torch.ops import fused_preproc as fp
+    from heatnet_tpu_torch.ops import grouped_conv as gc
+    from heatnet_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    kernels = (fp.INGEST, gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_FUSED,
+               gc.GROUPED_CONV3X3_DX)
+    model = get_model("net_resnext50", classes=13, input_channels=4)
+    init_params(model, torch.Generator().manual_seed(0))
+    model = prepare_for_inference(model, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rgb = torch.randint(0, 256, (N_BATCH, H_IN, W_IN, 3), generator=g, device=dev,
+                        dtype=torch.uint8)
+    ir = torch.randint(21000, 26000, (N_BATCH, H_IN, W_IN, 1), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.int16).view(torch.uint16)
+
+    def forward(rgb, ir):
+        x = fp.early_fusion_input(rgb, ir, 0, W_IN, model.compute_dtype)
+        return model(x)[0].argmax(-1)
+
+    span = "heatnet_serving_forward"
+    trace_dir = os.path.join(os.path.dirname(out_path), "trace_11e")
+    with torch.no_grad():
+        for _ in range(3):
+            forward(rgb, ir)
+        torch.cuda.synchronize()
+        before = {k.name: k.launches for k in kernels}
+        with profiling.trace(trace_dir):
+            for _ in range(3):
+                with profiling.annotate(span):
+                    forward(rgb, ir)
+            torch.cuda.synchronize()
+        launches = {k.name: k.launches - before[k.name] for k in kernels}
+        scan_s = profiling.scan_benchmark(forward, (rgb, ir), 2, 8, reps=3)
+        start = [torch.cuda.Event(enable_timing=True) for _ in range(20)]
+        end = [torch.cuda.Event(enable_timing=True) for _ in range(20)]
+        for s, e in zip(start, end):
+            s.record()
+            forward(rgb, ir)
+            e.record()
+        torch.cuda.synchronize()
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    with open(out_path, "w") as f:
+        json.dump({"launches": launches,
+                   "ingest_events": sum("ingest" in e["name"] for e in kern),
+                   "gc_events": sum("grouped_conv3x3" in e["name"] for e in kern),
+                   "kernel_events": len(kern), "span": span,
+                   "span_events": sum(e.get("name") == span
+                                      and e.get("cat") == "user_annotation" for e in events),
+                   "scan_ms": scan_s * 1e3,
+                   "event_ms_p50": float(np.percentile(
+                       [s.elapsed_time(e) for s, e in zip(start, end)], 50))}, f)
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--int8-card-times"]:
         int8_card_times(*sys.argv[2:4])
         return
     if sys.argv[1:2] == ["--serve-artifact"]:
         serve_artifact(*sys.argv[2:4])
+        return
+    if sys.argv[1:2] == ["--profile-serving"]:
+        profile_serving(sys.argv[2])
         return
     with tempfile.TemporaryDirectory() as work:
         run_phases(work)
@@ -3093,7 +3205,389 @@ def run_phases(work: str) -> None:
     torch.cuda.empty_cache()
     print(f"  phases 10a-10e: {time.perf_counter() - t_10:.1f} s", flush=True)
 
-    # 11. the record: each kernel's launches on every path, read around it
+    # 11. the trainers' remaining parts: the lean BN, --vis, CLAHE, data
+    # parallelism, profiling
+    t_11 = time.perf_counter()
+    from heatnet_tpu_torch.cli import main as main_cli
+    from heatnet_tpu_torch.data import clahe, loaders
+    from heatnet_tpu_torch.data.loaders import VistasBordersDataset, VistasDataset
+    from heatnet_tpu_torch.models import critics as critics_module
+    from heatnet_tpu_torch.ops import lean_bn
+
+    def bn_impl(impl):
+        if impl == "lean":
+            os.environ["HEATNET_BN_IMPL"] = "lean"
+        else:
+            os.environ.pop("HEATNET_BN_IMPL", None)
+
+    # 11a. the lean BN in cli.train_plain at phase 4b's operating point
+    print(f"main path: cli.train_plain under HEATNET_BN_IMPL=lean and the default, "
+          f"ResNeXt-50 (3,4,6,3), batch {N_TRAIN}, {CROP[0]}x{CROP[1]} crop, "
+          f"{LEAN_STEPS} steps each from the same weights and batches", flush=True)
+    prng = np.random.RandomState(2)
+    bands = (np.arange(320)[:, None] // 64 + np.arange(960)[None, :] // 192) % 13
+    lean_pack = os.path.join(work, "lean_train")
+    write_train_pack(
+        lean_pack, prng.randint(0, 256, (12, 320, 960, 3)).astype(np.uint8),
+        prng.randint(21000, 26000, (12, 320, 960)).astype(np.uint16),
+        np.broadcast_to(bands, (12, 320, 960)).astype(np.uint8),
+        prng.randint(0, 256, (12, 320, 960, 3)).astype(np.uint8),
+        prng.randint(21000, 26000, (12, 320, 960)).astype(np.uint16))
+    lean_out = {}
+    for impl in ("default", "lean"):
+        bn_impl(impl)
+        per_step = []
+        real_step = train_plain.train_step
+
+        def counted_plain_step(state, batch, real_step=real_step, per_step=per_step):
+            before = counts()
+            loss = real_step(state, batch)
+            float(loss)
+            per_step.append({k: v - before[k] for k, v in counts().items()})
+            return loss
+
+        for k in all_kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(train_plain, "train_step", counted_plain_step):
+            run = train_plain.main(["--dataroot", lean_pack, "--batch_size", str(N_TRAIN),
+                                    "--n_epochs", str(LEAN_STEPS), "--decay_epoch", "2",
+                                    "--max_iters_per_epoch", "1",
+                                    "--checkpointname", os.path.join(work, f"lean_{impl}"),
+                                    "--log_dir", os.path.join(work, "runs_11a")])
+        torch.cuda.synchronize()
+        ms = [s * 1e3 for s in run.step_seconds[1:]]  # the first picks cuDNN's plans
+        lean_out[impl] = {"launches": counts(), "per_step": per_step, "losses": run.losses,
+                          "step_ms_p50_p95": (float(np.percentile(ms, 50)),
+                                              float(np.percentile(ms, 95))),
+                          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        o = lean_out[impl]
+        print(f"  {impl}: launches per step {per_step}; losses "
+              f"{[round(v, 6) for v in run.losses]}; step ms (host, augmentation to loss, "
+              f"after the first) p50 {o['step_ms_p50_p95'][0]:.2f} p95 "
+              f"{o['step_ms_p50_p95'][1]:.2f}; peak memory {o['peak_memory_gb']:.2f} GB",
+              flush=True)
+        want = {"ingest": 0, "grouped_conv3x3": 16, "grouped_conv3x3_fused": 0,
+                "grouped_conv3x3_dx": 16}
+        if len(per_step) != LEAN_STEPS or any(c != want for c in per_step):
+            fail(f"train_plain ({impl} BN): expected {LEAN_STEPS} steps of {want}, got "
+                 f"{per_step}")
+    bn_impl("default")
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(lean_out["lean"]["losses"],
+                                                    lean_out["default"]["losses"])]
+    print(f"  losses lean vs default: rel {[f'{v:.3g}' for v in loss_rel]} (tolerance "
+          f"{STEP_LOSS_TOL})", flush=True)
+    if not all(v <= STEP_LOSS_TOL for v in loss_rel):
+        fail(f"lean BN losses {lean_out['lean']['losses']} vs default "
+             f"{lean_out['default']['losses']}")
+
+    raw = next(batch_iterator(PackedFreiburgTrainDataset(lean_pack), N_TRAIN, seed=0))
+    batch = DeviceAugment(CROP, dev)(torch.Generator().manual_seed(1), raw)
+    model = init_model(ResNeXtSeg(structure=(3, 4, 6, 3), input_channels=4), 0, dev)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def step0_grads(impl):
+        bn_impl(impl)
+        model.load_state_dict(start)
+        model.zero_grad(set_to_none=True)
+        seg = model(batch["rgb_day"], batch["ir_day"])[0]
+        loss = cross_entropy_ignore(seg, batch["label_day"], ignore_index=-1)
+        loss.backward()
+        bn_impl("default")
+        return float(loss.detach()), {k: p.grad.float().clone()
+                                      for k, p in model.named_parameters()
+                                      if p.grad is not None}
+
+    calls = []
+    real_apply = lean_bn.LeanBNAct.apply
+    with mock.patch.object(lean_bn.LeanBNAct, "apply",
+                           lambda *a: calls.append(1) or real_apply(*a)):
+        loss_lean, grads_lean = step0_grads("lean")
+        n_abn = len(calls)
+        loss_def, grads_def = step0_grads("default")
+        with mock.patch.object(gc, "grouped_conv3x3", fwd_library), \
+                mock.patch.object(gc, "grouped_conv3x3_dx", dx_library):
+            loss_lib, grads_lib = step0_grads("default")
+    print(f"  step 0: {n_abn} ABN layers through the lean op, {len(calls) - n_abn} with "
+          f"the default", flush=True)
+    if not n_abn or len(calls) != n_abn:
+        fail("the lean BN step did not run through ops/lean_bn.py, or the default did")
+    hold_step("lean BN step 0 against the default BN (the library's distance: the "
+              "default BN with cuDNN's grouped conv)", (loss_lean, loss_def, loss_lib),
+              (grads_lean, grads_def, grads_lib))
+    del model, start, batch, grads_lean, grads_def, grads_lib
+    torch.cuda.empty_cache()
+
+    # the lean op on the card against its float32 CPU counterpart
+    g = torch.Generator().manual_seed(11)
+    y = torch.randn((4, 64, 24, 40), generator=g) * 1.5 + 0.3
+    scale, bias = torch.rand(64, generator=g) + 0.5, torch.randn(64, generator=g) * 0.2
+    ct = torch.randn(y.shape, generator=g)
+    lean_cmp = {}
+    for where in ("cpu", "cuda"):
+        ins = [t.detach().to(where).requires_grad_(True) for t in (y, scale, bias)]
+        a, mean, var = lean_bn.lean_bn_act(*ins, 1e-5, "leaky_relu", 0.01)
+        a.backward(ct.to(where))
+        lean_cmp[where] = [t.detach().cpu() for t in (a, mean, var)] + [
+            t.grad.cpu() for t in ins]
+    lean_cpu_err = max(float((c - r).abs().max() / (r.abs().max() + 1e-12))
+                       for c, r in zip(lean_cmp["cuda"], lean_cmp["cpu"]))
+    print(f"  lean_bn_act float32 on the card vs the CPU (a, mean, var, dy, dscale, dbias): "
+          f"max error {lean_cpu_err:.3g} of each tensor's largest value (need <= 1e-5)",
+          flush=True)
+    if lean_cpu_err > 1e-5:
+        fail(f"lean_bn_act on the card disagrees with the CPU: {lean_cpu_err}")
+    later["lean_train_plain"] = {
+        "launches": lean_out["lean"]["launches"], "cpu_rel_err": lean_cpu_err,
+        **{f"{impl}_{k}": v for impl, o in lean_out.items() for k, v in o.items()
+           if k in ("step_ms_p50_p95", "peak_memory_gb", "losses")}}
+
+    # 11b. train_conf --vis at phase 4c's operating point
+    print(f"main path: cli.train_conf --vis --log_everyn 1, 4c's point (batch {N_ADV}, 6 "
+          f"cyclegan critics, --moddrop --irscale, IR teacher), 2 critic + 2 seg steps, and "
+          f"the same run without --vis", flush=True)
+    vis_kernels_counts, vis_checks, vis_ms = [], [], []
+    real_render = train_conf.render_vis
+
+    def vis_maps(model, batch):
+        flags = [(m, m.training) for m in model.modules()]
+        model.eval()
+        try:
+            with torch.no_grad():
+                out = model([batch["rgb_day"], batch["ir_day"]],
+                            [batch["rgb_night"], batch["ir_night"]])
+        finally:
+            for m, t in flags:
+                m.training = t
+        return torch.stack([out["pred_label_a"][0].argmax(-1),
+                            out["pred_label_b"][0].argmax(-1)])
+
+    def plain_fused(x, w, scale, bias, groups, dilation=1, act="relu", slope=0.01):
+        return gc.grouped_conv3x3_plain(x, w, groups, dilation, scale, bias, act, slope)
+
+    def counted_render(model, batch, it, vis_dir, modalities, cert_branch=False):
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        rng = (torch.get_rng_state(), torch.cuda.get_rng_state())
+        torch.cuda.synchronize()
+        before, t0 = counts(), time.perf_counter()
+        paths = real_render(model, batch, it, vis_dir, modalities, cert_branch)
+        torch.cuda.synchronize()
+        vis_ms.append((time.perf_counter() - t0) * 1e3)
+        vis_kernels_counts.append({k: v - before[k] for k, v in counts().items()})
+        same = (all(torch.equal(v, state[k]) for k, v in model.state_dict().items())
+                and torch.equal(rng[0], torch.get_rng_state())
+                and torch.equal(rng[1], torch.cuda.get_rng_state())
+                and all(m.training for m in model.modules()))
+        maps_k = vis_maps(model, batch)
+        with mock.patch.object(gc, "grouped_conv3x3_fused", plain_fused):
+            maps_p = vis_maps(model, batch)
+        vis_checks.append((same, float((maps_k == maps_p).float().mean())))
+        del state
+        return paths
+
+    class DeterministicResize(torch.autograd.Function):
+        """``F.interpolate``'s bilinear resize with a backward that takes the
+        same sums in a fixed order (the interpolation matrices, one einsum):
+        the CUDA backward adds with atomics, so the critics' resizes make a
+        seg step's gradient differ in its last bits from run to run."""
+
+        @staticmethod
+        def forward(ctx, x, hw):
+            ctx.in_hw = x.shape[2:]
+            return F.interpolate(x, size=hw, mode="bilinear", align_corners=False)
+
+        @staticmethod
+        def backward(ctx, dy):
+            def weights(n_in, n_out):
+                eye = torch.eye(n_in, device=dy.device, dtype=dy.dtype)[None]
+                return F.interpolate(eye, size=n_out, mode="linear", align_corners=False)[0]
+
+            ay, ax = weights(ctx.in_hw[0], dy.shape[2]), weights(ctx.in_hw[1], dy.shape[3])
+            return torch.einsum("ncHW,hH,wW->nchw", dy, ay, ax), None
+
+    def deterministic_resize(x, hw):
+        if tuple(x.shape[2:]) == tuple(hw):
+            return x
+        return DeterministicResize.apply(x, tuple(hw))
+
+    def vis_run(vis: bool, tag: str):
+        argv = ["--dataroot", adv_pack, "--batch_size", str(N_ADV), "--discarch",
+                "cyclegan", "--num_critics", "6", "--moddrop", "--irscale",
+                "--night_supervision_model", teacher_ckpt,
+                "--iter_initial_critic_phase", "2", "--iter_critic_phase", "2",
+                "--iter_seg_phase", "2", "--n_epochs", "1", "--log_everyn", "1",
+                "--checkpointname", os.path.join(work, f"vis_{tag}"),
+                "--log_dir", os.path.join(work, f"runs_11b_{tag}")] + (
+                    ["--vis"] if vis else [])
+        with mock.patch.object(train_conf, "render_vis", counted_render), \
+                mock.patch.object(critics_module, "resize_bilinear", deterministic_resize):
+            return train_conf.main(argv)
+
+    # why: the CUDA backward of a critic-sized bilinear upsample, repeated
+    x_up = torch.randn((N_ADV, 1, 10, 20), device=dev, requires_grad=True)
+    dy_up = torch.randn((N_ADV, 1) + CROP, device=dev)
+    up_grads = set()
+    for _ in range(8):
+        x_up.grad = None
+        F.interpolate(x_up, size=CROP, mode="bilinear", align_corners=False).backward(dy_up)
+        up_grads.add(x_up.grad.cpu().numpy().tobytes())
+    del x_up, dy_up
+    torch.backends.cudnn.deterministic = True
+    no_vis = vis_run(False, "plain")
+    with_vis = vis_run(True, "vis")
+    vis_dir = os.path.join(work, "runs_11b_vis", "vis")
+    names = sorted(os.listdir(vis_dir))
+    want_names = sorted(f"{it:07d}_{n}.png" for it in range(1, 5)
+                        for n in ("label_day", "label_night", "rgb_day", "ir_day"))
+    same_losses = with_vis.losses == no_vis.losses
+    torch.backends.cudnn.deterministic = False
+    want_vis = {"ingest": 0, "grouped_conv3x3": 0, "grouped_conv3x3_fused": 32,
+                "grouped_conv3x3_dx": 0}
+    print(f"  phases {with_vis.phases}; {len(names)} panels {names[:5]}...; launches per vis "
+          f"forward {vis_kernels_counts} (want {want_vis}: the segnet's 16 per day and "
+          f"night forward, fused); vis ms per log point {[round(v, 1) for v in vis_ms]}",
+          flush=True)
+    print(f"  model, RNG and train flags unchanged by every vis forward: "
+          f"{[c[0] for c in vis_checks]}; label maps (frame 0, day and night) against the "
+          f"plain versions: {[round(c[1], 6) for c in vis_checks]} (need >= "
+          f"{MIN_AGREEMENT})", flush=True)
+    print(f"  losses with --vis {with_vis.losses}; without {no_vis.losses}; equal bit for "
+          f"bit: {same_losses} (both runs: cuDNN deterministic, the critics' resizes with "
+          f"a fixed-order backward; F.interpolate's own backward of a 10x20 -> "
+          f"{CROP[0]}x{CROP[1]} upsample gave {len(up_grads)} distinct gradients in 8 "
+          f"repeats)", flush=True)
+    if (names != want_names or len(vis_kernels_counts) != 4
+            or any(c != want_vis for c in vis_kernels_counts)
+            or not all(c[0] for c in vis_checks)
+            or any(c[1] < MIN_AGREEMENT for c in vis_checks)):
+        fail(f"train_conf --vis: panels {names}, launches {vis_kernels_counts}, checks "
+             f"{vis_checks}")
+    if not same_losses:
+        fail("the --vis run's losses differ from the run without --vis")
+    later["train_conf_vis"] = {
+        "launches": {k: sum(c[k] for c in vis_kernels_counts) for k in want_vis},
+        "panels": len(names), "vis_ms": vis_ms, "losses_equal": same_losses,
+        "agreement": [c[1] for c in vis_checks],
+        "interpolate_backward_distinct_in_8": len(up_grads)}
+    torch.cuda.empty_cache()
+
+    # 11c. CLAHE in the Vistas loaders
+    clahe_root = write_vistas_tree(os.path.join(work, "clahe_vistas"), 8, 12)
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+
+    def cv2_clahe(image_bgr, clip_limit=2.0, grid=8):
+        lab = cv2.cvtColor(image_bgr, cv2.COLOR_BGR2LAB)
+        lab[..., 0] = cv2.createCLAHE(clipLimit=clip_limit,
+                                      tileGridSize=(grid, grid)).apply(lab[..., 0])
+        return cv2.cvtColor(lab, cv2.COLOR_LAB2RGB)
+
+    def items(ds, n):
+        t0 = time.perf_counter()
+        out = [ds[i] for i in range(n)]
+        return out, (time.perf_counter() - t0) * 1e3 / n
+
+    clahe_ms, clahe_equal = {}, {}
+    for name, make in (("vistas_eval", lambda ce: VistasDataset(
+                            clahe_root, 768, 384, augment_data=False,
+                            contrast_enhancement=ce)),
+                       ("vistas_train", lambda ce: VistasDataset(
+                            clahe_root, 768, 384, contrast_enhancement=ce, seed=3)),
+                       ("borders_default", lambda ce: VistasBordersDataset(
+                            os.path.join(work, "borders", "paths.txt"), 768, 384,
+                            **({} if ce else {"contrast_enhancement": False}), seed=3))):
+        n = 4
+        got, clahe_ms[name] = items(make(True), n)
+        _, clahe_ms[name + "_without"] = items(make(False), n)
+        if cv2 is not None:
+            with mock.patch.object(loaders, "apply_clahe", cv2_clahe):
+                want, _ = items(make(True), n)
+            clahe_equal[name] = all(np.array_equal(a[k], b[k]) for a, b in zip(got, want)
+                                    for k in b)
+    if cv2 is not None:
+        px = np.random.RandomState(13).randint(0, 256, (1 << 20, 1, 3)).astype(np.uint8)
+        clahe_equal["bgr2lab_2^20"] = np.array_equal(clahe.bgr_to_lab(px),
+                                                     cv2.cvtColor(px, cv2.COLOR_BGR2LAB))
+        clahe_equal["lab2rgb_2^20"] = np.array_equal(clahe.lab_to_rgb(px),
+                                                     cv2.cvtColor(px, cv2.COLOR_LAB2RGB))
+    print(f"  11c. CLAHE: host ms per item {({k: round(v, 1) for k, v in clahe_ms.items()})}"
+          f" (1024x768 Vistas frames, 768x384 borders frames, one thread); equal to cv2 "
+          f"{cv2.__version__ if cv2 else '(cv2 does not import)'} on every pixel: "
+          f"{clahe_equal}", flush=True)
+    if cv2 is not None and not all(clahe_equal.values()):
+        fail(f"CLAHE differs from cv2: {clahe_equal}")
+    later["clahe"] = {"launches": {}, "host_ms_per_item": clahe_ms, "equal_cv2": clahe_equal}
+
+    # 11d. cli.main data parallel as one process under a launcher's environment
+    print("main path: cli.main (structure 1 1 1 1, batch 4 of 192x384, 2 steps and a "
+          "validation) alone and as rank 0 of 1 under a torchrun-style environment (NCCL)",
+          flush=True)
+    main_tree = clahe_root
+    dp_out = {}
+    torch.backends.cudnn.deterministic = True
+    for tag in ("plain", "nccl"):
+        argv = ["--data", main_tree, "--valdata", main_tree, "--width", "384", "--height",
+                "192", "--batch-size", "4", "--epochs", "1", "--structure", "1", "1", "1",
+                "1", "--checkpoint-dir", os.path.join(work, f"dp_{tag}"), "--log-dir",
+                os.path.join(work, "runs_11d"), "-j", "8"]
+        for k in all_kernels:
+            k.launches = 0
+        env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+               "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+        with mock.patch.dict(os.environ, env if tag == "nccl" else {}):
+            run = main_cli.main(argv)
+            backend = (torch.distributed.get_backend() if torch.distributed.is_initialized()
+                       else None)
+            if backend is not None:
+                torch.distributed.destroy_process_group()
+        dp_out[tag] = {"launches": counts(), "losses": run.losses, "mious": run.mious,
+                       "backend": backend, "state": torch.load(
+                           run.checkpoint, map_location="cpu", weights_only=True)}
+    torch.backends.cudnn.deterministic = False
+    a, b = dp_out["plain"], dp_out["nccl"]
+    same_state = all(torch.equal(v, b["state"]["state_dict"][k])
+                     for k, v in a["state"]["state_dict"].items())
+    print(f"  plain: losses {a['losses']}, mIoU {a['mious']}, launches {a['launches']}",
+          flush=True)
+    print(f"  rank 0 of 1 ({b['backend']}): losses {b['losses']}, mIoU {b['mious']}, "
+          f"launches {b['launches']}; equal bit for bit: losses "
+          f"{a['losses'] == b['losses']}, IoUs {a['mious'] == b['mious']}, weights and BN "
+          f"statistics after the steps {same_state}; 2 ranks on one card cannot share "
+          f"NCCL, so a 2-card run is not made here", flush=True)
+    if (b["backend"] != "nccl" or a["losses"] != b["losses"] or a["mious"] != b["mious"]
+            or not same_state or a["launches"] != b["launches"] or len(a["losses"]) != 2):
+        fail("cli.main under the launcher's environment differs from the plain run")
+    later["main_data_parallel"] = {"launches": b["launches"], "losses": b["losses"],
+                                   "mious": b["mious"]}
+    del dp_out
+    torch.cuda.empty_cache()
+
+    # 11e. profiling: trace, annotate and scan_benchmark in a child process
+    prof_out = os.path.join(work, "profile_serving.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--profile-serving",
+                           prof_out], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"the profiling child failed: {proc.stderr[-3000:]}")
+    with open(prof_out) as f:
+        prof = json.load(f)
+    print(f"  11e. 3 batch-{N_BATCH} serving forwards ({H_IN}x{W_IN}) in trace/annotate "
+          f"(child process, {time.perf_counter() - t0:.1f} s): trace events: ingest "
+          f"kernels {prof['ingest_events']}, grouped-conv kernels {prof['gc_events']}, "
+          f"'{prof['span']}' spans {prof['span_events']}; launches {prof['launches']}; "
+          f"scan_benchmark {prof['scan_ms']:.3f} ms per forward, CUDA events p50 "
+          f"{prof['event_ms_p50']:.3f} ms", flush=True)
+    if (prof["ingest_events"] < 3 or prof["gc_events"] < 48 or prof["span_events"] < 3
+            or prof["launches"] != {"ingest": 3, "grouped_conv3x3": 0,
+                                    "grouped_conv3x3_fused": 48, "grouped_conv3x3_dx": 0}
+            or not prof["scan_ms"] > 0):
+        fail(f"the profiling trace: {prof}")
+    later["profile_serving"] = prof
+    print(f"  phases 11a-11e: {time.perf_counter() - t_11:.1f} s", flush=True)
+
+    # 12. the record: each kernel's launches on every path, read around it
     paths = {"serving": launches, "train_plain": train_launches, "train_conf": adv_launches,
              **{name: r["launches"] for name, r in later.items()}}
 

@@ -24,14 +24,28 @@ supervised step (``train/supervised.py``).
 (``auto``: this run's own checkpoint) restores the weights, the epoch and
 the best mIoU; ``--evaluate`` validates and returns the mIoU.
 
+Data parallelism (JAX's mesh, :76-85, :137, :171-219): under PyTorch's
+launcher (``torchrun --nproc_per_node N``: one process per card, or gloo
+processes with ``--device cpu``), ``parallel/mesh.py`` joins the process
+group and builds a ``(data, model)`` mesh whose ``data`` size divides the
+batch. Every process reads the same global batch and trains on its rows:
+the weights start equal (a broadcast from rank 0), the loss is each
+process's summed cross-entropy over the whole batch's valid count, the
+gradients are summed over ``data``, and train-mode BN statistics span the
+whole batch; so a step equals one process's step on the whole batch. The
+validation batch rounds up to a multiple of the ``data`` size and the
+confusion matrices are summed over it. The first process writes the
+checkpoints and the run log (the others log under ``rank<r>/``).
 ``--world-size``, ``--dist-url`` and ``--dist-backend`` are accepted for the
-reference's command lines; the port trains on one card. Weights are random
-from seed 0, dropout masks come from a ``torch.Generator`` seeded 1. Runs on
-the card unless ``--device cpu``.
+reference's command lines; the launcher's environment sets the world.
+Weights are random from seed 0, dropout masks come from a
+``torch.Generator`` seeded 1 (drawn for the whole batch, each process
+taking its rows). Runs on the card unless ``--device cpu``.
 
 Usage::
 
     python -m heatnet_tpu_torch.cli.main --data VISTAS_TRAIN --valdata VISTAS_VAL
+    torchrun --nproc_per_node 2 -m heatnet_tpu_torch.cli.main --data ... --device cpu
 """
 
 from __future__ import annotations
@@ -52,6 +66,9 @@ from ..io.checkpoint import (best_iou_tracker, resolve_auto_resume, restore_part
                              save_checkpoint)
 from ..io.logging import AverageMeter, RunLogger
 from ..models import NormAct, ResNeXtSeg, build_network, get_model
+from ..parallel.mesh import (data_group, data_parallel, data_size,
+                             maybe_initialize_distributed, mesh_for_batch, replicate,
+                             shard_batch)
 from ..train.optim import create_optimizer, poly_lr
 from ..train.state import TrainState, init_model
 from ..train.supervised import IGNORE_INDEX, make_eval_step, make_train_step
@@ -74,7 +91,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resume", default="", type=str, metavar="PATH")
     parser.add_argument("-e", "--evaluate", dest="evaluate", action="store_true")
     parser.add_argument("--world-size", default=1, type=int,
-                        help="accepted for parity; the port trains on one card")
+                        help="accepted for parity; the launcher's WORLD_SIZE sets the world")
     parser.add_argument("--dist-url", default="tcp://localhost:23456", type=str)
     parser.add_argument("--dist-backend", default="gloo", type=str)
     parser.add_argument("--config", default=None, type=str,
@@ -138,18 +155,25 @@ def main(argv=None) -> Union[MainRun, float]:
     """Train and return a ``MainRun``; with ``--evaluate`` return the mIoU."""
     args = build_parser().parse_args(argv)
     device = resolve(args.device)
-    logger = RunLogger("segnet", log_dir=args.log_dir)
+    distributed = maybe_initialize_distributed(device)
+    rank = torch.distributed.get_rank() if distributed else 0
 
     conf = load_config(args.config or DEFAULT_CONFIG)
     opt_conf = conf["optimizer"]
+    batch_size = args.batch_size or opt_conf["batch_size"]
+    mesh = mesh_for_batch(batch_size) if distributed else None
+    if mesh is not None and mesh.get_coordinate() is None:
+        print(f"rank {rank} idles: the batch of {batch_size} does not use it")
+        return MainRun([], [], [], [], "", 0.0)
+    d = data_size(mesh)
+    logger = RunLogger("segnet", log_dir=args.log_dir if rank == 0
+                       else os.path.join(args.log_dir, f"rank{rank}"))
     model = init_model(build_model(args, conf), seed=0, device=device)
     if conf["tpu"]["compute_dtype"] != "bfloat16":
         for m in model.modules():
             if hasattr(m, "compute_dtype"):
                 m.compute_dtype = torch.float32
     has_dropout = args.arch == "pspnet"
-
-    batch_size = args.batch_size or opt_conf["batch_size"]
     epochs = args.epochs or opt_conf["schedule"]["epochs"]
 
     train_ds = VistasDataset(args.data, width=args.width, height=args.height)
@@ -171,26 +195,37 @@ def main(argv=None) -> Union[MainRun, float]:
         start_epoch = int(saved.get("epoch", 0))
         track_best.state["best"] = float(saved.get("best_iou", 0.0))
         print(f"=> resumed from {resume} (epoch {start_epoch})")
+    if mesh is not None:
+        replicate(mesh, model)
 
-    train_step = make_train_step(model)
+    train_step = make_train_step(model, mesh=mesh)
     eval_step = make_eval_step(model, num_classes=14)
+    eval_bs = -(-EVAL_BATCH // d) * d
 
     def validate() -> float:
         """mIoU over the validation tree; the ragged tail is padded with
         label 13, whose confusion row ``IoU(..., [12, 13])`` zeroes."""
         metric = IoU(14, False, [12, 13])
-        for batch in batch_iterator(val_ds, batch_size=EVAL_BATCH, shuffle=False,
+        total = None
+        for batch in batch_iterator(val_ds, batch_size=eval_bs, shuffle=False,
                                     drop_last=False, workers=args.workers):
             image, label = batch["image"], batch["label"]
             n = image.shape[0]
-            if n < EVAL_BATCH:
-                image = np.concatenate([image, np.zeros((EVAL_BATCH - n,) + image.shape[1:],
+            if n < eval_bs:
+                image = np.concatenate([image, np.zeros((eval_bs - n,) + image.shape[1:],
                                                         image.dtype)])
-                label = np.concatenate([label, np.full((EVAL_BATCH - n,) + label.shape[1:],
+                label = np.concatenate([label, np.full((eval_bs - n,) + label.shape[1:],
                                                        IGNORE_INDEX, label.dtype)])
+            image, label = shard_batch(mesh, (image, label))
             conf_mat = eval_step(state, {"image": to_device(image, device),
                                          "label": to_device(label, device)})
-            metric.add_confusion(conf_mat.cpu().numpy())
+            if mesh is None:
+                metric.add_confusion(conf_mat.cpu().numpy())
+            else:
+                total = conf_mat if total is None else total + conf_mat
+        if total is not None:  # the counts of every process's rows
+            torch.distributed.all_reduce(total, group=data_group(mesh))
+            metric.add_confusion(total.cpu().numpy())
         iou, miou = metric.value()
         print(f" * mIoU {miou:.4f}")
         logger.log({"val_mIoU": miou, **{f"val_IoU_{i}": float(v) for i, v in enumerate(iou)}})
@@ -203,46 +238,50 @@ def main(argv=None) -> Union[MainRun, float]:
         return miou
 
     generator = torch.Generator().manual_seed(1)
-    for epoch in range(start_epoch, epochs):
-        batch_time, data_time, losses = AverageMeter(), AverageMeter(), AverageMeter()
-        end = time.time()
-        for i, batch in enumerate(batch_iterator(train_ds, batch_size, shuffle=True,
-                                                 seed=epoch, workers=args.workers)):
-            if i >= steps_per_epoch:
-                break
-            data_time.update(time.time() - end)
-            t0 = time.perf_counter()
-            n = batch["image"].shape[0]
-            dropout = model.draw_dropout(n, generator) if has_dropout else None
-            state, metrics = train_step(state, {
-                "image": to_device(batch["image"], device),
-                "label": to_device(batch["label"], device).long()}, dropout)
-            loss = float(metrics["loss"])  # waits for the step
-            run.step_seconds.append(time.perf_counter() - t0)
-            run.data_seconds.append(data_time.val)
-            run.losses.append(loss)
-            losses.update(loss, n)
-            batch_time.update(time.time() - end)
+    with data_parallel(mesh):  # train-mode BN statistics over the whole batch
+        for epoch in range(start_epoch, epochs):
+            batch_time, data_time, losses = AverageMeter(), AverageMeter(), AverageMeter()
             end = time.time()
-            if i % args.print_freq == 0:
-                print(f"Epoch: [{epoch}][{i}/{steps_per_epoch}]\t"
-                      f"Time {batch_time.val:.3f} ({batch_time.avg:.3f})\t"
-                      f"Data {data_time.val:.3f} ({data_time.avg:.3f})\t"
-                      f"Loss {losses.val:.4f} ({losses.avg:.4f})")
-                logger.log({"epoch": epoch, "loss": losses.avg,
-                            "batch_time": batch_time.avg})
+            for i, batch in enumerate(batch_iterator(train_ds, batch_size, shuffle=True,
+                                                     seed=epoch, workers=args.workers)):
+                if i >= steps_per_epoch:
+                    break
+                data_time.update(time.time() - end)
+                t0 = time.perf_counter()
+                n = batch["image"].shape[0]
+                dropout = model.draw_dropout(n, generator) if has_dropout else None
+                image, label, dropout = shard_batch(mesh, (batch["image"], batch["label"],
+                                                           dropout))
+                state, metrics = train_step(state, {
+                    "image": to_device(image, device),
+                    "label": to_device(label, device).long()}, dropout)
+                loss = float(metrics["loss"])  # waits for the step
+                run.step_seconds.append(time.perf_counter() - t0)
+                run.data_seconds.append(data_time.val)
+                run.losses.append(loss)
+                losses.update(loss, n)
+                batch_time.update(time.time() - end)
+                end = time.time()
+                if i % args.print_freq == 0:
+                    print(f"Epoch: [{epoch}][{i}/{steps_per_epoch}]\t"
+                          f"Time {batch_time.val:.3f} ({batch_time.avg:.3f})\t"
+                          f"Data {data_time.val:.3f} ({data_time.avg:.3f})\t"
+                          f"Loss {losses.val:.4f} ({losses.avg:.4f})")
+                    logger.log({"epoch": epoch, "loss": losses.avg,
+                                "batch_time": batch_time.avg})
 
-        miou = validate()
-        if epoch % 2 == 0:
-            is_best = track_best(miou)
-            os.makedirs(args.checkpoint_dir, exist_ok=True)
-            run.checkpoint = save_checkpoint(
-                {"epoch": epoch + 1, "arch": args.arch, "state_dict": model.state_dict(),
-                 "best_iou": track_best.state["best"]}, ckpt_path, is_best=is_best)
+            miou = validate()
+            if epoch % 2 == 0:
+                is_best = track_best(miou)
+                if rank == 0:
+                    os.makedirs(args.checkpoint_dir, exist_ok=True)
+                    run.checkpoint = save_checkpoint(
+                        {"epoch": epoch + 1, "arch": args.arch,
+                         "state_dict": model.state_dict(),
+                         "best_iou": track_best.state["best"]}, ckpt_path, is_best=is_best)
     logger.finish()
     run.best_iou = track_best.state["best"]
     return run
-
 
 if __name__ == "__main__":
     main()

@@ -23,6 +23,12 @@ flags and defaults and ``--device``:
   which the confusion matrix drops; ``calculate_result`` of the summed
   matrix prints the overall accuracy and the mean IoU of classes 1-8.
 
+Under PyTorch's launcher the process group is joined first
+(``parallel/mesh.py::maybe_initialize_distributed``, :63-75), and with more
+than one process the evaluation runs data parallel over a mesh of all of
+them (:125-158): the batch rounds up to a multiple of the process count,
+each process runs its rows, and the confusion matrices are summed.
+
 The model computes in float32 on the card too (``prepare_for_training(...,
 dtype=torch.float32)``); convolutions follow PyTorch's TF32 settings. The
 transforms keep their ``RandomState``s across epochs and ``batch_iterator``'s
@@ -57,6 +63,8 @@ from ..io.logging import AverageMeter, RunLogger
 from ..models import MFNet, RTFNet, SegNetBaseline
 from ..models.layers import init_params, prepare_for_training
 from ..ops.iou import confusion_matrix
+from ..parallel.mesh import (create_mesh, data_group, data_size,
+                             maybe_initialize_distributed, shard_batch)
 from ..train.supervised import cross_entropy_ignore
 
 N_CLASS = 9
@@ -143,22 +151,29 @@ def harness_frames(ds: MFNetDataset) -> Iterator[Dict[str, np.ndarray]]:
 
 
 def evaluate(model: nn.Module, data_dir: str, split: str, device: torch.device,
-             run: Optional[BaselineRun] = None, logger: Optional[RunLogger] = None
-             ) -> np.ndarray:
+             run: Optional[BaselineRun] = None, logger: Optional[RunLogger] = None,
+             mesh=None) -> np.ndarray:
     """The (9, 9) int64 confusion matrix of ``split`` (rows GT), counted on
-    the device over eval-mode batches of 8; prints and logs the overall
-    accuracy and mean IoU. ``model`` returns to train mode."""
+    the device over eval-mode batches of 8 (with a ``mesh``, this process's
+    rows of batches rounded up to its ``data`` size, summed over the
+    processes); prints and logs the overall accuracy and mean IoU. ``model``
+    returns to train mode."""
     ds = MFNetDataset(data_dir, split=split)
     cf = torch.zeros((N_CLASS, N_CLASS), dtype=torch.long, device=device)
+    d = data_size(mesh)
     t0 = time.perf_counter()
     model.eval()
     try:
         with torch.no_grad():
-            for batch, _ in batched(harness_frames(ds), EVAL_BATCH, pad_label=N_CLASS):
-                pred = model(to_device(batch["image"], device)).argmax(dim=-1)
-                cf += confusion_matrix(pred, to_device(batch["label"], device), N_CLASS)
+            for batch, _ in batched(harness_frames(ds), -(-EVAL_BATCH // d) * d,
+                                    pad_label=N_CLASS):
+                image, label = shard_batch(mesh, (batch["image"], batch["label"]))
+                pred = model(to_device(image, device)).argmax(dim=-1)
+                cf += confusion_matrix(pred, to_device(label, device), N_CLASS)
     finally:
         model.train()
+    if d > 1:
+        torch.distributed.all_reduce(cf, group=data_group(mesh))
     cf = cf.cpu().numpy()
     overall_acc, _, iou = calculate_result(cf)
     miou = float(np.nanmean(iou[1:]))
@@ -177,6 +192,11 @@ def evaluate(model: nn.Module, data_dir: str, split: str, device: torch.device,
 def main(argv=None) -> BaselineRun:
     args = build_parser().parse_args(argv)
     device = resolve(args.device)
+    # join the launcher's process group before any work (:72-75); eval rides
+    # every process (:129-132)
+    eval_mesh = None
+    if maybe_initialize_distributed(device) and torch.distributed.get_world_size() > 1:
+        eval_mesh = create_mesh()
     logger = RunLogger("baseline-" + args.model_name, log_dir=args.log_dir)
     logger.update_config(args)
 
@@ -190,7 +210,7 @@ def main(argv=None) -> BaselineRun:
     run = BaselineRun()
 
     if args.test:
-        evaluate(model, args.data_dir, "combined", device, run, logger)
+        evaluate(model, args.data_dir, "combined", device, run, logger, eval_mesh)
         logger.finish()
         return run
 
@@ -216,7 +236,7 @@ def main(argv=None) -> BaselineRun:
         run.checkpoint = save_checkpoint({"epoch": epo, "state_dict": model.state_dict()},
                                          args.checkpointname)
     for split in ("day", "night"):
-        evaluate(model, args.data_dir, split, device, run, logger)
+        evaluate(model, args.data_dir, split, device, run, logger, eval_mesh)
     logger.finish()
     run.loss_avg = loss_meter.avg
     return run

@@ -54,8 +54,12 @@ Checkpoints are ``torch.save({"epoch", "state_dict", "best_iou"})`` files.
 The logged loss averages take the losses of the log points only, as the
 JAX trainer's do.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
-``--vis`` (8).
+``--vis`` (:352-403) renders, at every log point, the day and night class
+maps with a dot per critic (green where the critic's mean output is above
+0.5), the day RGB and IR, and with ``--cert_branch`` the day certainty, to
+``<log_dir>/vis/<step>_{label_day,label_night,rgb_day,ir_day,cert_day}.png``
+(``render_vis``). Its forward is the eval-mode model on the running
+statistics, so it changes nothing that trains.
 
 Usage::
 
@@ -68,6 +72,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import os
 import time
 from typing import Dict, List
 
@@ -91,6 +96,7 @@ from ..train.adversarial import (AdversarialConfig, PhaseMachine, draw_seg_aug,
                                  make_adversarial_steps, make_phase_optimizers)
 from ..train.optim import step_lr
 from ..train.state import init_model
+from ..utils.vis import color_code_labels, draw_critic_labels, save_image, vis_depth
 
 MF_CROP = (384, 384)  # MFNet's train crop (train_conf.py:319)
 
@@ -178,9 +184,6 @@ class TrainConfRun:
 
 
 def _refuse_unported(opt: argparse.Namespace) -> None:
-    if opt.vis:
-        raise NotImplementedError("--vis is not ported to heatnet_tpu_torch yet "
-                                  "(ROADMAP item 8)")
     if opt.trainsetname not in ("FR", "MF"):
         raise SystemExit(f"Dataset {opt.trainsetname} not known")
     if opt.trainsetname == "MF" and opt.moddrop:
@@ -194,6 +197,51 @@ def eval_copy(segnet: torch.nn.Module, device: torch.device) -> torch.nn.Module:
     casts weights in place and sets eval mode, which must not reach the
     network that trains."""
     return prepare_for_inference(copy.deepcopy(segnet), device)
+
+
+def render_vis(model: ConfSegnet, batch: Dict[str, torch.Tensor], it: int, vis_dir: str,
+               modalities: str, cert_branch: bool = False) -> List[str]:
+    """``--vis`` at one log point (train_conf.py:357-403): one eval-mode
+    forward of ``model`` over the batch, then the panels of its first frame
+    as PNGs (a critic's verdict is its mean over the whole batch); returns
+    their paths.
+
+    The forward runs without gradient and in eval mode, so BN normalises
+    with the running statistics and updates none (on the card the grouped
+    convs take the fused kernel), weights are cast per call and no random
+    draw is made; every module's train flag is restored after it."""
+    day = [batch[k] for k in ("rgb_day", "ir_day") if k.split("_")[0] in modalities]
+    night = [batch[k] for k in ("rgb_night", "ir_night") if k.split("_")[0] in modalities]
+    flags = [(m, m.training) for m in model.modules()]
+    model.eval()
+    try:
+        with torch.no_grad():
+            out = model(day, night)
+    finally:
+        for m, training in flags:
+            m.training = training
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.float().cpu().numpy()
+
+    panels = {}
+    for side, name in (("a", "label_day"), ("b", "label_night")):
+        img = color_code_labels(host(out[f"pred_label_{side}"][0].argmax(-1)))
+        if f"critics_{side}" in out:  # visSegDisc-style dots
+            img = draw_critic_labels(img, [bool(c.float().mean() > 0.5)
+                                           for c in out[f"critics_{side}"]])
+        panels[name] = img
+    if "rgb" in modalities:
+        panels["rgb_day"] = host(batch["rgb_day"][0]) * 0.5 + 0.5
+    if "ir" in modalities:
+        panels["ir_day"] = vis_depth(host(batch["ir_day"][0]))
+    if cert_branch and out.get("cert_a") is not None:
+        panels["cert_day"] = vis_depth(host(out["cert_a"][0, ..., 0]))
+    paths = []
+    for name, img in panels.items():
+        paths.append(os.path.join(vis_dir, f"{it:07d}_{name}.png"))
+        save_image(paths[-1], img)
+    return paths
 
 
 def _fr_test_set(roots) -> FreiburgThermalTestDataset:
@@ -331,6 +379,9 @@ def main(argv=None):
     pm = PhaseMachine(cfg, no_conf=opt.no_conf)
     eval_everyn = opt.eval_everyn or (20 if mfnet else 2)  # (:349)
     log_everyn = max(opt.log_everyn, 1)
+    vis_dir = os.path.join(opt.log_dir, "vis") if opt.vis else ""
+    if vis_dir:
+        os.makedirs(vis_dir, exist_ok=True)
     meters = {k: AverageMeter() for k in
               ("total_phase1", "total_phase2", "seg", "conf", "critic")}
 
@@ -373,6 +424,9 @@ def main(argv=None):
                                 "critic_loss": meters["critic"].avg})
                 print("Current loss: %f " % meters[
                     "total_phase1" if phase == "train_seg" else "total_phase2"].avg)
+                if vis_dir:
+                    render_vis(model, batch, state.step, vis_dir, opt.modalities,
+                               opt.cert_branch)
 
         bundle = lambda: {"epoch": epoch + 1, "state_dict": model.state_dict(),
                           "best_iou": best_track.state["best"]}

@@ -32,6 +32,7 @@ from ..data.loaders import KAISTCycleGANDataset, batch_iterator, to_device
 from ..device import resolve
 from ..io.checkpoint import save_checkpoint
 from ..io.logging import AverageMeter, RunLogger
+from ..parallel.mesh import maybe_initialize_distributed
 from ..models import ResNeXtSeg
 from ..models.cyclegan import Discriminator, Generator
 from ..train.cyclegan import (NET_NAMES, CycleGANState, DeviceReplayBuffer,
@@ -88,6 +89,9 @@ def device_batch(batch, device: torch.device) -> dict:
 def main(argv=None) -> float:
     opt = build_parser().parse_args(argv)
     device = resolve(opt.device)
+    # under a launcher, join its process group before any work (:56-59); each
+    # process then trains the same nets, as the JAX trainer's processes do
+    maybe_initialize_distributed(device)
     logger = RunLogger("cyclegan", log_dir=opt.log_dir)
 
     nets = build_nets(opt, device)

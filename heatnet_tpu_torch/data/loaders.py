@@ -57,6 +57,7 @@ import torch
 from ..device import resolve
 from ..ops.preprocess import (TRAIN_WINDOW, draw_train_params,
                               mf_train_sample_preprocess, train_sample_preprocess)
+from .clahe import apply_clahe
 from .png import _SIGNATURE as _PNG_SIGNATURE
 from .png import png_size, read_png, read_png_palette
 
@@ -737,7 +738,8 @@ class VistasDataset:
     (p 0.5), the Vistas mean and std. The eval chain resizes to width x
     height. The draws come from ``RandomState(seed)`` in the JAX loader's
     order; they depend on each frame's size (its PNG header) and on earlier
-    draws, not on its pixels. ``contrast_enhancement`` (CLAHE) raises.
+    draws, not on its pixels. ``contrast_enhancement`` runs CLAHE on the Lab
+    lightness plane (``data/clahe.py``) after the padding, as in JAX.
     """
 
     MEAN = (0.28389175985075144, 0.32513300997108185, 0.28689552631651594)
@@ -747,12 +749,10 @@ class VistasDataset:
                  augment_data: bool = True, sub_mean: bool = True,
                  background_id: int = 12, contrast_enhancement: bool = False,
                  seed: int = 0):
-        if contrast_enhancement:
-            raise NotImplementedError("contrast_enhancement (CLAHE) is not ported to "
-                                      "heatnet_tpu_torch yet (ROADMAP item 8)")
         self.width, self.height = width, height
         self.augment_data = augment_data
         self.sub_mean = sub_mean
+        self.contrast_enhancement = contrast_enhancement
         self.background_id = background_id
         self._rng = np.random.RandomState(seed)
 
@@ -800,6 +800,8 @@ class VistasDataset:
             ids = resize_and_pad(ids, (self.height, ids.shape[1]),
                                  pad_color=self.background_id, nearest=True)
             image = resize_and_pad(image, (self.height, image.shape[1]), pad_color=0)
+        if self.contrast_enhancement:
+            image = apply_clahe(swap_rb(image))
         if d is None:
             image = resize(image, (self.width, self.height))
             ids = resize(ids, (self.width, self.height), nearest=True)
@@ -904,8 +906,8 @@ class VistasBordersDataset:
     with 0). The train chain crops at random, flips (p 0.5) and jitters
     brightness, contrast and saturation (p 0.6) with the JAX loader's draws
     from ``RandomState(seed)``; the eval chain resizes to width x height.
-    ``contrast_enhancement`` (CLAHE, on by default as in JAX) raises: it is
-    not ported yet (ROADMAP item 8).
+    ``contrast_enhancement`` (on by default, as in JAX) runs CLAHE on the
+    Lab lightness plane (``data/clahe.py``) before the augmentation.
     """
 
     MEAN = (0.28389175985075144, 0.32513300997108185, 0.28689552631651594)
@@ -914,10 +916,8 @@ class VistasBordersDataset:
     def __init__(self, paths_file: str, width: int, height: int,
                  contrast_enhancement: bool = True, augment_data: bool = True,
                  sub_mean: bool = True, seed: int = 0):
-        if contrast_enhancement:
-            raise NotImplementedError("contrast_enhancement (CLAHE) is not ported to "
-                                      "heatnet_tpu_torch yet (ROADMAP item 8)")
         self.width, self.height = width, height
+        self.contrast_enhancement = contrast_enhancement
         self.augment_data = augment_data
         self.sub_mean = sub_mean
         self._rng = np.random.RandomState(seed)
@@ -950,6 +950,8 @@ class VistasBordersDataset:
             inst = resize_and_pad(inst, (self.height, inst.shape[1]), pad_color=11,
                                   nearest=True)
             image = resize_and_pad(image, (self.height, image.shape[1]), pad_color=0)
+        if self.contrast_enhancement:
+            image = apply_clahe(swap_rb(image))
 
         rng = self._rng
         if self.augment_data:

@@ -18,7 +18,13 @@ RGB-only model (PSPNet, ``--modalities rgb``) gets the normalised RGB.
 Float frames (MFNet's and BDD's, normalised on the host) pass through, cast
 to the model's compute dtype, as ``_device_normalize`` (:52-68) passes them.
 The three IoU count vectors accumulate on the device; a class map returns to
-the host as uint8 only to be saved. No mesh: the port evaluates on one card.
+the host as uint8 only to be saved.
+
+``mesh=`` (a ``parallel/mesh.py`` mesh, :72-140, :212-353) evaluates data
+parallel: the batch rounds up to a multiple of the ``data`` size, each
+process runs its rows, the counts are summed over the processes, and the
+class maps are gathered to every process; the first process writes the
+dumps.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from ..data.mappings import BDD_TO_HEATNET, HEATNET_TO_MFNET, mapping_to_lut
 from ..device import resolve
 from ..ops import fused_preproc
 from ..ops.iou import iou_counts, ious_from_counts
+from ..parallel.mesh import data_group, data_size, shard_batch
 
 # wandb key names per class (train_trgb_segnet_conf.py:611-625)
 _PER_CLASS_KEYS = [
@@ -47,11 +54,27 @@ DEFAULT_EVAL_BATCH = 16
 Device = Optional[Union[str, torch.device]]
 
 
-def eval_batch_size(batch_size: Optional[int] = None) -> int:
-    """``batch_size``, else ``HEATNET_EVAL_BATCH``, else 16."""
+def eval_batch_size(batch_size: Optional[int] = None, mesh=None) -> int:
+    """``batch_size``, else ``HEATNET_EVAL_BATCH``, else 16; rounded up to a
+    multiple of the mesh's ``data`` size."""
     if batch_size is None:
         batch_size = os.environ.get("HEATNET_EVAL_BATCH", DEFAULT_EVAL_BATCH)
-    return max(int(batch_size), 1)
+    d = data_size(mesh)
+    return -(-max(int(batch_size), 1) // d) * d
+
+
+def _gather_rows(mesh, pred: torch.Tensor) -> torch.Tensor:
+    """Every process's rows of a batch, in order (the identity without a mesh)."""
+    if data_size(mesh) == 1:
+        return pred
+    parts = [torch.empty_like(pred) for _ in range(data_size(mesh))]
+    torch.distributed.all_gather(parts, pred.contiguous(), group=data_group(mesh))
+    return torch.cat(parts)
+
+
+def _writes(mesh) -> bool:
+    """Whether this process writes the dumps (the first of the mesh)."""
+    return data_size(mesh) == 1 or mesh.get_local_rank("data") == 0
 
 
 def batched(frames: Iterable[Dict[str, np.ndarray]], batch_size: int, keys=None,
@@ -157,30 +180,34 @@ def _save_hook(save_dir: str) -> Optional[Callable]:
 def _accumulate(model, frames, modalities: str, device: Device, save_dir: str = "",
                 batch_size: Optional[int] = None, pad_label: int = 13,
                 pred_lut: Optional[np.ndarray] = None,
-                label_lut: Optional[np.ndarray] = None) -> np.ndarray:
+                label_lut: Optional[np.ndarray] = None, mesh=None) -> np.ndarray:
     """The IoU vector of ``frames``: per-class counts summed on the device
-    over batches; ``pred_lut`` maps the predictions and ``label_lut`` the
-    labels before counting (the dumps keep the loader's labels)."""
+    over batches (and over the mesh's processes); ``pred_lut`` maps the
+    predictions and ``label_lut`` the labels before counting (the dumps keep
+    the loader's labels)."""
     dev = resolve(device)
-    hook = _save_hook(save_dir)
-    keys = None if hook else modality_keys(modalities) + ["label"]
+    hook = _save_hook(save_dir) if _writes(mesh) else None
+    keys = None if save_dir else modality_keys(modalities) + ["label"]
     lut = None if pred_lut is None else torch.as_tensor(pred_lut, dtype=torch.long,
                                                         device=dev)
     counts = torch.zeros((3, 13), dtype=torch.long, device=dev)
     frame = 0
-    for batch, valid in batched(frames, eval_batch_size(batch_size), keys, pad_label):
-        pred = predict(model, batch, modalities, dev)
+    for batch, valid in batched(frames, eval_batch_size(batch_size, mesh), keys, pad_label):
+        rows = shard_batch(mesh, {k: batch[k] for k in modality_keys(modalities) + ["label"]})
+        pred = predict(model, rows, modalities, dev)
         if lut is not None:
             pred = lut[pred.long()]
-        label = batch["label"]
+        label = rows["label"]
         if label_lut is not None:
             label = label_lut[label.astype(np.int64)]
         counts += torch.stack(iou_counts(pred, to_device(label, dev)))
-        if hook:
-            pred_np = pred.to(torch.uint8).cpu().numpy()
-            for j in range(valid):
+        if save_dir:
+            pred_np = _gather_rows(mesh, pred.to(torch.uint8)).cpu().numpy()
+            for j in range(valid if hook else 0):
                 hook(frame + j, pred_np[j], {k: v[j] for k, v in batch.items()})
         frame += valid
+    if data_size(mesh) > 1:
+        torch.distributed.all_reduce(counts, group=data_group(mesh))
     return ious_from_counts(*counts.cpu().numpy())
 
 
@@ -193,11 +220,11 @@ def _log_per_class(logger, prefix: str, ious: np.ndarray) -> None:
 
 def validate_model(model, frames, modalities: str, mode: str = "day", logger=None,
                    save_dir: str = "", batch_size: Optional[int] = None,
-                   device: Device = None) -> np.ndarray:
+                   device: Device = None, mesh=None) -> np.ndarray:
     """Freiburg Thermal validation (validation_bdd_mf.py:259-379): the
     12-entry per-class IoU vector (classes 12/13 skipped). ``model`` is on
     ``device`` in eval mode (``models.layers.prepare_for_inference``)."""
-    ious = _accumulate(model, frames, modalities, device, save_dir, batch_size)
+    ious = _accumulate(model, frames, modalities, device, save_dir, batch_size, mesh=mesh)
     if logger is not None:
         _log_per_class(logger, mode, ious)
     return ious
@@ -206,12 +233,12 @@ def validate_model(model, frames, modalities: str, mode: str = "day", logger=Non
 def validate_model_mfnet(model, frames, modalities: str, mode: str = "day",
                          logger=None, save_dir: str = "",
                          batch_size: Optional[int] = None,
-                         device: Device = None) -> np.ndarray:
+                         device: Device = None, mesh=None) -> np.ndarray:
     """MFNet validation: HeatNet predictions → MFNet labels, then IoU
     (validation_bdd_mf.py:145-257; unmapped predictions become class 0)."""
     lut = mapping_to_lut(HEATNET_TO_MFNET, num_src=14, default=0)
     ious = _accumulate(model, frames, modalities, device, save_dir, batch_size,
-                       pred_lut=lut)
+                       pred_lut=lut, mesh=mesh)
     if logger is not None:
         logger.log({
             f"{mode}_MFNET_Test mean IoU": float(np.nanmean(ious)),
@@ -225,13 +252,13 @@ def validate_model_mfnet(model, frames, modalities: str, mode: str = "day",
 
 def validate_model_bdd(model, frames, logger=None, save_dir: str = "",
                        batch_size: Optional[int] = None,
-                       device: Device = None) -> np.ndarray:
+                       device: Device = None, mesh=None) -> np.ndarray:
     """BDD night validation: BDD label ids → HeatNet labels, RGB-only model
     input (validation_bdd_mf.py:39-143). The padded rows carry the raw label
     255, which maps to the ignore class (BDD's 13 is a real class)."""
     gt_lut = mapping_to_lut(BDD_TO_HEATNET, num_src=256, default=13)
     ious = _accumulate(model, frames, "rgb", device, save_dir, batch_size,
-                       pad_label=255, label_lut=gt_lut)
+                       pad_label=255, label_lut=gt_lut, mesh=mesh)
     if logger is not None:
         _log_per_class(logger, "BDD", ious)
     return ious
@@ -239,7 +266,7 @@ def validate_model_bdd(model, frames, logger=None, save_dir: str = "",
 
 def inference(model: torch.nn.Module, frames: Iterable[Dict[str, np.ndarray]],
               batch_size: int, device: Device = None, modalities: str = "ir_rgb",
-              save_dir: str = "") -> np.ndarray:
+              save_dir: str = "", mesh=None) -> np.ndarray:
     """Serve ``frames`` in batches; returns the (n, H, W) uint8 class maps.
 
     With ``save_dir`` each frame's map is written as ``pred_<i>.png``
@@ -247,11 +274,12 @@ def inference(model: torch.nn.Module, frames: Iterable[Dict[str, np.ndarray]],
     be on ``device`` in eval mode (``models.layers.prepare_for_inference``).
     """
     dev = resolve(device)
-    hook = _save_hook(save_dir)
-    keys = modality_keys(modalities) + (["rgb_org"] if hook else [])
+    hook = _save_hook(save_dir) if _writes(mesh) else None
+    keys = modality_keys(modalities) + (["rgb_org"] if save_dir else [])
     maps, n = [], 0
-    for batch, valid in batched(frames, max(int(batch_size), 1), keys):
-        pred = predict(model, batch, modalities, dev)[:valid].cpu().numpy()
+    for batch, valid in batched(frames, eval_batch_size(batch_size, mesh), keys):
+        rows = shard_batch(mesh, {k: batch[k] for k in modality_keys(modalities)})
+        pred = _gather_rows(mesh, predict(model, rows, modalities, dev))[:valid].cpu().numpy()
         if hook:
             for j in range(valid):
                 hook(n + j, pred[j], {k: v[j] for k, v in batch.items()})

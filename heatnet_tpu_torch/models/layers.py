@@ -26,14 +26,16 @@ its weight to the activations' dtype at call time, as the JAX convs do
 (``kern.astype(self.dtype)``): float32 parameters train under bf16
 activations. ``NormAct.bn_groups > 1`` takes train-mode BN statistics per
 contiguous batch group (``StatNamedBatchNorm._grouped_train_call``,
-:200-266). Not ported: the lean BN VJP (``HEATNET_BN_IMPL=lean``,
-``ops/lean_bn.py``).
+:200-266). ``HEATNET_BN_IMPL=lean`` takes ``ABN``'s train mode through
+``ops/lean_bn.py``. Inside ``parallel.mesh.data_parallel`` over several
+processes, train-mode statistics are those of the whole batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -42,6 +44,8 @@ import torch.nn.functional as F
 
 from ..ops import grouped_conv as gc
 from ..ops import int8_conv
+from ..ops.lean_bn import lean_bn_act
+from ..parallel.mesh import batch_stats_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,24 +94,52 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        if x.shape[0] % self.groups:
-            raise ValueError(f"batch {x.shape[0]} not divisible by bn_groups {self.groups}")
+        group = batch_stats_group()
+        if group is not None and self.groups == 1:
+            y, mean, var = lean_bn_act(x, self.weight, self.bias, self.eps, "none", 0.0,
+                                       group, torch.float64)
+            self.update_running(mean, var)
+            return y
+        groups = self.groups
+        if group is not None:
+            # the global batch's contiguous groups: whole groups on each process
+            d = torch.distributed.get_world_size(group)
+            if groups % d:
+                raise ValueError(f"bn_groups {groups} not divisible by the {d} "
+                                 "data-parallel processes")
+            groups //= d
+        if x.shape[0] % groups:
+            raise ValueError(f"batch {x.shape[0]} not divisible by bn_groups {groups}")
         outs = [torch.native_batch_norm(xg, self.weight, self.bias, None, None, True,
                                         0.0, self.eps)
-                for xg in x.chunk(self.groups)]
+                for xg in x.chunk(groups)]
         _, mean, invstd = outs[0]
-        with torch.no_grad():
-            # invstd = 1 / sqrt(var + eps): the kernel's biased variance
-            var = (invstd.float().pow(-2) - self.eps).clamp_(min=0.0)
-            m = self.flax_momentum
-            self.running_mean.mul_(m).add_(mean.float(), alpha=1.0 - m)
-            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
-        return outs[0][0] if self.groups == 1 else torch.cat([o[0] for o in outs])
+        # invstd = 1 / sqrt(var + eps): the kernel's biased variance
+        self.update_running(mean, (invstd.float().pow(-2) - self.eps).clamp_(min=0.0))
+        if group is not None:  # group 0 is the first process's
+            for b in (self.running_mean, self.running_var):
+                torch.distributed.broadcast(b, torch.distributed.get_global_rank(group, 0),
+                                            group=group)
+        return outs[0][0] if groups == 1 else torch.cat([o[0] for o in outs])
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """``running = m * running + (1 - m) * batch`` (flax's momentum)."""
+        m = self.flax_momentum
+        self.running_mean.mul_(m).add_(mean.float(), alpha=1.0 - m)
+        self.running_var.mul_(m).add_(var.float(), alpha=1.0 - m)
 
 
 class ABN(nn.Module):
     """BatchNorm then activation (segnet.py:20-41); ``bn`` is a
-    ``BatchNorm``, flax's train-mode rule."""
+    ``BatchNorm``, flax's train-mode rule.
+
+    ``HEATNET_BN_IMPL=lean`` (layers.py:308-315): in train mode with
+    ``bn_groups == 1`` the normalisation and the activation run as
+    ``ops/lean_bn.py::lean_bn_act``, whose backward saves ``y`` and the
+    per-channel statistics only; the running statistics update by the same
+    rule and the parameter names do not change. Eval mode and every other
+    case take ``bn`` then the activation."""
 
     def __init__(self, channels: int, norm_act: NormAct = NormAct()):
         super().__init__()
@@ -116,6 +148,14 @@ class ABN(nn.Module):
                             norm_act.bn_groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (self.training and self.norm_act.bn_groups == 1
+                and os.environ.get("HEATNET_BN_IMPL") == "lean"):
+            bn = self.bn
+            a, mean, var = lean_bn_act(x, bn.weight, bn.bias, bn.eps,
+                                       self.norm_act.activation, self.norm_act.leaky_slope,
+                                       batch_stats_group())
+            bn.update_running(mean, var)
+            return a
         return self.norm_act.act(self.bn(x))
 
     def affine(self) -> Tuple[torch.Tensor, torch.Tensor]:

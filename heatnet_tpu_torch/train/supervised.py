@@ -3,7 +3,10 @@
 Counterpart of ``heatnet_tpu/train/supervised.py:37-128``. BatchNorm
 statistics span the whole batch on the one card, as they span the global
 batch under the JAX package's sharded ``jit``, unless the model's
-``NormAct.bn_groups`` splits it. A model with train-mode dropout (PSPNet)
+``NormAct.bn_groups`` splits it. Over a data-parallel mesh
+(``parallel/mesh.py``) the step takes the mean loss of the whole batch: each
+process sums its rows' cross-entropy over the whole batch's valid count and
+the gradients are summed over the processes. A model with train-mode dropout (PSPNet)
 takes its keep masks per step as an argument (``draw_dropout``, from the
 caller's ``torch.Generator``), where the JAX step folds the step count into
 a dropout key.
@@ -17,6 +20,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.iou import confusion_matrix
+from ..parallel.mesh import all_reduce_gradients, global_count
 from .state import TrainState
 
 IGNORE_INDEX = 13
@@ -62,13 +66,15 @@ def _accuracy(seg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return hit.sum() / valid.sum().clamp(min=1)
 
 
-def make_train_step(model: nn.Module, learn_batch_stats: bool = True):
+def make_train_step(model: nn.Module, learn_batch_stats: bool = True, mesh=None):
     """The supervised step: ``(state, batch, dropout=None) -> (state, metrics)``.
 
     ``batch`` holds ``image`` (NHWC, normalised) and ``label`` (NHW int);
     ``dropout`` is a PSPNet's keep masks for this step (``draw_dropout``).
     With ``learn_batch_stats=False`` the BN running statistics are restored
-    after the train-mode forward, as the JAX step keeps the old ones.
+    after the train-mode forward, as the JAX step keeps the old ones. With a
+    ``mesh`` the batch is this process's rows of the whole batch, and the
+    loss in ``metrics`` is the whole batch's.
     """
 
     def train_step(state: TrainState, batch,
@@ -78,8 +84,16 @@ def make_train_step(model: nn.Module, learn_batch_stats: bool = True):
                 else [b.detach().clone() for b in model.buffers()])
         kw = {} if dropout is None else {"dropout": dropout}
         seg, _, _ = model(batch["image"], **kw)
-        loss = cross_entropy_ignore(seg, batch["label"])
-        loss.backward()
+        if mesh is None:
+            loss = cross_entropy_ignore(seg, batch["label"])
+            loss.backward()
+        else:
+            nll = cross_entropy_ignore(seg, batch["label"], reduce=False)
+            valid = global_count(mesh, (batch["label"] != IGNORE_INDEX).sum())
+            loss = nll.sum() / valid.clamp(min=1)
+            loss.backward()
+            all_reduce_gradients(mesh, model.parameters())
+            loss = global_count(mesh, loss)
         state.apply_gradients()
         if kept is not None:
             with torch.no_grad():

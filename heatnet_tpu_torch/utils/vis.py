@@ -1,8 +1,9 @@
 """Visualisation: label colour coding, an IR colormap and PNG dumps.
 
-The port's copy of ``heatnet_tpu/utils/vis.py:17-35`` (``color_code_labels``,
-``vis_depth``) and ``save_image`` (:52-61) with the same contract, written by
-``data.png.write_png`` instead of PIL, on which the port does not depend.
+The port's copy of ``heatnet_tpu/utils/vis.py:17-50`` (``color_code_labels``,
+``vis_depth``, ``draw_critic_labels``) and ``save_image`` (:52-61) with the
+same contract, written by ``data.png.write_png`` instead of PIL, on which the
+port does not depend.
 """
 
 from __future__ import annotations
@@ -31,6 +32,20 @@ def vis_depth(depth: np.ndarray) -> np.ndarray:
     g = np.clip(1.5 - np.abs(4 * t - 2), 0, 1)
     b = np.clip(1.5 - np.abs(4 * t - 1), 0, 1)
     return np.stack([r, g, b], axis=-1).astype(np.float32)
+
+
+def draw_critic_labels(image: np.ndarray, verdicts) -> np.ndarray:
+    """Per-critic verdict dots in the top-left corner (the reference's
+    drawCriticsLabels, vis_utils.py:98-125): green = fooled (> 0.5), red
+    otherwise."""
+    img = np.array(image, copy=True)
+    r = max(2, img.shape[0] // 40)
+    yy, xx = np.ogrid[:img.shape[0], :img.shape[1]]
+    for i, v in enumerate(verdicts):
+        cy, cx = r * 2, r * 2 + i * (3 * r)
+        mask = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+        img[mask] = (0.0, 1.0, 0.0) if v else (1.0, 0.0, 0.0)
+    return img
 
 
 def save_image(path: str, image: np.ndarray) -> None:

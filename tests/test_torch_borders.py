@@ -6,8 +6,8 @@ the JAX package (which reads with cv2) on the CPU.
   of many densities and sizes, edges and the zero-free mask included: equal
   in float32.
 - ``VistasBordersDataset`` items against JAX's, eval and train chains, on a
-  tree the port's PNG writer makes (frames smaller than the crop padded):
-  every array equal.
+  tree the port's PNG writer makes (frames smaller than the crop padded),
+  without CLAHE and with it (the default): every array equal.
 - ``--borders-data`` class maps against the JAX forward of the same weights
   on JAX's items (f32, structure 1,1,1,1, the 7x7 stem), equal except where
   JAX's top two logits are within 1e-3; the colour-coded PNGs are written,
@@ -82,8 +82,13 @@ def test_items_equal_jax(tree, augment):
         for k in b:
             assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
             np.testing.assert_array_equal(a[k], b[k], err_msg=f"item {i} {k}")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        VistasBordersDataset(tree, W, H)
+    # the default: CLAHE on (data/clahe.py against cv2's)
+    kw.pop("contrast_enhancement")
+    port, ref = VistasBordersDataset(tree, W, H, **kw), JaxBorders(tree, W, H, **kw)
+    for i in range(3):
+        a, b = port[i], ref[i]
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"default, item {i} {k}")
 
 
 def test_borders_cli_matches_jax_forward(tree, tmp_path, capsys):

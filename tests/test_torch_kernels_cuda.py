@@ -801,3 +801,25 @@ def test_exported_forward_launches_the_kernels_through_the_ops(dev, tmp_path):
             assert eager == [1, 4, 0]
         else:
             assert eager[2] > 0 and eager[1] + eager[2] >= 4
+
+
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "elu", "none"])
+def test_lean_bn_act_on_the_card_equals_the_cpu(dev, act):
+    """``ops/lean_bn.py`` (PyTorch operations, not a kernel of the port) in
+    float32 on the card against the CPU: the output, the statistics and the
+    three gradients within 1e-5 of each tensor's largest value."""
+    from heatnet_tpu_torch.ops import lean_bn
+
+    g = torch.Generator().manual_seed(7)
+    y = torch.randn((3, 48, 10, 14), generator=g) * 1.5 + 0.3
+    scale, bias = torch.rand(48, generator=g) + 0.5, torch.randn(48, generator=g) * 0.2
+    ct = torch.randn(y.shape, generator=g)
+    got = {}
+    for where in ("cpu", dev):
+        ins = [t.detach().to(where).requires_grad_(True) for t in (y, scale, bias)]
+        a, mean, var = lean_bn.lean_bn_act(*ins, 1e-5, act, 0.1)
+        a.backward(ct.to(where))
+        got[str(where)] = [t.detach().cpu() for t in (a, mean, var)] + [
+            t.grad.cpu() for t in ins]
+    for c, r in zip(got["cuda"], got["cpu"]):
+        assert float((c - r).abs().max()) <= 1e-5 * float(r.abs().max())

@@ -7,8 +7,9 @@ phases with moddrop, IR scaling, a ``--pretraining`` checkpoint written as
 checkpoint carries the ``trgb_segnet.`` prefix; the checkpoint reloads
 strictly into a fresh ``ConfSegnet`` and ``--resume auto`` continues from
 it. ``--late_fusion`` and ``--arch pspnet`` (with a PSPNet IR teacher) run
-through both phases. Every flag that is not ported raises
-``NotImplementedError`` with its ROADMAP item. The step-level numerics are
+through both phases. ``--vis`` renders the JAX trainer's panels: held
+against its forward on the same weights, and its run's losses against a
+run without it. The step-level numerics are
 held against JAX in tests/test_torch_adversarial.py,
 tests/test_torch_late_fusion.py and tests/test_torch_pspnet.py; ``--eval``,
 ``--infer`` and the periodic eval in tests/test_torch_eval.py.
@@ -125,12 +126,78 @@ def test_train_conf_late_fusion_and_pspnet_run_both_phases(pack, capsys, flags, 
     assert ("trgb_segnet.feats.conv1_2.weight" in saved) == (len(flags) == 3)
 
 
-# --bn_groups and --trainsetname MF are ported (tests/test_torch_vistas.py,
-# tests/test_torch_mf_train.py); the remaining case keeps its id
-@pytest.mark.parametrize("flags,item", [pytest.param(["--vis"], 8, id="flags2-8")])
-def test_unported_flags_raise_with_their_roadmap_item(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}\\b"):
-        train_conf.main(["--dataroot", "-", *flags])
+def test_vis_panels_equal_jax(tmp_path):
+    """``render_vis`` against the JAX trainer's ``--vis`` forward and render
+    (cli/train_conf.py:362-403) on the same weights (running statistics
+    randomised) and batch: the label panels equal but where JAX's top two
+    logits are within 1e-3, the critics' dots equal, RGB and IR equal, the
+    certainty within one level; the model, its train flags and the RNG
+    untouched."""
+    import jax
+    import jax.numpy as jnp
+
+    from heatnet_tpu.utils import vis as jvis
+    from heatnet_tpu_torch.data.png import read_png
+    from heatnet_tpu_torch.io.from_jax import state_dict_from_jax
+    from test_torch_adversarial import _batch, _jax, _pair, _randomize_stats, _torch
+
+    model_j, params, stats, model_t = _pair(cert_branch=True)
+    stats = _randomize_stats(stats)
+    model_t.load_state_dict(state_dict_from_jax(params, stats), strict=True)
+    b = _batch(drop=False)
+    bj = _jax(b)
+    out = jax.jit(lambda v, day, night: model_j.apply(v, day, night, train=False))(
+        {"params": params, "batch_stats": stats}, [bj["rgb_day"], bj["ir_day"]],
+        [bj["rgb_night"], bj["ir_night"]])
+    before = {k: v.clone() for k, v in model_t.state_dict().items()}
+    rng = torch.get_rng_state()
+    paths = train_conf.render_vis(model_t, _torch(b), 7, str(tmp_path), "ir_rgb",
+                                  cert_branch=True)
+    assert [p.rsplit("/", 1)[1] for p in paths] == [
+        f"0000007_{n}.png" for n in ("label_day", "label_night", "rgb_day", "ir_day",
+                                     "cert_day")]
+    assert all(m.training for m in model_t.modules())
+    assert torch.equal(torch.get_rng_state(), rng)
+    for k, v in model_t.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+    def u8(img):  # the JAX package's save_image conversion
+        return (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+
+    for side, path in (("a", paths[0]), ("b", paths[1])):
+        logits = np.asarray(out[f"pred_label_{side}"])[0]
+        top2 = np.sort(logits, -1)[..., -2:]
+        tie = (top2[..., 1] - top2[..., 0]) < 1e-3
+        verdicts = [bool(jnp.mean(c) > 0.5) for c in out[f"critics_{side}"]]
+        want = u8(jvis.draw_critic_labels(jvis.color_code_labels(logits.argmax(-1)),
+                                          verdicts))
+        differ = (read_png(path) != want).any(-1)
+        assert not (differ & ~tie).any(), f"{side}: {int((differ & ~tie).sum())} pixels"
+    np.testing.assert_array_equal(read_png(paths[2]), u8(b["rgb_day"][0] * 0.5 + 0.5))
+    np.testing.assert_array_equal(read_png(paths[3]), u8(jvis.vis_depth(b["ir_day"][0])))
+    cert = u8(jvis.vis_depth(np.asarray(out["cert_a"])[0, ..., 0]))
+    assert np.abs(read_png(paths[4]).astype(int) - cert).max() <= 1
+
+
+def test_train_conf_vis_writes_the_panels_and_changes_no_loss(pack):
+    """``--vis --log_everyn 1``: a critic and a seg step, the JAX trainer's
+    panel names at each (steps 1 and 2, no ``--cert_branch``), and the
+    losses of the same run without ``--vis`` bit for bit."""
+    import os
+
+    runs = {}
+    for vis in (False, True):
+        log_dir = pack / f"runs_vis{int(vis)}"
+        argv = _argv(pack, "--n_epochs", "1", "--max_iters_per_epoch", "1",
+                     "--iter_initial_critic_phase", "1", "--iter_seg_phase", "1",
+                     "--log_everyn", "1", "--checkpointname", str(pack / f"ck_vis{vis}"))
+        argv[argv.index("--log_dir") + 1] = str(log_dir)
+        runs[vis] = train_conf.main(argv + (["--vis"] if vis else []))
+    assert runs[True].phases == runs[False].phases == ["train_critic", "train_seg"]
+    assert runs[True].losses == runs[False].losses
+    names = sorted(os.listdir(pack / "runs_vis1" / "vis"))
+    assert names == sorted(f"{it:07d}_{n}.png" for it in (1, 2)
+                           for n in ("label_day", "label_night", "rgb_day", "ir_day"))
 
 
 def test_train_conf_needs_a_card_unless_asked_for_the_cpu(tmp_path):

@@ -12,7 +12,8 @@ On the CPU, inputs from numpy with fixed seeds:
 - ``VistasDataset`` items against the JAX loader's for the same seed, the
   train and the eval chain, 12 items each over frames that need and need
   not the padding: equal (labels exactly, images to 0 in float32), and
-  the same batches when decoded on 4 threads;
+  the same batches when decoded on 4 threads; with ``contrast_enhancement``
+  (CLAHE) 4 items of each chain, equal;
 - train-mode BN statistics per batch group (``layers.BatchNorm(groups)``)
   against ``StatNamedBatchNorm._grouped_train_call`` at f32, g = 2 and 3:
   outputs rtol 1e-5 / atol 1e-6, the gradients of x, scale and bias rel L2
@@ -180,10 +181,18 @@ def test_threaded_decode_keeps_the_draws_in_order(tmp_path):
             np.testing.assert_array_equal(b[k], a[k], err_msg=k)
 
 
-def test_contrast_enhancement_raises(tmp_path):
-    root = _vistas_tree(str(tmp_path), SIZES[:1])
-    with pytest.raises(NotImplementedError, match="CLAHE"):
-        tl.VistasDataset(root, 256, 192, contrast_enhancement=True)
+@pytest.mark.parametrize("augment", [True, False])
+def test_contrast_enhanced_items_equal_jax(tmp_path, augment):
+    """CLAHE on the padded frame (``data/clahe.py``), then the chain: items
+    equal the JAX loader's, whose CLAHE is cv2's."""
+    root = _vistas_tree(str(tmp_path), SIZES[:4])
+    kw = dict(augment_data=augment, contrast_enhancement=True, seed=2)
+    want = JaxVistasDataset(root, 256, 192, **kw)
+    got = tl.VistasDataset(root, 256, 192, **kw)
+    for i in range(4):
+        a, b = want[i], got[i]
+        for k in a:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=f"item {i} {k}")
 
 
 # -- BN statistics per batch group ----------------------------------------------
