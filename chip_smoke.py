@@ -169,8 +169,8 @@ Phases, each of which exits non-zero on failure:
        the float maps), its PNGs written;
    9d. ``cli.convert_checkpoint`` of the weights under the reference's names,
        then ``cli.inference --resume``: bf16 maps bit for bit;
-   9e. ``cli.generate_vistas`` on a 4-frame PNG Vistas tree, one ``cli.main``
-       step on its output;
+   9e. ``cli.generate_vistas`` on a 4-frame PNG Vistas tree (the native
+       relabeller must serve it), one ``cli.main`` step on its output;
 10. Freiburg PNG training trees and packs, and the serving artifact, on
     trees the phase writes with the port's PNG writer (650x1920 frames, so
     every resize to 960x320 runs):
@@ -229,7 +229,30 @@ Phases, each of which exits non-zero on failure:
        inside ``utils/profiling.trace`` and ``annotate``: the trace names the
        ingest and fused grouped-conv kernels and the span;
        ``scan_benchmark`` of the forward beside the CUDA-event p50;
-12. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
+12. the capture path, host code at the shipped rig's sizes
+   (``experiments/calibrations/example_rig``: RGB 1920x1080, IR 640x512);
+   the kernels' launch counts are read around 12b-12c and must stay 0:
+   12a. the native C++ library (``heatnet_tpu_torch/native``) built afresh
+       with ``g++`` (its seconds printed); the relabeller against
+       ``data/mappings.py::relabel_vistas_image`` on 1024x768 panoptic maps
+       (ms per frame of both), ``thermal_to_8bit`` and ``gray_binarize``
+       against numpy versions on 640x512 frames, ``Synchronizer`` and
+       ``BurstSampler`` on four synthetic 30 Hz streams, ``MessageBus``'s
+       round trip and its oversized-message ``BufferError``;
+   12b. ``cli.dump_capture --calib`` the shipped camchain on a capture the
+       phase writes (two RGB and two IR streams and a lidar stream of
+       32768x4 points, 10 frames each at 30 Hz with 1 ms skew, ``tf.jsonl``,
+       ``origin.json``): windows, frames, manifests of 5 paths, vehicle
+       lines, heat stats and the HTML; where cv2 imports, the port's maps
+       equal cv2's and every rectified frame equals ``cv2.remap`` of its
+       source bit for bit; host ms per rectified frame and the dump's wall
+       time;
+   12c. ``ThermalDriveDataset`` on the dumped tree (with and without
+       ``contrast_enhancement``), ``cli.visualize_data`` on a 640x512
+       ``make_drive_dump`` tree, ``cli.camera_focus`` on the dumped
+       ``fl_rgb`` frames, ``cli.plot_heatmap`` on the dump's heat stats, with
+       host ms per item;
+13. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
    launches on every path); the last line is ``{"ok": true, "device": {...}}``.
 
 Launch counts: the grouped-conv kernel has one count per entry point, the
@@ -675,6 +698,294 @@ def profile_serving(out_path: str) -> None:
                        [s.elapsed_time(e) for s, e in zip(start, end)], 50))}, f)
 
 
+CAPTURE_FRAMES = 10       # phase 12b: frames per stream at 30 Hz, 1 ms skew
+CAPTURE_LIDAR_POINTS = 32768
+RELABEL_HW = (768, 1024)  # the panoptic map cli.generate_vistas relabels (--width 1024)
+
+
+def capture_phase(work: str, zero_counts, read_counts) -> dict:
+    """Phase 12, the capture path, on the host: 12a the native library,
+    12b ``cli.dump_capture`` on a capture at the shipped rig's sizes through
+    its camchain, 12c ``ThermalDriveDataset`` and the three small CLIs on
+    what it wrote. ``zero_counts``/``read_counts`` are the kernels' launch
+    counters, read around 12b-12c; the path launches no kernel. Returns the
+    phase's record (``fail`` on any disagreement)."""
+    from heatnet_tpu_torch.cli import camera_focus, dump_capture, plot_heatmap, visualize_data
+    from heatnet_tpu_torch.data import calibration
+    from heatnet_tpu_torch.data.loaders import ThermalDriveDataset, imread_bgr
+    from heatnet_tpu_torch.data.mappings import VISTAS_TO_HEATNET, relabel_vistas_image
+    from heatnet_tpu_torch.data.png import read_png, write_png
+    from heatnet_tpu_torch.data.synthetic import make_drive_dump
+    from heatnet_tpu_torch.native import bindings as native
+    from heatnet_tpu_torch.utils.gps_heatmap import collect_heat_stats
+
+    rec = {}
+    t_12 = time.perf_counter()
+
+    # 12a. the native library: a fresh g++ build, then each component
+    zero_counts()
+    with mock.patch.object(native, "BUILD_DIR", os.path.join(work, "native_build")):
+        t0 = time.perf_counter()
+        so = native.build()
+        build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(21)
+    h, w = RELABEL_HW
+    blocks = (np.arange(h)[:, None] // 48 * 7 + np.arange(w)[None, :] // 64) % 70
+    panoptic = [(blocks * 256 + rng.randint(0, 6, (h, w)) + i).astype(np.uint16)
+                for i in range(4)]
+    native.get_lib()  # loaded (built by 9e) before the relabellers are timed
+    relabel_ms, relabelled = {}, {}
+    for name, fn in (("native", native.relabel_vistas_image_native),
+                     ("numpy", relabel_vistas_image)):
+        t0 = time.perf_counter()
+        relabelled[name] = [fn(m, VISTAS_TO_HEATNET) for m in panoptic]
+        relabel_ms[name] = (time.perf_counter() - t0) * 1e3 / len(panoptic)
+    relabel_equal = all(np.array_equal(a, b) for a, b in zip(relabelled["native"],
+                                                             relabelled["numpy"]))
+    ir = rng.randint(19000, 33000, (512, 640)).astype(np.uint16)
+    grey = rng.randint(0, 256, (512, 640)).astype(np.uint8)
+    v = np.minimum(ir.astype(np.float32), np.float32(30000.0))
+    lo, hi = v.min(), v.max()
+    u8 = ((v - lo) * (np.float32(255.0) / (hi - lo))).astype(np.uint8)
+    want_inv = (255 - u8).astype(np.uint8)
+    got_inv, got_mask = native.thermal_to_8bit(ir)
+    thermal_equal = (np.array_equal(got_inv, want_inv) and np.array_equal(
+        got_mask, np.where(want_inv > 100, 255, 0).astype(np.uint8)))
+    binarize_equal = np.array_equal(native.gray_binarize(grey),
+                                    np.where(grey > 140, 255, 0).astype(np.uint8))
+    pushes = sorted((100.0 + i / 30 + s * 0.001, s, 1000 * s + i)
+                    for s in range(4) for i in range(60))
+    tuples = {}
+    for name, obj in (("sync", native.Synchronizer(4, slop_s=0.016)),
+                      ("burst", native.BurstSampler(4, slop_s=0.016, burst_period=1.0,
+                                                    burst_img_count=5))):
+        got = []
+        for t, s, fid in pushes:
+            obj.push(s, t, fid)
+            out = obj.poll()
+            if out is not None:
+                got.append(out[1].tolist())
+        tuples[name] = got
+    want_sync = [[1000 * s + i for s in range(4)] for i in range(60)]
+    sync_ok = (tuples["sync"] == want_sync and tuples["burst"]
+               == [t for i, t in enumerate(want_sync) if i % 30 < 5])
+    bus = native.MessageBus()
+    sub = bus.subscribe("rgb_0", 2)
+    for i in range(3):
+        bus.publish("rgb_0", 1.0 + i, f"frame{i}".encode())
+    got = [bus.poll(sub), bus.poll(sub), bus.poll(sub)]
+    bus.publish("rgb_0", 5.0, b"x" * 4096)
+    try:
+        bus.poll(sub, max_len=1024)
+        oversized_raised = False
+    except BufferError:
+        oversized_raised = True
+    bus_ok = (got == [(2.0, b"frame1"), (3.0, b"frame2"), None] and oversized_raised
+              and bus.poll(sub, max_len=4096) == (5.0, b"x" * 4096))
+    print(f"  12a. native library: g++ build {build_s:.1f} s ({os.path.basename(so)}); "
+          f"relabel of {len(panoptic)} {w}x{h} panoptic maps: native = numpy "
+          f"{relabel_equal}, ms per frame native {relabel_ms['native']:.2f}, numpy "
+          f"{relabel_ms['numpy']:.2f}; thermal_to_8bit = numpy {thermal_equal}, "
+          f"gray_binarize = numpy {binarize_equal} (640x512); Synchronizer and "
+          f"BurstSampler on 4 streams at 30 Hz: {len(tuples['sync'])} and "
+          f"{len(tuples['burst'])} tuples as expected {sync_ok}; MessageBus round trip "
+          f"and the oversized message's BufferError {bus_ok}", flush=True)
+    if not (relabel_equal and thermal_equal and binarize_equal and sync_ok and bus_ok):
+        fail("the native library disagrees with its numpy counterparts")
+    rec["native"] = {"launches": read_counts(), "build_s": build_s,
+                     "relabel_ms_per_frame": relabel_ms, "relabel_hw": [h, w]}
+
+    # 12b. cli.dump_capture through the shipped camchain, at its sizes
+    camchain = os.path.join(ROOT, "experiments", "calibrations", "example_rig",
+                            "front_stereo", "camchain.yaml")
+    thermal = calibration.load_kalibr_yaml(os.path.join(
+        ROOT, "experiments", "calibrations", "example_rig", "thermal", "camchain.yaml"))
+    cams = calibration.load_kalibr_yaml(camchain)
+    rgb_wh, ir_wh = cams["left"].resolution, thermal["thermal"].resolution
+    cap = os.path.join(work, "capture")
+    topics = ["rgb_fl_burst", "rgb_fr_burst", "ir_left_burst", "ir_right_burst", "lidar_burst"]
+    prefixes = ["fl_rgb", "fr_rgb", "fl_ir", "fr_ir", "lidar"]
+    crng = np.random.RandomState(22)
+    base = 1594000000.0
+    ramp = (np.arange(rgb_wh[1])[:, None, None] // 4 + np.arange(rgb_wh[0])[None, :, None] // 8
+            + np.arange(3)[None, None, :] * 40)
+    sources = {t: [] for t in topics}
+    t0 = time.perf_counter()
+    for ti, topic in enumerate(topics):
+        d = os.path.join(cap, "streams", topic)
+        os.makedirs(d)
+        for i in range(CAPTURE_FRAMES):
+            t = base + i / 30 + ti * 0.001
+            stem = os.path.join(d, f"{int(t)}_{int(round((t - int(t)) * 1e9))}")
+            if topic.startswith("lidar"):
+                np.save(stem + ".npy", crng.standard_normal(
+                    (CAPTURE_LIDAR_POINTS, 4)).astype(np.float32))
+            elif topic.startswith("ir"):
+                frame = crng.randint(21000, 26000, (ir_wh[1], ir_wh[0])).astype(np.uint16)
+                write_png(stem + ".png", frame, level=1)
+            else:
+                frame = ((ramp + i * 3 + crng.randint(0, 32, ramp.shape)) % 256).astype(np.uint8)
+                write_png(stem + ".png", frame, level=1)
+                sources[topic].append(frame)
+    with open(os.path.join(cap, "tf.jsonl"), "w") as f:
+        for i in range(CAPTURE_FRAMES + 2):
+            f.write(json.dumps({"t": base - 1 / 30 + i / 30, "parent": "odom_combined",
+                                "child": "base_link", "translation": [15.0 * i, 2.0 * i, 0.0],
+                                "rotation": [0.0, 0.0, 0.0, 1.0]}) + "\n")
+    with open(os.path.join(cap, "origin.json"), "w") as f:
+        json.dump({"position": [413135.0, 5318474.0, 0.0]}, f)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rectifier = calibration.StereoRectifier(cams["left"], cams["right"],
+                                            cams["right"].T_cn_cnm1[:3, :3],
+                                            cams["right"].T_cn_cnm1[:3, 3])
+    maps_s = time.perf_counter() - t0
+    rectifier.remap(sources["rgb_fl_burst"][0], True)  # the plan of the left maps
+    t0 = time.perf_counter()
+    for frame in sources["rgb_fl_burst"][:4]:
+        rectifier.remap(frame, True)
+    rect_ms = (time.perf_counter() - t0) * 1e3 / 4
+
+    zero_counts()
+    out_root = os.path.join(work, "dumped")
+    t0 = time.perf_counter()
+    save_dir = dump_capture.main(["--capture", cap, "--out", out_root, "--topics", *topics,
+                                  "--prefixes", *prefixes, "--calib", camchain,
+                                  "--calib-cams", "left", "right"])
+    dump_s = time.perf_counter() - t0
+    if save_dir is None:
+        fail("cli.dump_capture wrote no tree")
+    n_windows = CAPTURE_FRAMES - 4  # each synced tuple from the 5th on closes a window
+    listing = {p: sorted(os.listdir(os.path.join(save_dir, p))) for p in prefixes}
+    vehicle = [line for f in os.listdir(os.path.join(save_dir, "vehicle"))
+               for line in open(os.path.join(save_dir, "vehicle", f))]
+    manifests = {p: [line.split() for f in os.listdir(os.path.join(save_dir, "paths"))
+                     if f.startswith(p + "_drive_")
+                     for line in open(os.path.join(save_dir, "paths", f))] for p in prefixes}
+    heat = [f for f in os.listdir(save_dir) if f.startswith("heat_stats_")]
+    heat_lines = open(os.path.join(save_dir, heat[0])).read().split() if heat else []
+    html = open(os.path.join(save_dir, "heatmap.html")).read()
+    frames_ok = all(len(v) == 5 * n_windows for v in listing.values())
+    manifest_ok = all(len(m) == n_windows and all(
+        len(line) == 5 and all(os.path.isfile(q) for q in line) for line in m)
+        for m in manifests.values())
+    groups = [[g.split() for g in line.split(" / ") if g.strip()] for line in vehicle]
+    vehicle_ok = len(vehicle) == n_windows and all(
+        len(gs) == 5 and all(len(g) == 7 for g in gs) for gs in groups)
+    n_heat = len(heat_lines) // 2
+    heat_ok = (n_heat >= n_windows and all(47.9 < float(x) < 48.1 for x in heat_lines[0::2])
+               and f"{n_heat} points" in html and "base64," in html)
+    lidar = np.load(os.path.join(save_dir, "lidar", listing["lidar"][0]))
+    ir0 = read_png(os.path.join(save_dir, "fl_ir", listing["fl_ir"][0]))
+    rgb0 = read_png(os.path.join(save_dir, "fl_rgb", listing["fl_rgb"][0]))
+    shapes_ok = (lidar.shape == (CAPTURE_LIDAR_POINTS, 4) and ir0.dtype == np.uint16
+                 and ir0.shape == (ir_wh[1], ir_wh[0])
+                 and rgb0.shape == (rgb_wh[1], rgb_wh[0], 3))
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    cv2_equal = None
+    if cv2 is not None:
+        T = cams["right"].T_cn_cnm1
+        r1, r2, p1, p2, _ = cv2.fisheye.stereoRectify(
+            cams["left"].K, cams["left"].D, cams["right"].K, cams["right"].D, rgb_wh,
+            T[:3, :3], T[:3, 3], cv2.CALIB_ZERO_DISPARITY, fov_scale=1.0, balance=0.0)
+        cv2_equal = {}
+        for topic, prefix, cam, r, p in (("rgb_fl_burst", "fl_rgb", cams["left"], r1, p1),
+                                         ("rgb_fr_burst", "fr_rgb", cams["right"], r2, p2)):
+            maps = cv2.fisheye.initUndistortRectifyMap(cam.K, cam.D, r, p, rgb_wh,
+                                                       cv2.CV_16SC2)
+            ours = rectifier.maps_left if prefix == "fl_rgb" else rectifier.maps_right
+            want = {cv2.remap(f, *maps, interpolation=cv2.INTER_LINEAR).tobytes()
+                    for f in sources[topic]}
+            cv2_equal[prefix] = (np.array_equal(ours[0], maps[0])
+                                 and np.array_equal(ours[1], maps[1]) and all(
+                read_png(os.path.join(save_dir, prefix, f)).tobytes() in want
+                for f in listing[prefix]))
+    launches_12b = read_counts()
+    print(f"  12b. cli.dump_capture of {CAPTURE_FRAMES} frames per stream (RGB "
+          f"{rgb_wh[0]}x{rgb_wh[1]} x2, IR {ir_wh[0]}x{ir_wh[1]} x2, lidar "
+          f"{CAPTURE_LIDAR_POINTS}x4) through {os.path.relpath(camchain, ROOT)}: "
+          f"{n_windows} windows, {sum(len(v) for v in listing.values())} files, manifests "
+          f"{ {p: len(m) for p, m in manifests.items()} } lines of 5 paths {manifest_ok}, "
+          f"frames {frames_ok}, vehicle lines {vehicle_ok}, {n_heat} heat points and the "
+          f"HTML {heat_ok}, shapes {shapes_ok}; frames equal to cv2 "
+          f"{cv2.__version__ if cv2 else '(cv2 does not import)'}'s remap on cv2's maps, "
+          f"bit for bit: {cv2_equal}; host ms: maps {maps_s * 1e3:.1f}, "
+          f"{rect_ms:.1f} per rectified {rgb_wh[0]}x{rgb_wh[1]} RGB frame, capture "
+          f"written in {write_s:.1f} s, dump wall time {dump_s:.1f} s; launches "
+          f"{launches_12b}", flush=True)
+    if not (frames_ok and manifest_ok and vehicle_ok and heat_ok and shapes_ok):
+        fail("cli.dump_capture did not write the expected tree")
+    if cv2_equal is not None and not all(cv2_equal.values()):
+        fail(f"the rectified frames differ from cv2's: {cv2_equal}")
+    rec["dump_capture"] = {"launches": launches_12b, "windows": n_windows,
+                           "dump_s": dump_s, "rectify_ms_per_frame": rect_ms,
+                           "maps_ms": maps_s * 1e3, "equal_cv2": cv2_equal}
+
+    # 12c. the loaders and the small CLIs on what 12b wrote
+    zero_counts()
+    item_ms = {}
+    for name, opts in (("default", {}), ("contrast_enhancement",
+                                         {"contrast_enhancement": True, "load_right": False})):
+        ds = ThermalDriveDataset(os.path.join(save_dir, "paths"), **opts)  # the manifests
+        n = len(ds) if not opts else 1  # CLAHE on 5 full frames per item: one item
+        t0 = time.perf_counter()
+        items = [ds[i] for i in range(n)]
+        item_ms[name] = (time.perf_counter() - t0) * 1e3 / n
+        if len(ds) != n_windows:
+            fail(f"ThermalDriveDataset found {len(ds)} bursts, expected {n_windows}")
+        for it in items:
+            right = opts.get("load_right", True)
+            ok = (len(it["rgb_fl"]) == len(it["ir_fl"]) == 5
+                  and (not right or len(it["rgb_fr"]) == len(it["ir_fr"]) == 5)
+                  and all(x.shape == (rgb_wh[1], rgb_wh[0], 3) and x.dtype == np.float32
+                          and 0 <= x.min() and x.max() <= 1 for x in it["rgb_fl"])
+                  and all(x.shape == (ir_wh[1], ir_wh[0], 1) for x in it["ir_fl"] + it["ir_fr"])
+                  and np.array_equal(it["ir_fl"][0][..., 0],
+                                     read_png(it["paths_left"][0].replace("fl_rgb", "fl_ir"))))
+            if not opts:
+                ok = ok and np.array_equal(it["org_left"], imread_bgr(it["paths_left"][0]))
+            if not ok:
+                fail(f"ThermalDriveDataset ({name}) item differs from the dumped tree")
+    dd = make_drive_dump(os.path.join(work, "drive_dump"), n_drives=1, n_bursts=4, burst=2,
+                         hw=(ir_wh[1], ir_wh[0]))
+    t0 = time.perf_counter()
+    n_vis = visualize_data.main(["-s", dd, "--save-dir", os.path.join(work, "vis_out")])
+    vis_ms = (time.perf_counter() - t0) * 1e3 / max(n_vis, 1)
+    vis_files = sorted(os.listdir(os.path.join(work, "vis_out")))
+    overlay = read_png(os.path.join(work, "vis_out", vis_files[1]))
+    t0 = time.perf_counter()
+    fdes = camera_focus.main(["--images", os.path.join(save_dir, "fl_rgb")])
+    focus_ms = (time.perf_counter() - t0) * 1e3 / max(len(fdes), 1)
+    lats, _ = collect_heat_stats(save_dir)
+    t0 = time.perf_counter()
+    n_plot = plot_heatmap.main(["--core-dir", save_dir, "--out",
+                                os.path.join(work, "heatmaps.html")])
+    plot_ms = (time.perf_counter() - t0) * 1e3
+    launches_12c = read_counts()
+    print(f"  12c. ThermalDriveDataset on the dump: {n_windows} bursts, host ms per item "
+          f"{ {k: round(v, 1) for k, v in item_ms.items()} }; cli.visualize_data on a "
+          f"{ir_wh[0]}x{ir_wh[1]} drive dump: {n_vis} triples ({len(vis_files)} files, "
+          f"overlay {overlay.shape}), {vis_ms:.1f} ms each; cli.camera_focus: "
+          f"{len(fdes)} FDEs, {focus_ms:.1f} ms per frame; cli.plot_heatmap: {n_plot} "
+          f"points, {plot_ms:.1f} ms; launches {launches_12c}", flush=True)
+    if (n_vis != 4 or len(vis_files) != 12 or overlay.shape != (ir_wh[1], ir_wh[0], 3)
+            or len(fdes) != 5 * n_windows or not all(np.isfinite(list(fdes.values())))
+            or n_plot != len(lats) or n_plot != n_heat):
+        fail("the capture CLIs did not run as expected")
+    if any(v for r in (rec["native"]["launches"], launches_12b, launches_12c)
+           for v in r.values()):
+        fail(f"the capture path launched kernels: {rec['native']['launches']}, "
+             f"{launches_12b}, {launches_12c}")
+    rec["capture_tools"] = {"launches": launches_12c, "item_ms": item_ms,
+                            "visualize_ms_per_triple": vis_ms, "focus_ms_per_frame": focus_ms,
+                            "plot_heatmap_ms": plot_ms}
+    print(f"  phase 12: {time.perf_counter() - t_12:.1f} s", flush=True)
+    return rec
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--int8-card-times"]:
         int8_card_times(*sys.argv[2:4])
@@ -757,19 +1068,24 @@ def run_phases(work: str) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def device_ms(fn, reps: int = 10) -> float:
+    def device_ms(fn, reps: int = 10, windows: int = 5) -> float:
         """Card time of every kernel one call launches (torch.profiler), so
-        that a call whose host side outlasts its kernels reads its kernels."""
+        that a call whose host side outlasts its kernels reads its kernels.
+        A window in which the profiler kept no kernel record is taken again."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.device_time_total for e in prof.key_averages()
-                   if e.device_type.name == "CUDA") / 1e3 / reps
+        for _ in range(windows):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            total = sum(e.device_time_total for e in prof.key_averages()
+                        if e.device_type.name == "CUDA")
+            if total > 0:
+                return total / 1e3 / reps
+        fail(f"torch.profiler kept no kernel record in {windows} windows")
 
     def check(name, out, ref, tol_fn, tol_text) -> float:
         torch.cuda.synchronize()
@@ -2908,7 +3224,17 @@ def run_phases(work: str) -> None:
         write_png(os.path.join(vroot, f"v1.2/instances/s{i}.png"),
                   (cls * 256 + prng.randint(0, 3, (960, 1280))).astype(np.uint16), level=1)
     gen = os.path.join(work, "vistas_gen")
-    n_gen = generate_vistas.main(["--vistas_root", vroot, "--out", gen])
+    from heatnet_tpu_torch.native import bindings as native
+    native_calls = []
+    real_relabel = native.relabel_vistas_image_native
+    with mock.patch.object(native, "relabel_vistas_image_native",
+                           lambda *a, **k: native_calls.append(1) or real_relabel(*a, **k)):
+        n_gen = generate_vistas.main(["--vistas_root", vroot, "--out", gen])
+    relabeller = "native" if len(native_calls) == n_gen else "numpy"
+    print(f"  9e. the relabeller that served cli.generate_vistas: {relabeller} "
+          f"({len(native_calls)} native calls for {n_gen} frames)", flush=True)
+    if relabeller != "native":
+        fail("cli.generate_vistas --use_native did not relabel with the native library")
     labels = read_png(os.path.join(gen, "labels", "s0.png"))
     zero_counts()
     gen_run = vistas_cli.main(["--data", gen, "--valdata", gen, "--batch-size", "4",
@@ -2922,7 +3248,8 @@ def run_phases(work: str) -> None:
     if (n_gen != 4 or labels.shape != (768, 1024) or int((labels // 256).max()) > 13
             or len(gen_run.losses) != 1 or not np.isfinite(gen_run.losses).all()):
         fail("cli.generate_vistas + cli.main did not run as expected")
-    later["generate_vistas_main"] = {"launches": q_counts(), "losses": gen_run.losses}
+    later["generate_vistas_main"] = {"launches": q_counts(), "losses": gen_run.losses,
+                                     "relabeller": relabeller}
     print(f"  phases 9a-9e: {time.perf_counter() - t_9:.1f} s", flush=True)
 
     # 10. Freiburg PNG training trees and packs, and the serving artifact.
@@ -3587,7 +3914,15 @@ def run_phases(work: str) -> None:
     later["profile_serving"] = prof
     print(f"  phases 11a-11e: {time.perf_counter() - t_11:.1f} s", flush=True)
 
-    # 12. the record: each kernel's launches on every path, read around it
+    # 12. the capture path (host code): the native library, cli.dump_capture,
+    # ThermalDriveDataset and the small CLIs; the counts are read around it
+    print("capture path: the native library, cli.dump_capture at the shipped rig's "
+          "sizes, ThermalDriveDataset, cli.visualize_data, cli.camera_focus and "
+          "cli.plot_heatmap", flush=True)
+
+    later.update(capture_phase(work, zero_counts, q_counts))
+
+    # 13. the record: each kernel's launches on every path, read around it
     paths = {"serving": launches, "train_plain": train_launches, "train_conf": adv_launches,
              **{name: r["launches"] for name, r in later.items()}}
 

@@ -11,9 +11,11 @@ nearest for the labels), its 66-class panoptic label relabelled to the
 PNGs are read and written with ``data/png.py`` and resized with
 ``data/loaders.py::resize`` (copies of cv2's calls), so the port needs
 neither cv2 nor PIL for PNG inputs. Vistas' own JPEG images go through PIL
-where it imports; a JPEG decoder may differ from cv2's by a level. The JAX
-package's native C++ relabeller is not ported (ROADMAP item 8): the numpy
-relabeller serves, ``--use_native`` and ``--no_native`` stay on the surface.
+where it imports; a JPEG decoder may differ from cv2's by a level.
+``--use_native`` (the default) relabels with the native C++ relabeller
+(``native.relabel_vistas_image_native``, built with ``g++`` on first use);
+where it cannot build, the CLI says so and the numpy relabeller serves, as
+in JAX. ``--no_native`` takes the numpy relabeller.
 
 Usage::
 
@@ -45,7 +47,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--width', type=int, default=1024)
     p.add_argument('--limit', type=int, default=None)
     p.add_argument('--use_native', action='store_true', default=True,
-                   help='the native relabeller is not ported: the numpy one serves')
+                   help='use the C++ relabeller (falls back to numpy)')
     p.add_argument('--no_native', dest='use_native', action='store_false')
     return p
 
@@ -75,8 +77,15 @@ def main(argv=None) -> int:
         return 0
     if not args.vistas_root or not args.out:
         raise SystemExit("--vistas_root and --out are required")
+    relabel = relabel_vistas_image
     if args.use_native:
-        print("the native relabeller is not ported; the numpy relabeller serves")
+        try:
+            from ..native import bindings
+
+            bindings.get_lib()
+            relabel = bindings.relabel_vistas_image_native
+        except Exception as e:  # native build unavailable → python fallback
+            print(f"native relabeller unavailable ({e}); using python path")
 
     img_files = sorted(glob(os.path.join(args.vistas_root, "training/images/*.jpg")))
     img_files += sorted(glob(os.path.join(args.vistas_root, "training/images/*.png")))
@@ -101,7 +110,7 @@ def main(argv=None) -> int:
 
         write_png(os.path.join(args.out, "images", stem + ".png"), img)
         write_png(os.path.join(args.out, "labels", stem + ".png"),
-                  relabel_vistas_image(inst, VISTAS_TO_HEATNET))
+                  relabel(inst, VISTAS_TO_HEATNET))
         names.append(stem)
         if i % 100 == 0:
             print(f"{i}/{len(img_files)} processed")

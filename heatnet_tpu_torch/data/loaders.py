@@ -32,6 +32,10 @@ on threads. The cv2 calls of the Vistas chain are numpy copies here
 applies ``data/mf_augment.py``'s transforms and resizes on the host, as the
 JAX loader does; its draws come from the transforms' own ``RandomState``s.
 
+``ThermalDriveDataset`` (the raw capture dumps of ``cli/dump_capture.py``)
+reads its bursts with ``imread_bgr`` and ``imread_grayscale``, copies of
+``cv2.imread``'s colour and greyscale decodes of a PNG.
+
 ``batch_iterator`` and ``prefetch_items`` are copies (numpy and threads).
 ``DeviceAugment`` moves a raw batch to the device and runs
 ``ops.preprocess.train_sample_preprocess`` (or, for MFNet,
@@ -42,6 +46,7 @@ version vmaps the chain over per-sample keys).
 
 from __future__ import annotations
 
+import fnmatch
 import math
 import os
 import queue
@@ -49,7 +54,7 @@ import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from glob import glob
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -321,6 +326,45 @@ def _imread_grey(path: str, dtype) -> np.ndarray:
         raise ValueError(f"{path}: expected a single-channel {np.dtype(dtype)} PNG, "
                          f"got {img.dtype} {img.shape}")
     return img
+
+
+# libpng's png_set_rgb_to_gray(0.299, 0.587) coefficients, 15-bit and
+# truncated as libpng truncates them; blue takes the rest of 2^15
+_GREY_R, _GREY_G = 29900 * 32768 // 100000, 58700 * 32768 // 100000
+_GREY_B = 32768 - _GREY_R - _GREY_G
+
+
+def imread_grayscale(path: str, any_depth: bool = False) -> np.ndarray:
+    """``cv2.imread(path, IMREAD_GRAYSCALE)`` (or ``IMREAD_ANYDEPTH``) of a
+    PNG, as cv2 5.0 decodes it through libpng: grey as stored (16-bit to 8
+    by ``>> 8`` unless ``any_depth``), 8-bit colour (palette entries, RGB,
+    RGBA with its alpha dropped) by libpng's truncating ``rgb_to_gray``,
+    ``(9797 R + 19234 G + 3737 B) >> 15``. 16-bit colour is not supported;
+    a file that is not a PNG (a JPEG) raises, since the port has no JPEG
+    decoder."""
+    img, palette = read_png_palette(path)
+    if palette is not None:
+        img = palette[img]
+    if img.ndim == 2:
+        return img if (any_depth or img.dtype == np.uint8) else (img >> 8).astype(np.uint8)
+    if img.dtype != np.uint8:
+        raise ValueError(f"{path}: 16-bit colour PNGs are not supported")
+    rgb = img[..., :3].astype(np.int32)
+    return ((_GREY_R * rgb[..., 0] + _GREY_G * rgb[..., 1] + _GREY_B * rgb[..., 2])
+            >> 15).astype(np.uint8)
+
+
+def imread_bgr(path: str) -> np.ndarray:
+    """``cv2.imread(path)`` (IMREAD_COLOR) of an 8-bit PNG: BGR, alpha
+    dropped, grey repeated over the three channels."""
+    img, palette = read_png_palette(path)
+    if palette is not None:
+        img = palette[img]
+    if img.dtype != np.uint8:
+        raise ValueError(f"{path}: expected an 8-bit PNG, got {img.dtype}")
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=-1)
+    return np.ascontiguousarray(img[..., 2::-1])
 
 
 def stamp_sort_key(path: str) -> float:
@@ -1212,6 +1256,90 @@ class BDDValDataset:
             "rgb": ((rgb - 0.5) / 0.5)[None],
             "rgb_org": rgb[None],
             "label": label.astype(np.int32)[None],
+        }
+
+
+class ThermalDriveDataset:
+    """Raw-dump drive loader (``data/thermal_loader.py:46-152``;
+    ``heatnet_tpu/data/loaders.py:634-716``).
+
+    Walks ``db_path`` for ``{fl,fr}_{rgb,ir}_drive_*.txt`` path lists; each
+    line is a burst of space-separated frame paths. Items are dicts of
+    lists: ``rgb_fl``/``rgb_fr`` (HWC float RGB in [0,1]), ``ir_fl``/
+    ``ir_fr`` (HW1 float raw counts), ``paths_left``, ``org_left`` (BGR
+    uint8, as the reference keeps it; RGB under ``contrast_enhancement``,
+    as in JAX). Options mirror the reference: ``contrast_enhancement``
+    (``data/clahe.py``'s copy of cv2's CLAHE), ``load_aligned_ir`` (remap
+    fl_ir → fl_ir_aligned paths), ``load_right``. Frames decode with
+    ``data/png.py``: ``imread_bgr`` for ``cv2.imread`` and
+    ``imread_grayscale(any_depth=True)`` for ``IMREAD_ANYDEPTH``.
+    """
+
+    def __init__(self, db_path: str, contrast_enhancement: bool = False,
+                 load_aligned_ir: bool = False, load_right: bool = True):
+        self.contrast_enhancement = contrast_enhancement
+        self.load_aligned_ir = load_aligned_ir
+        self.load_right = load_right
+
+        def find(pattern):
+            out = []
+            for root, _dirs, files in os.walk(db_path):
+                out.extend(os.path.join(root, f) for f in files
+                           if fnmatch.fnmatch(f, pattern))
+            return sorted(out)
+
+        lists = [find(f"{side}_{mod}_drive_*.txt")
+                 for side, mod in (("fl", "rgb"), ("fr", "rgb"), ("fl", "ir"), ("fr", "ir"))]
+        assert len({len(l) for l in lists}) == 1, "mismatched drive list counts"
+
+        def read_lines(path):
+            with open(path) as f:
+                return [x.strip() for x in f.readlines()]
+
+        self.items = []
+        for files in zip(*lists):
+            for lines in zip(*(read_lines(f) for f in files)):
+                self.items.append([line.split(" ") for line in lines])
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, index: int) -> Dict[str, Any]:
+        paths = [list(p) for p in self.items[index]]
+        rgb_fl = [imread_bgr(p) for p in paths[0]]
+        rgb_fr = [imread_bgr(p) for p in paths[1]] if self.load_right else None
+
+        if self.contrast_enhancement:
+            rgb_fl = [apply_clahe(im) for im in rgb_fl]
+            if self.load_right:
+                rgb_fr = [apply_clahe(im) for im in rgb_fr]
+        org_left = rgb_fl[0]
+
+        if self.load_aligned_ir:
+            for i, p in enumerate(paths[2]):
+                name = os.path.split(p)[1].replace("fl_ir", "fl_ir_aligned")
+                paths[2][i] = os.path.join(
+                    os.path.split(os.path.split(p)[0])[0], "fl_ir_aligned", name)
+
+        ir_fl = [imread_grayscale(p, any_depth=True) for p in paths[2] if os.path.isfile(p)]
+        ir_fr = [imread_grayscale(p, any_depth=True) for p in paths[3]
+                 if os.path.isfile(p)] if self.load_right else []
+
+        def to_rgb_float(ims):
+            out = []
+            for im in ims:
+                if not self.contrast_enhancement:  # CLAHE already emits RGB
+                    im = swap_rb(im)
+                out.append(im.astype(np.float32) / 255.0)
+            return out
+
+        return {
+            "rgb_fl": to_rgb_float(rgb_fl),
+            "rgb_fr": to_rgb_float(rgb_fr) if self.load_right else None,
+            "ir_fl": [im.astype(np.float32)[..., None] for im in ir_fl],
+            "ir_fr": [im.astype(np.float32)[..., None] for im in ir_fr],
+            "paths_left": paths[0],
+            "org_left": org_left,
         }
 
 

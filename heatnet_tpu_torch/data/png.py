@@ -172,9 +172,8 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def write_png(path: str, image: np.ndarray, level: int = 3) -> None:
-    """Write uint8 (H, W), (H, W, 1), (H, W, 3) or (H, W, 4), or uint16
-    (H, W) or (H, W, 1), as a PNG whose rows all use filter 0."""
+def encode_png(image: np.ndarray, level: int = 3) -> bytes:
+    """The bytes of ``write_png``'s file."""
     img = np.asarray(image)
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[..., 0]
@@ -192,8 +191,15 @@ def write_png(path: str, image: np.ndarray, level: int = 3) -> None:
     h, w = img.shape[:2]
     rows = np.ascontiguousarray(rows).view(np.uint8).reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    return b"".join((_SIGNATURE,
+                     _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0)),
+                     _chunk(b"IDAT", zlib.compress(raw.tobytes(), level)),
+                     _chunk(b"IEND", b"")))
+
+
+def write_png(path: str, image: np.ndarray, level: int = 3) -> None:
+    """Write uint8 (H, W), (H, W, 1), (H, W, 3) or (H, W, 4), or uint16
+    (H, W) or (H, W, 1), as a PNG whose rows all use filter 0."""
+    data = encode_png(image, level)
     with open(path, "wb") as fh:
-        fh.write(_SIGNATURE)
-        fh.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0)))
-        fh.write(_chunk(b"IDAT", zlib.compress(raw.tobytes(), level)))
-        fh.write(_chunk(b"IEND", b""))
+        fh.write(data)

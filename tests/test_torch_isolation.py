@@ -3,7 +3,8 @@
 An AST scan of every file of ``heatnet_tpu_torch/`` and of ``chip_smoke.py``
 (absolute imports and ``importlib.import_module``/``__import__`` calls with a
 literal name), and a fresh interpreter that imports every port module and
-then finds none of those packages loaded. Also: the import builds nothing.
+then finds none of those packages loaded. Also: the import builds nothing
+(neither the CUDA kernels nor the native C++ library).
 """
 
 import ast
@@ -58,6 +59,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
             "from heatnet_tpu_torch.kernels import build\n"
             "assert build._lib is None, 'a kernel was built at import'\n"
+            "from heatnet_tpu_torch.native import bindings\n"
+            "assert bindings._LIB is None, 'the native library was loaded at import'\n"
             "print(bad)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
