@@ -252,7 +252,23 @@ Phases, each of which exits non-zero on failure:
        ``make_drive_dump`` tree, ``cli.camera_focus`` on the dumped
        ``fl_rgb`` frames, ``cli.plot_heatmap`` on the dump's heat stats, with
        host ms per item;
-13. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
+13. height-sharded serving (``parallel/spatial.py``): ResNeXt-50 early fusion
+   at full width and depth (random weights, seed 0) serves batch 1 of a
+   640x1920 raw frame (a 650x1920 Freiburg source frame cut to 640 rows, so
+   that each shard holds a multiple of 8 rows) split by rows over 4 worker
+   processes on the one card, joined in a gloo group (``--spatial-worker``;
+   two NCCL ranks cannot share a card): each runs ``serve_frame``
+   (``shard_rows``, the ingest kernel on its raw rows, the model under
+   ``spatial_parallel`` with the fused grouped conv on halo-extended shards,
+   argmax) and rank 0 gathers the class map. At 160 rows per shard (20 at
+   stride 8) ASPP's rates 24 and 36 reach two shards away. The class map
+   against the unsharded forward of the same weights here (>= 0.999 of
+   pixels) with the largest logit difference relative to the largest
+   |logit|; 1 ingest and 16 fused launches per forward read in each worker;
+   the unsharded forward's p50, each worker's (4 processes share the card:
+   not a latency figure), the exchanges' bytes and ms per forward and the
+   rows the halo-extended grouped convs compute beyond their shards;
+14. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
    launches on every path); the last line is ``{"ok": true, "device": {...}}``.
 
 Launch counts: the grouped-conv kernel has one count per entry point, the
@@ -263,8 +279,8 @@ forward (``grouped_conv3x3_fused``) and the input gradient
 Without a card, or run from a directory that does not hold the package, it
 prints no result and exits non-zero. ``--int8-card-times SPEC OUT`` is phase
 9a's child process (SPEC and OUT are JSON files), ``--serve-artifact SPEC
-OUT`` phase 10e's, ``--profile-serving OUT`` phase 11e's; none is an entry
-point.
+OUT`` phase 10e's, ``--profile-serving OUT`` phase 11e's, ``--spatial-worker
+SPEC OUT`` phase 13's workers; none is an entry point.
 """
 
 import contextlib
@@ -986,6 +1002,269 @@ def capture_phase(work: str, zero_counts, read_counts) -> dict:
     return rec
 
 
+SPATIAL_HW = (640, 1920)  # phase 13: a 650x1920 Freiburg source frame cut to 640 rows
+SPATIAL_PROCS = 4         # processes sharing the card, one shard of rows each
+SPATIAL_REPS = 10         # timed forwards, after one warm-up and the counted one
+SPATIAL_TIMEOUT_S = 420   # for the workers together
+SPATIAL_MIN_AGREEMENT = 0.999  # outside the unsharded forward's near ties (below)
+# The gathered logits against the unsharded forward's: both round bf16 sums,
+# in another order where cuDNN takes another engine for a shard's rows, so
+# the largest difference is a bf16 step or two of the largest |logit|; a row
+# out of place would move logits by their own size
+SPATIAL_LOGIT_TOL = 2.0 ** -7
+SPATIAL_PER_FORWARD = {"ingest": 1, "grouped_conv3x3": 0, "grouped_conv3x3_fused": 16,
+                       "grouped_conv3x3_dx": 0, "int8_conv": 0}
+
+
+def spatial_worker(spec_path: str, out_path: str) -> None:
+    """Phase 13's worker, rank ``RANK`` of ``WORLD_SIZE`` in a gloo group on
+    the one card: ResNeXt-50 from ``spec["weights"]`` serves the frame of
+    ``spec["frames"]`` split by rows (``parallel/spatial.py::serve_frame``:
+    ``shard_rows``, the ingest kernel on its raw rows, the model under
+    ``spatial_parallel``, argmax, the class map gathered). One warm-up
+    forward, one with the launches and the exchanges read around it, then
+    ``spec["reps"]`` timed forwards (host clock, each after a barrier, to a
+    synchronise). Each halo exchange after the warm-up is timed by CUDA
+    events recorded around its ``all_gather`` on the stream, read after the
+    forward's synchronise: the device-to-host copy, gloo and the copy back.
+    Writes its record to ``out_path`` (.json) and, rank 0, the class map and
+    the gathered logits beside it (.npz)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from heatnet_tpu_torch.models import net_resnext50
+    from heatnet_tpu_torch.models.layers import prepare_for_inference
+    from heatnet_tpu_torch.ops import fused_preproc as fp
+    from heatnet_tpu_torch.ops import grouped_conv as gc
+    from heatnet_tpu_torch.ops import int8_conv
+    from heatnet_tpu_torch.parallel import mesh as pm
+    from heatnet_tpu_torch.parallel import spatial
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{spec['port']}",
+                            rank=rank, world_size=int(os.environ["WORLD_SIZE"]),
+                            timeout=datetime.timedelta(seconds=SPATIAL_TIMEOUT_S))
+    model = net_resnext50(classes=13, input_channels=4)
+    model.load_state_dict(torch.load(spec["weights"], map_location="cpu", weights_only=True))
+    model = prepare_for_inference(model, dev)
+    frames = dict(np.load(spec["frames"]))
+    mesh = pm.create_mesh()
+    kernels = (fp.INGEST, gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_FUSED,
+               gc.GROUPED_CONV3X3_DX, int8_conv.INT8_CONV)
+
+    events, exchange_ms = [], []
+
+    def timed_all_gather(group, t):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = pm.all_gather(group, t)
+        end.record()
+        events.append((start, end))
+        return out
+
+    def serve():
+        out = spatial.serve_frame(model, frames, mesh, dev)
+        torch.cuda.synchronize()
+        exchange_ms.append(sum(a.elapsed_time(b) for a, b in events))
+        events.clear()
+        return out
+
+    serve()
+    exchange_ms.clear()
+    for k in kernels:
+        k.launches = 0
+    spatial.reset_exchange()
+    dist.barrier()
+    with mock.patch.object(spatial, "all_gather", timed_all_gather):
+        pred, seg, _ = serve()
+        launches = {k.name: k.launches for k in kernels}
+        exchange = dict(spatial.EXCHANGE)
+        seg_full = pm.gather_rows(seg, pm.spatial_sharding(mesh))
+        ms = []
+        for _ in range(spec["reps"]):
+            dist.barrier()
+            t0 = time.perf_counter()
+            serve()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    if rank == 0:
+        np.savez(out_path[:-len(".json")] + ".npz", pred=pred.cpu().numpy(),
+                 seg=seg_full.cpu().numpy())
+    with open(out_path, "w") as f:
+        json.dump({"rank": rank, "launches": launches, "exchange": exchange,
+                   "exchange_ms": exchange_ms, "shard": list(seg.shape), "ms": ms}, f)
+    dist.destroy_process_group()
+
+
+def spatial_phase(work: str, card: str, zero_counts, read_counts) -> dict:
+    """Phase 13: one 640x1920 frame served by ResNeXt-50 split by rows over
+    ``SPATIAL_PROCS`` worker processes on the one card (``spatial_worker``),
+    against the unsharded forward of the same weights here, through the
+    kernels and through their plain versions. Returns the phase's record
+    (``fail`` on any disagreement)."""
+    import torch
+
+    from heatnet_tpu_torch.data.loaders import to_device
+    from heatnet_tpu_torch.models import net_resnext50
+    from heatnet_tpu_torch.models.layers import init_params, prepare_for_inference
+    from heatnet_tpu_torch.ops import fused_preproc as fp
+    from heatnet_tpu_torch.ops import grouped_conv as gc
+
+    t_13 = time.perf_counter()
+    dev = torch.device("cuda")
+    h, w = SPATIAL_HW
+    net = net_resnext50(classes=13, input_channels=4)
+    init_params(net, torch.Generator().manual_seed(0))
+    weights = os.path.join(work, "spatial_weights.pt")
+    torch.save(net.state_dict(), weights)
+    net = prepare_for_inference(net, dev)
+    prng = np.random.RandomState(13)
+    frames = {"rgb": prng.randint(0, 256, (1, h, w, 3)).astype(np.uint8),
+              "ir": prng.randint(21000, 26000, (1, h, w, 1)).astype(np.uint16)}
+    frames_path = os.path.join(work, "spatial_frames.npz")
+    np.savez(frames_path, **frames)
+
+    # the unsharded forward of the same weights, a comparison only
+    rgb, ir = to_device(frames["rgb"], dev), to_device(frames["ir"], dev)
+
+    def forward():
+        with torch.no_grad():
+            seg = net(fp.early_fusion_input(rgb, ir, 0, w, net.compute_dtype))[0]
+            pred = seg.argmax(dim=-1)
+        torch.cuda.synchronize()
+        return seg, pred
+
+    zero_counts()
+    seg_ref, pred_ref = forward()
+    once = read_counts()
+    ms_ref = []
+    for _ in range(SPATIAL_REPS + 3):
+        t0 = time.perf_counter()
+        forward()
+        ms_ref.append((time.perf_counter() - t0) * 1e3)
+    ref_p50 = float(np.percentile(ms_ref[3:], 50))
+
+    def ingest_plain(rgb, ir, lo, hi, out_dtype=torch.bfloat16):
+        return torch.cat([fp.rgb_plain(rgb[..., lo:hi, :]),
+                          fp.ir_plain(ir[..., lo:hi, :])], -1).to(out_dtype)
+
+    def conv_plain(x, w, scale, bias, groups, dilation=1, act="relu", slope=0.01):
+        return gc.grouped_conv3x3_plain(x, w, groups, dilation, scale, bias, act, slope)
+
+    zero_counts()
+    with mock.patch.object(fp, "early_fusion_input", ingest_plain), \
+            mock.patch.object(gc, "grouped_conv3x3_fused", conv_plain):
+        _, pred_plain = forward()
+    if any(read_counts().values()):
+        fail(f"phase 13: the plain-version forward launched a kernel: {read_counts()}")
+    zero_counts()
+
+    spec = os.path.join(work, "spatial_spec.json")
+    with open(spec, "w") as f:
+        json.dump({"port": free_port(), "weights": weights, "frames": frames_path,
+                   "reps": SPATIAL_REPS}, f)
+    outs = [os.path.join(work, f"spatial_rank{r}.json") for r in range(SPATIAL_PROCS)]
+    env = dict(os.environ, WORLD_SIZE=str(SPATIAL_PROCS))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--spatial-worker",
+                               spec, outs[r]], env=dict(env, RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(SPATIAL_PROCS)]
+    logs = []
+    try:
+        for p in procs:
+            remaining = max(1.0, SPATIAL_TIMEOUT_S - (time.perf_counter() - t0))
+            logs.append(p.communicate(timeout=remaining)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase 13: a worker did not exit within {SPATIAL_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    workers_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"phase 13: worker {r} exited {p.returncode}:\n{log[-3000:]}")
+    recs = []
+    for out in outs:
+        with open(out) as f:
+            recs.append(json.load(f))
+    got = np.load(outs[0][:-len(".json")] + ".npz")
+    pred, seg = got["pred"], torch.from_numpy(got["seg"]).to(dev)
+    if pred.shape != (1, h, w) or seg.shape != seg_ref.shape or not bool(
+            torch.isfinite(seg).all()):
+        fail(f"phase 13: gathered class map {pred.shape}, logits {tuple(seg.shape)}")
+    pred = torch.from_numpy(pred).to(dev).long()
+    top2 = seg_ref.float().topk(2, dim=-1).values
+    max_diff = float((seg.float() - seg_ref.float()).abs().max())
+    rel = max_diff / float(seg_ref.float().abs().max())
+    # where the unsharded forward's two best logits lie within twice the
+    # largest difference, the class may rightly flip; elsewhere it may not
+    near_tie = (top2[..., 0] - top2[..., 1]) <= 2 * max_diff
+    same = pred == pred_ref
+    agree_raw = float(same.float().mean())
+    agree = float((same | near_tie).float().mean())
+    agree_plain = float((pred == pred_plain).float().mean())
+    agree_ref_plain = float((pred_ref == pred_plain).float().mean())
+    exact = bool(torch.equal(seg, seg_ref))
+
+    stage_rows = [(name, d, h // SPATIAL_PROCS // stride, n)
+                  for name, d, stride, n in (("mod2", 1, 4, 3), ("mod3", 1, 8, 4),
+                                             ("mod4", 2, 8, 6), ("mod5", 4, 8, 3))]
+    print(f"  {card}", flush=True)
+    print(f"  unsharded forward at {h}x{w}, batch 1 (host clock, ingest to argmax): p50 "
+          f"{ref_p50:.3f} ms; launches {once}", flush=True)
+    for rec in recs:
+        ex = rec["exchange"]
+        print(f"  worker {rec['rank']}: shard {rec['shard']}; launches per forward "
+              f"{rec['launches']}; forward p50 {float(np.percentile(rec['ms'], 50)):.3f} ms "
+              f"({SPATIAL_PROCS} processes share one card: not a latency figure); "
+              f"exchanges per forward {ex['calls']}, {ex['bytes'] / 1e6:.3f} MB received, "
+              f"p50 {float(np.percentile(rec['exchange_ms'], 50)):.3f} ms (CUDA events "
+              f"around each all_gather: to the host, gloo, back); grouped convs: {ex['extra_rows']} extra rows beside {ex['rows']} shard rows",
+              flush=True)
+    print("  extra rows per grouped conv, per shard: " + ", ".join(
+        f"{name} 2x{d} of {rows} ({2 * d / rows:.1%}) x{n}" for name, d, rows, n in stage_rows),
+        flush=True)
+    print(f"  class map against the unsharded forward: {agree:.6f} of pixels equal or "
+          f"near ties (need >= {SPATIAL_MIN_AGREEMENT}; {agree_raw:.6f} equal, "
+          f"{float(near_tie.float().mean()):.6f} near ties, top-2 gap <= {2 * max_diff:.3g}); "
+          f"largest logit difference {rel:.3g} of the largest |logit| (need <= "
+          f"{SPATIAL_LOGIT_TOL:.3g}; logits bit for bit: {exact})", flush=True)
+    print(f"  class map against the unsharded forward through the plain versions: "
+          f"{agree_plain:.6f} of pixels (need >= {MIN_AGREEMENT}; the unsharded kernel "
+          f"forward's: {agree_ref_plain:.6f}); workers {workers_s:.1f} s; phase 13 "
+          f"{time.perf_counter() - t_13:.1f} s", flush=True)
+    bad = [rec["rank"] for rec in recs if rec["launches"] != SPATIAL_PER_FORWARD]
+    if bad:
+        fail(f"phase 13: workers {bad} launched other than {SPATIAL_PER_FORWARD} per forward")
+    if rel > SPATIAL_LOGIT_TOL:
+        fail(f"phase 13: largest logit difference {rel} of the largest |logit| > "
+             f"{SPATIAL_LOGIT_TOL}")
+    if agree < SPATIAL_MIN_AGREEMENT:
+        fail(f"phase 13: class-map agreement {agree} < {SPATIAL_MIN_AGREEMENT}")
+    if agree_plain < MIN_AGREEMENT:
+        fail(f"phase 13: class-map agreement with the plain versions {agree_plain} < "
+             f"{MIN_AGREEMENT}")
+    launches = {k: sum(rec["launches"][k] for rec in recs) for k in SPATIAL_PER_FORWARD}
+    return {"spatial_serving": {
+        "launches": launches, "agreement": agree, "agreement_equal": agree_raw,
+        "near_tie_share": float(near_tie.float().mean()), "max_logit_diff_rel": rel,
+        "logits_bit_for_bit": exact, "agreement_plain": agree_plain,
+        "unsharded_forward_ms_p50": ref_p50,
+        "worker_forward_ms_p50": [float(np.percentile(rec["ms"], 50)) for rec in recs],
+        "exchange_per_forward": [rec["exchange"] for rec in recs],
+        "exchange_ms_p50": [float(np.percentile(rec["exchange_ms"], 50)) for rec in recs],
+        "workers_s": workers_s}}
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--int8-card-times"]:
         int8_card_times(*sys.argv[2:4])
@@ -995,6 +1274,9 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--profile-serving"]:
         profile_serving(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--spatial-worker"]:
+        spatial_worker(*sys.argv[2:4])
         return
     with tempfile.TemporaryDirectory() as work:
         run_phases(work)
@@ -1186,6 +1468,33 @@ def run_phases(work: str) -> None:
               f"library_ms {l_ms:.4f} (device {l_dev:.4f}) bound_ms {b_ms:.4f} "
               f"({b_by}, {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) "
               f"share of bound {b_ms / k_ms:.3f}", flush=True)
+
+    # 3b'. the shapes of phase 13's shards: ingest on one shard's raw rows,
+    # and the fused grouped conv at batch 1 on each stage's halo-extended
+    # shard (its rows plus d a side), against the plain versions
+    print("kernels: phase 13's shard shapes", flush=True)
+    s_rows, s_w = SPATIAL_HW[0] // SPATIAL_PROCS, SPATIAL_HW[1]
+    rgb, ir = frames(1, s_rows, s_w)
+    for dtype in (torch.bfloat16, torch.float32):
+        ingest_err = max(ingest_err, check(
+            f"early_fusion_input (1,{s_rows},{s_w}) window 0:{s_w} {str(dtype)[6:]}",
+            fp.early_fusion_input(rgb, ir, 0, s_w, dtype),
+            torch.cat([fp.rgb_plain(rgb), fp.ir_plain(ir)], -1).to(dtype), *tol[dtype]))
+    for name, c, cpg, d, _, _, _ in STAGES:
+        stride = 4 if name == "mod2" else 8
+        shape = (1, s_rows // stride + 2 * d, s_w // stride, c)
+        g = torch.Generator(device="cpu").manual_seed(c + 13)
+        x = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+        wt = (torch.randn((c, cpg, 3, 3), generator=g) / (9 * cpg) ** 0.5
+              ).to(dev, torch.bfloat16)
+        scale = (torch.rand(c, generator=g) + 0.5).to(dev)
+        bias = (torch.randn(c, generator=g) * 0.1).to(dev)
+        for act in ("relu", "leaky_relu", "elu", "none"):
+            gc_err = max(gc_err, check(
+                f"grouped_conv3x3_fused {name} {shape} {act}",
+                gc.grouped_conv3x3_fused(x, wt, scale, bias, c // cpg, d, act, 0.01),
+                gc.grouped_conv3x3_plain(x, wt, c // cpg, d, scale, bias, act, 0.01),
+                *gc_tol))
 
     # 3c. the grouped conv's gradients at the training shapes, against
     # autograd of the plain version in f32 on the same bf16-valued inputs
@@ -3922,7 +4231,16 @@ def run_phases(work: str) -> None:
 
     later.update(capture_phase(work, zero_counts, q_counts))
 
-    # 13. the record: each kernel's launches on every path, read around it
+    # 13. height-sharded serving: one 640x1920 frame split by rows over 4
+    # gloo processes on the card, each ingesting its rows and running the
+    # fused grouped conv on halo-extended shards; launches read in each worker
+    print(f"spatial path: parallel.spatial.serve_frame, ResNeXt-50 (3,4,6,3) early fusion, "
+          f"batch 1 of {SPATIAL_HW[0]}x{SPATIAL_HW[1]} split by rows over {SPATIAL_PROCS} "
+          f"gloo processes on one card", flush=True)
+    torch.cuda.empty_cache()
+    later.update(spatial_phase(work, card, zero_counts, q_counts))
+
+    # 14. the record: each kernel's launches on every path, read around it
     paths = {"serving": launches, "train_plain": train_launches, "train_conf": adv_launches,
              **{name: r["launches"] for name, r in later.items()}}
 

@@ -71,6 +71,15 @@ def mapping_to_lut(mapping: dict, num_src: int = 256,
     return lut
 
 
+def remap_labels(labels: np.ndarray, mapping: dict,
+                 default: int = BACKGROUND_CLASS) -> np.ndarray:
+    """Class labels through ``mapping`` (``default`` where it has none), as a
+    lookup table gathered at every pixel (``heatnet_tpu/data/mappings.py:82``)."""
+    lut = mapping_to_lut(mapping, num_src=max(int(labels.max(initial=0)) + 1, 256),
+                         default=default)
+    return lut[labels.astype(np.int64)]
+
+
 def relabel_vistas_image(img_u16: np.ndarray, mapping: dict = VISTAS_TO_HEATNET
                          ) -> np.ndarray:
     """Panoptic relabel: uint16 ``class*256 + instance`` → ``mapped*256 +

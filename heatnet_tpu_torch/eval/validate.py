@@ -40,7 +40,7 @@ from ..data.mappings import BDD_TO_HEATNET, HEATNET_TO_MFNET, mapping_to_lut
 from ..device import resolve
 from ..ops import fused_preproc
 from ..ops.iou import iou_counts, ious_from_counts
-from ..parallel.mesh import data_group, data_size, shard_batch
+from ..parallel.mesh import all_gather, data_group, data_size, shard_batch
 
 # wandb key names per class (train_trgb_segnet_conf.py:611-625)
 _PER_CLASS_KEYS = [
@@ -67,9 +67,7 @@ def _gather_rows(mesh, pred: torch.Tensor) -> torch.Tensor:
     """Every process's rows of a batch, in order (the identity without a mesh)."""
     if data_size(mesh) == 1:
         return pred
-    parts = [torch.empty_like(pred) for _ in range(data_size(mesh))]
-    torch.distributed.all_gather(parts, pred.contiguous(), group=data_group(mesh))
-    return torch.cat(parts)
+    return torch.cat(all_gather(data_group(mesh), pred).unbind(0))
 
 
 def _writes(mesh) -> bool:

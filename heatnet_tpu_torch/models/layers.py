@@ -29,6 +29,16 @@ contiguous batch group (``StatNamedBatchNorm._grouped_train_call``,
 :200-266). ``HEATNET_BN_IMPL=lean`` takes ``ABN``'s train mode through
 ``ops/lean_bn.py``. Inside ``parallel.mesh.data_parallel`` over several
 processes, train-mode statistics are those of the whole batch.
+
+Inside ``parallel.spatial.spatial_parallel``, a frame is split by rows over
+processes and each operation computes exactly its rows of the unsharded
+result: convolutions, transposed convolutions, the grouped conv and the max
+pool run on their shard extended by its halo of neighbouring rows
+(``parallel/spatial.py``), the frame's true top and bottom padded as each
+operation pads them; ``global_avg_pool`` sums over the processes;
+``adaptive_avg_pool`` serves a factor of 1 or 2 in height. Train-mode BN,
+the int8 layers, ``resize_bilinear``, ``instance_norm`` and other pools
+raise there.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ import torch.nn.functional as F
 from ..ops import grouped_conv as gc
 from ..ops import int8_conv
 from ..ops.lean_bn import lean_bn_act
+from ..parallel import spatial
 from ..parallel.mesh import batch_stats_group
 
 
@@ -94,6 +105,7 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        spatial.refuse("train-mode BatchNorm")
         group = batch_stats_group()
         if group is not None and self.groups == 1:
             y, mean, var = lean_bn_act(x, self.weight, self.bias, self.eps, "none", 0.0,
@@ -150,6 +162,7 @@ class ABN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if (self.training and self.norm_act.bn_groups == 1
                 and os.environ.get("HEATNET_BN_IMPL") == "lean"):
+            spatial.refuse("train-mode BatchNorm")
             bn = self.bn
             a, mean, var = lean_bn_act(x, bn.weight, bn.bias, bn.eps,
                                        self.norm_act.activation, self.norm_act.leaky_slope,
@@ -175,9 +188,16 @@ class Conv2d(nn.Conv2d):
     init_std: Optional[float] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(
-            x, self.weight.to(x.dtype),
-            None if self.bias is None else self.bias.to(x.dtype))
+        w = self.weight.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        if spatial.spatial_group() is None:
+            return self._conv_forward(x, w, b)
+        if self.padding_mode != "zeros" or isinstance(self.padding, str):
+            raise NotImplementedError("only zero-padded convs are served by rows")
+        xe = spatial.window_rows(x, self.kernel_size[0], self.stride[0],
+                                 self.padding[0], self.dilation[0])
+        return F.conv2d(xe, w, b, self.stride, (0, self.padding[1]), self.dilation,
+                        self.groups)
 
 
 class Linear(nn.Linear):
@@ -206,6 +226,7 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     downscales included."""
     if tuple(x.shape[2:]) == tuple(out_hw):
         return x
+    spatial.refuse("a bilinear resize")
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                          align_corners=False)
 
@@ -214,6 +235,7 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """``InstanceNorm2d`` without affine (layers.py:1213-1217): per sample
     and channel over H, W, biased variance. The statistics are taken in
     f32 and the result returns in x's dtype."""
+    spatial.refuse("instance_norm")
     xf = x.float()
     var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, correction=0)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
@@ -223,11 +245,20 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` with its weight cast to the input's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(
-            x, self.weight.to(x.dtype),
-            None if self.bias is None else self.bias.to(x.dtype),
-            self.stride, self.padding, self.output_padding, self.groups,
-            self.dilation)
+        w = self.weight.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        if spatial.spatial_group() is None:
+            return F.conv_transpose2d(x, w, b, self.stride, self.padding,
+                                      self.output_padding, self.groups, self.dilation)
+        if self.output_padding[0]:
+            raise NotImplementedError("a transposed conv with output padding in "
+                                      "height is not served by rows")
+        rows = x.shape[2] * self.stride[0]
+        xe, first = spatial.transposed_rows(x, self.kernel_size[0], self.stride[0],
+                                            self.padding[0], self.dilation[0])
+        y = F.conv_transpose2d(xe, w, b, self.stride, (0, self.padding[1]),
+                               (0, self.output_padding[1]), self.groups, self.dilation)
+        return y.narrow(2, first, rows)
 
 
 class GroupedConv(nn.Module):
@@ -236,7 +267,10 @@ class GroupedConv(nn.Module):
     Owns the ``(C, C/groups, 3, 3)`` weight and calls ``ops/grouped_conv.py``
     (the CUDA kernel on the card), differentiably, the weight cast to the
     input's dtype. ``epilogue=(scale, bias, norm_act)`` folds the following
-    eval BN + activation into the same launch (no gradient).
+    eval BN + activation into the same launch (no gradient). Split by rows
+    (``spatial_parallel``), the kernel runs on the shard extended by d rows
+    of halo a side and its 2d extra output rows are dropped (counted in
+    ``parallel.spatial.EXCHANGE``).
     """
 
     def __init__(self, channels: int, groups: int, dilation: int = 1):
@@ -247,6 +281,17 @@ class GroupedConv(nn.Module):
             torch.empty(channels, channels // groups, 3, 3))
 
     def forward(self, x: torch.Tensor, epilogue=None) -> torch.Tensor:
+        if spatial.spatial_group() is not None:
+            # the halo-extended shard is a fresh channels_last tensor: its
+            # NHWC view is the contiguous operand the kernel takes
+            d, rows = self.dilation, x.shape[2]
+            y = self._conv(spatial.halo_rows(x, d, d), epilogue)
+            spatial.EXCHANGE["extra_rows"] += 2 * d
+            spatial.EXCHANGE["rows"] += rows
+            return y.narrow(2, d, rows)
+        return self._conv(x, epilogue)
+
+    def _conv(self, x: torch.Tensor, epilogue) -> torch.Tensor:
         xh = x.permute(0, 2, 3, 1)  # channels_last NCHW → contiguous NHWC view
         if epilogue is None:
             y = gc.differentiable_grouped_conv3x3(xh, self.weight, self.groups,
@@ -344,6 +389,7 @@ class _Int8Layer:
         return self._positive[1]
 
     def _check_eval(self) -> None:
+        spatial.refuse("an int8 layer")
         if self.training:
             raise RuntimeError("int8 layers serve inference only (Int8Conv is not "
                                "differentiable); call model.eval()")
@@ -463,20 +509,30 @@ def deconv(in_channels: int, features: int, kernel: int, stride: int,
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
-    """``nn.MaxPool2d(3, stride=2, padding=1)``."""
-    return F.max_pool2d(x, 3, stride=2, padding=1)
+    """``nn.MaxPool2d(3, stride=2, padding=1)``. Split by rows, a shard's
+    halo holds its neighbours' rows (the input, InitBlock's conv3 output, is
+    not activated: it may be negative) and -inf beyond the frame only."""
+    if spatial.spatial_group() is None:
+        return F.max_pool2d(x, 3, stride=2, padding=1)
+    xe = spatial.window_rows(x, 3, 2, 1, fill=float("-inf"))
+    return F.max_pool2d(xe, 3, stride=2, padding=(0, 1))
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """Mean over H, W, kept as 1x1."""
+    """Mean over H, W, kept as 1x1 (split by rows: over the whole frame)."""
+    if spatial.spatial_group() is not None:
+        return spatial.global_mean(x)
     return x.mean(dim=(2, 3), keepdim=True)
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """``F.adaptive_avg_pool2d``: bins ``[floor(i*H/out), ceil((i+1)*H/out))``,
-    the arithmetic the JAX version reproduces."""
+    the arithmetic the JAX version reproduces. Split by rows, only a factor
+    of 1 or 2 in height (bins within a shard) is served."""
     if tuple(x.shape[2:]) == tuple(out_hw):
         return x
+    if x.shape[2] not in (out_hw[0], 2 * out_hw[0]):
+        spatial.refuse(f"an adaptive pool of {x.shape[2]} rows to {out_hw[0]}")
     return F.adaptive_avg_pool2d(x, out_hw)
 
 

@@ -1,9 +1,10 @@
 """Confusion matrix and per-class IoU on the device.
 
-Counterpart of ``heatnet_tpu/ops/iou.py:17-72,108-140``. The JAX version
+Counterpart of ``heatnet_tpu/ops/iou.py:17-140``. The JAX version
 builds the matrix as a one-hot matmul for the TPU's matrix unit and the
 eval counts as (C, P) comparisons; here each is a ``bincount`` (pixels
 that count nowhere go to a spare bin), the same counts.
+``calculate_ious_device`` keeps JAX's (C, P) comparisons.
 """
 
 from __future__ import annotations
@@ -61,6 +62,27 @@ def confusion_matrix(predicted: torch.Tensor, target: torch.Tensor,
     idx = torch.where(ok, t * num_classes + p, num_classes * num_classes)
     counts = torch.bincount(idx, minlength=num_classes * num_classes + 1)
     return counts[:num_classes * num_classes].view(num_classes, num_classes)
+
+
+def calculate_ious_device(pred: torch.Tensor, target: torch.Tensor,
+                          n_classes: int = 13, background_class: int = 12,
+                          ignore_class: int = 13) -> torch.Tensor:
+    """Per-class IoU of one set of maps, float32 on their device, NaN where
+    a class is absent (``heatnet_tpu/ops/iou.py:75``, the device form of
+    ``eval/metrics.py::calculate_ious``): pixels whose target is
+    ``ignore_class`` leave the union; the background and ignore classes are
+    left out of the vector, which lists the others in class order."""
+    p = pred.reshape(-1)
+    t = target.reshape(-1)
+    valid = t != ignore_class
+    classes = torch.tensor([c for c in range(n_classes)
+                            if c not in (background_class, ignore_class)], device=p.device)
+    p_eq = p[None, :] == classes[:, None]
+    t_eq = t[None, :] == classes[:, None]
+    inter = (p_eq & t_eq).sum(1).to(torch.float32)
+    union = ((p_eq & valid).sum(1) + (t_eq & valid).sum(1)).to(torch.float32) - inter
+    return torch.where(union > 0, inter / union.clamp(min=1.0),
+                       torch.full_like(union, float("nan")))
 
 
 def iou_from_confusion(conf: torch.Tensor,

@@ -1,6 +1,6 @@
 """Image preprocessing, plain PyTorch (NHWC): eval ingest and train augmentation.
 
-Counterpart of ``heatnet_tpu/ops/preprocess.py:29-57,120-281,289-353``
+Counterpart of ``heatnet_tpu/ops/preprocess.py:29-115,120-281,289-353``
 and of ``heatnet_tpu/eval/validate.py:52-68`` (``_device_normalize``). The
 eval chain is the reference loader's (thermal_loader.py:633-659, :711-728):
 window crop → radiometric IR clamp [21800, 25000] → [0, 1] → normalise (mean
@@ -34,6 +34,7 @@ import dataclasses
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 # Radiometric window of the FLIR unit used for Freiburg Thermal
@@ -43,6 +44,10 @@ IR_MAXVAL = 25000.0
 
 RGB_MEAN = (0.5, 0.5, 0.5)
 RGB_STD = (0.5, 0.5, 0.5)
+
+# Vistas training statistics (thermal_loader.py:22-23, vistas_dataset.py:150-151)
+VISTAS_MEAN = (0.35675976, 0.37380189, 0.3764753)
+VISTAS_STD = (0.32064945, 0.32098866, 0.32325324)
 
 
 def ir_normalize(ir: torch.Tensor, minval: float = IR_MINVAL,
@@ -65,6 +70,53 @@ def normalize(img: torch.Tensor, mean: Sequence[float] = RGB_MEAN,
     mean_t = torch.tensor(mean, dtype=torch.float32, device=img.device)
     std_t = torch.tensor(std, dtype=torch.float32, device=img.device)
     return (img.to(torch.float32) - mean_t) / std_t
+
+
+def denormalize(img: torch.Tensor, mean: Sequence[float] = RGB_MEAN,
+                std: Sequence[float] = RGB_STD) -> torch.Tensor:
+    """The inverse of ``normalize``: ``img * std + mean``, float32."""
+    mean_t = torch.tensor(mean, dtype=torch.float32, device=img.device)
+    std_t = torch.tensor(std, dtype=torch.float32, device=img.device)
+    return img.to(torch.float32) * std_t + mean_t
+
+
+def _axis_weights(size_in: int, size_out: int, nearest: bool) -> np.ndarray:
+    """The (size_out, size_in) interpolation matrix of one axis, cv2's
+    conventions: INTER_LINEAR samples ``(dst + 0.5) * scale - 0.5``, edge
+    clamped; INTER_NEAREST ``floor(dst * scale)``, no half-pixel shift."""
+    scale = size_in / size_out
+    m = np.zeros((size_out, size_in), np.float32)
+    if nearest:
+        idx = np.minimum(np.floor(np.arange(size_out) * scale), size_in - 1)
+        m[np.arange(size_out), idx.astype(int)] = 1.0
+        return m
+    src = (np.arange(size_out) + 0.5) * scale - 0.5
+    i0 = np.clip(np.floor(src), 0, size_in - 1).astype(int)
+    i1 = np.minimum(i0 + 1, size_in - 1)
+    frac = np.clip(src - i0, 0.0, 1.0)
+    np.add.at(m, (np.arange(size_out), i0), 1.0 - frac)
+    np.add.at(m, (np.arange(size_out), i1), frac)
+    return m
+
+
+def resize(img: torch.Tensor, out_hw: Tuple[int, int],
+           method: str = "bilinear") -> torch.Tensor:
+    """NHWC, HWC or HW ``img`` to ``out_hw`` with cv2's conventions, in
+    float32 (``bilinear``: INTER_LINEAR, half-pixel centres, no antialiasing
+    on downscale; ``nearest``: INTER_NEAREST, integer images keep their
+    dtype): one interpolation matrix per axis, as the JAX version (:92)."""
+    x = img[None, ..., None] if img.dim() == 2 else img[None] if img.dim() == 3 else img
+    _, h, w, _ = x.shape
+    nearest = method == "nearest"
+    mh = torch.from_numpy(_axis_weights(h, out_hw[0], nearest)).to(img.device)
+    mw = torch.from_numpy(_axis_weights(w, out_hw[1], nearest)).to(img.device)
+    out = torch.einsum("oh,nhwc->nowc", mh, x.to(torch.float32))
+    out = torch.einsum("pw,nowc->nopc", mw, out)
+    if nearest and not img.dtype.is_floating_point:
+        out = torch.round(out).to(img.dtype)
+    if img.dim() == 2:
+        return out[0, ..., 0]
+    return out[0] if img.dim() == 3 else out
 
 
 def window_crop(img: torch.Tensor, col_lo: int = 150,

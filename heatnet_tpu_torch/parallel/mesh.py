@@ -31,13 +31,26 @@ written out:
   Over one process the all-reduce is the identity, and the layers keep
   their single-process path.
 
-Not ported: ``spatial_sharding`` (:207-217) shards the height of a frame
-and needs a halo exchange in every convolution.
+- ``spatial_sharding`` (:207-217): NHWC dimension 1, the height, over
+  ``data``, for batch-1 serving of frames too large for one card.
+  ``shard_rows`` keeps this process's block of rows (rank r of n: rows
+  ``[r*H/n, (r+1)*H/n)``) and ``gather_rows`` puts the blocks back
+  together. JAX's GSPMD inserts the halo exchanges the convolutions need and
+  takes uneven shards; here the exchanges are written out in
+  ``parallel/spatial.py``, and H must be a multiple of 8·n: the net's output
+  stride is 8, so every stride-2 window of every shard starts on the shard's
+  first row (ROADMAP §3, divergences by design).
+- ``all_gather`` and ``all_reduce_sum``: the collectives of the spatial
+  path, by the group's backend: NCCL moves card tensors directly; gloo
+  carries host tensors, so a card tensor is staged through host memory
+  explicitly and comes back to the card. A backend that cannot carry the
+  tensor raises.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import os
 import warnings
@@ -272,3 +285,94 @@ def data_parallel(mesh):
         yield mesh
     finally:
         _BATCH_STATS_GROUP = prev
+
+
+# The net's output stride: InitBlock's stride-2 conv and max pool, mod3's
+# stride-2 1x1s (trgb_segnet.py). A shard's rows must be a multiple of it.
+OUTPUT_STRIDE = 8
+HEIGHT_AXIS = 1  # NHWC: the dimension split by spatial_sharding
+
+
+@dataclasses.dataclass(frozen=True)
+class SpatialSharding:
+    """NHWC dimension 1 (the height) split over the ``data`` dimension of
+    ``mesh`` in equal contiguous blocks, one per process."""
+
+    mesh: Any
+
+    @property
+    def size(self) -> int:
+        return data_size(self.mesh)
+
+    @property
+    def rank(self) -> int:
+        if self.mesh.get_coordinate() is None:
+            raise ValueError("this process is outside the mesh: it holds no rows")
+        return self.mesh.get_local_rank(DATA_AXIS)
+
+    @property
+    def group(self):
+        return data_group(self.mesh)
+
+
+def spatial_sharding(mesh) -> SpatialSharding:
+    """The height of NHWC frames over the ``data`` dimension (:207-217)."""
+    return SpatialSharding(mesh)
+
+
+def shard_rows(x, sharding: SpatialSharding):
+    """This process's block of rows of a whole frame (a tensor or an array,
+    NHWC): rank r of n keeps rows ``[r*H/n, (r+1)*H/n)``. H must be a
+    multiple of ``OUTPUT_STRIDE * n``."""
+    n = sharding.size
+    h = x.shape[HEIGHT_AXIS]
+    if h % (OUTPUT_STRIDE * n):
+        raise ValueError(f"height {h} is not a multiple of {OUTPUT_STRIDE * n} "
+                         f"(output stride {OUTPUT_STRIDE} x {n} processes)")
+    k = h // n
+    r = sharding.rank
+    index = [slice(None)] * x.ndim
+    index[HEIGHT_AXIS] = slice(r * k, (r + 1) * k)
+    return x[tuple(index)]
+
+
+def gather_rows(x: torch.Tensor, sharding: SpatialSharding) -> torch.Tensor:
+    """Every process's block of rows, in rank order, on every process."""
+    blocks = all_gather(sharding.group, x)
+    return torch.cat(blocks.unbind(0), dim=HEIGHT_AXIS)
+
+
+def _carrier(group, t: torch.Tensor) -> torch.device:
+    """Where the group's backend takes ``t``: the card for NCCL, the host
+    for gloo; raises for a backend that cannot carry it."""
+    backend = str(dist.get_backend(group))
+    if t.device.type == "cuda" and "nccl" in backend:
+        return t.device
+    if "gloo" in backend:
+        return torch.device("cpu")
+    raise ValueError(f"a {backend} group cannot carry a {t.device.type} tensor")
+
+
+def all_gather(group, t: torch.Tensor) -> torch.Tensor:
+    """``(n, *t.shape)``: every process's ``t`` in rank order, on ``t``'s
+    device. The bytes cross as uint8, so any dtype travels unchanged."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t.unsqueeze(0)
+    where = _carrier(group, t)
+    src = t.contiguous().view(-1).view(torch.uint8).to(where)
+    out = torch.empty((n, src.numel()), dtype=torch.uint8, device=where)
+    if where.type == "cuda":
+        dist.all_gather_into_tensor(out, src, group=group)
+    else:
+        dist.all_gather(list(out.unbind(0)), src, group=group)
+    return out.to(t.device).view(t.dtype).view(n, *t.shape)
+
+
+def all_reduce_sum(group, t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the group, on ``t``'s device (a new tensor)."""
+    if dist.get_world_size(group) == 1:
+        return t.clone()
+    buf = t.detach().to(_carrier(group, t), copy=True).contiguous()
+    dist.all_reduce(buf, group=group)
+    return buf.to(t.device)

@@ -2,10 +2,12 @@
 
     python -m heatnet_tpu_torch.tools.profile_infer [--batches 1 8] [--iters 20]
         [--arch resnext50|pspnet] [--late_fusion] [--quant int8]
+        [--height 320] [--width 704]
 
 For each batch size, the model (random weights, seed 0) serves random
-320x704 uint8/uint16 frames already on the card through the same
-``ingest → model → argmax`` as ``eval.validate.predict``. The model is
+``--height`` x ``--width`` (320x704) uint8/uint16 frames already on the
+card through the same ``ingest → model → argmax`` as
+``eval.validate.predict``. The model is
 ResNeXt-50, early fusion (one 4-channel input) or ``--late_fusion`` (RGB and
 IR from one two-output ingest launch), or ``--arch pspnet``: PSPNet on the
 dilated ResNet-50, RGB only (``tools/bench_pspnet.py:52-64``). ``--quant
@@ -67,6 +69,8 @@ def main(argv=None) -> None:
     p.add_argument("--arch", choices=("resnext50", "pspnet"), default="resnext50")
     p.add_argument("--late_fusion", action="store_true")
     p.add_argument("--quant", choices=("none", "int8"), default="none")
+    p.add_argument("--height", type=int, default=320)
+    p.add_argument("--width", type=int, default=704)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_infer needs a CUDA card")
@@ -87,9 +91,10 @@ def main(argv=None) -> None:
     rng = np.random.RandomState(0)
     calibrated = args.quant != "int8"
 
+    h, w = args.height, args.width
     for b in args.batches:
-        rgb = torch.from_numpy(rng.randint(0, 256, (b, 320, 704, 3)).astype(np.uint8)).to(dev)
-        ir = rng.randint(21000, 26000, (b, 320, 704, 1)).astype(np.uint16)
+        rgb = torch.from_numpy(rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8)).to(dev)
+        ir = rng.randint(21000, 26000, (b, h, w, 1)).astype(np.uint16)
         ir = torch.from_numpy(ir.view(np.int16)).to(dev).view(torch.uint16)
 
         def inputs(rgb, ir):
@@ -97,8 +102,8 @@ def main(argv=None) -> None:
             if args.arch == "pspnet":
                 return (fp.rgb_normalize_fused(rgb, dtype),)
             if model.late_fusion:
-                return fp.inference_preprocess_fused(rgb, ir, 0, 704, dtype)
-            return (fp.early_fusion_input(rgb, ir, 0, 704, dtype),)
+                return fp.inference_preprocess_fused(rgb, ir, 0, w, dtype)
+            return (fp.early_fusion_input(rgb, ir, 0, w, dtype),)
 
         def step():
             with torch.no_grad():
@@ -140,7 +145,7 @@ def main(argv=None) -> None:
         print(json.dumps({
             "model": args.arch + (" late fusion" if args.late_fusion else "")
             + (" int8" if args.quant == "int8" else ""),
-            "batch": b, "frames": "320x704",
+            "batch": b, "frames": f"{h}x{w}",
             "forward_ms_p50": p50,
             "forward_ms_p95": float(np.percentile(times, 95)),
             "profile_calls": 5,

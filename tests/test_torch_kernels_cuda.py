@@ -823,3 +823,34 @@ def test_lean_bn_act_on_the_card_equals_the_cpu(dev, act):
             t.grad.cpu() for t in ins]
     for c, r in zip(got["cuda"], got["cpu"]):
         assert float((c - r).abs().max()) <= 1e-5 * float(r.abs().max())
+
+
+# (C, cpg, d, H, W) of ResNeXt-50's grouped convs on a 640x1920 frame, whose
+# rows the spatial path splits over 4 processes
+SPATIAL_STAGES = [(128, 2, 1, 160, 480), (256, 4, 1, 80, 240), (512, 8, 2, 80, 240),
+                  (1024, 16, 4, 80, 240)]
+
+
+@pytest.mark.parametrize("c,cpg,d,h,w", SPATIAL_STAGES)
+def test_halo_extended_fused_grouped_conv_equals_the_whole_frame(dev, c, cpg, d, h, w):
+    """The spatial path's grouped conv (``models/layers.py::GroupedConv``
+    under ``spatial_parallel``): each shard of 4, extended by d rows of its
+    neighbours (zeros beyond the frame), through the fused kernel with its
+    'same' padding, d rows dropped a side, equals the kernel on the whole
+    frame at those rows bit for bit; the extended shard's kernel output is
+    held against the plain version on it."""
+    g = torch.Generator().manual_seed(c + d)
+    x = torch.randn((1, h, w, c), generator=g).to(torch.bfloat16).to(dev)
+    wt = (torch.randn((c, cpg, 3, 3), generator=g) / (9 * cpg) ** 0.5).to(torch.bfloat16)
+    s, b = torch.rand(c, generator=g) + 0.5, torch.randn(c, generator=g) * 0.1
+    wt, s, b = wt.to(dev), s.to(dev), b.to(dev)
+    whole = gc.grouped_conv3x3_fused(x, wt, s, b, GROUPS, d, "relu")
+    rows = h // 4
+    for r in range(4):
+        lo, hi = r * rows - d, (r + 1) * rows + d
+        ext = torch.zeros((1, rows + 2 * d, w, c), dtype=torch.bfloat16, device=dev)
+        ext[:, max(lo, 0) - lo:min(hi, h) - lo] = x[:, max(lo, 0):min(hi, h)]
+        out = gc.grouped_conv3x3_fused(ext, wt, s, b, GROUPS, d, "relu")
+        _close(out, gc.grouped_conv3x3_plain(ext, wt, GROUPS, d, s, b, "relu"))
+        part = out[:, d:d + rows]
+        assert torch.equal(part, whole[:, r * rows:(r + 1) * rows]), r
