@@ -268,6 +268,22 @@ Phases, each of which exits non-zero on failure:
    the unsharded forward's p50, each worker's (4 processes share the card:
    not a latency figure), the exchanges' bytes and ms per forward and the
    rows the halo-extended grouped convs compute beyond their shards;
+   13b. the same for PSPNet-ResNet-50 (config #1, RGB only, in float32 as
+       the reference's inference runs; random weights, seed 0) at batch 1:
+       the pyramid pools the whole frame (one all-reduce per prior), the
+       priors are resized to each shard's rows and the x2 upsamples take one
+       row of halo a side; 1 ingest launch per forward;
+   13c. the same for ResNeXt-50 early fusion converted to int8 at batch 8,
+       calibrated by rows on another seeded batch (each scale the max over
+       every shard, against the unsharded calibration's), its gates read on
+       the frame's shape; the int8 kernel on halo-extended shards unpadded in
+       height; each worker's launches per forward equal the unsharded
+       forward's (ingest, fused grouped conv and int8 conv); the class map
+       against the int8 conv's plain version, as 9b holds it. Then every
+       launch shape of the shards' kernels against its plain version (the
+       int8 conv bit for bit, each 3x3 shape also timed the other way: its
+       rows padded in height too and the extra rows dropped), and each
+       worker's peak memory;
 14. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
    launches on every path); the last line is ``{"ok": true, "device": {...}}``.
 
@@ -1004,42 +1020,88 @@ def capture_phase(work: str, zero_counts, read_counts) -> dict:
 
 SPATIAL_HW = (640, 1920)  # phase 13: a 650x1920 Freiburg source frame cut to 640 rows
 SPATIAL_PROCS = 4         # processes sharing the card, one shard of rows each
-SPATIAL_REPS = 10         # timed forwards, after one warm-up and the counted one
-SPATIAL_TIMEOUT_S = 420   # for the workers together
+SPATIAL_TIMEOUT_S = 420   # for one case's workers together
 SPATIAL_MIN_AGREEMENT = 0.999  # outside the unsharded forward's near ties (below)
 # The gathered logits against the unsharded forward's: both round bf16 sums,
 # in another order where cuDNN takes another engine for a shard's rows, so
 # the largest difference is a bf16 step or two of the largest |logit|; a row
 # out of place would move logits by their own size
 SPATIAL_LOGIT_TOL = 2.0 ** -7
-SPATIAL_PER_FORWARD = {"ingest": 1, "grouped_conv3x3": 0, "grouped_conv3x3_fused": 16,
-                       "grouped_conv3x3_dx": 0, "int8_conv": 0}
+# 13c's scales, calibrated by rows, against the unsharded calibration's, on
+# every rank: the frame's max of each layer's input, all-reduced, so equal
+# but for the last bit of a division (tests/test_torch_spatial.py holds them
+# at the same 1e-6)
+SPATIAL_SCALE_TOL = 1e-6
+# (phase, its record, architecture, batch, modalities, activations, control,
+# timed forwards, the kernels its forward must launch). Each worker's
+# launches per forward must equal the unsharded forward's. Where a control
+# precision is named, the logit bound is not SPATIAL_LOGIT_TOL but twice the
+# gap between the unsharded forward in the case's precision and in the
+# control's, read in the same run: two forwards that each stay that close to
+# the control stay within twice it of each other. PSPNet in bf16 needs it:
+# cuDNN takes other engines for a shard's rows than for the frame's from
+# layer2 on, and random weights carry those rounding steps to about 2^-6 of
+# the largest |logit|, as far as each bf16 forward lies from its float32
+# twin (PERF.md); in float32, config #1's precision (the reference's
+# scripts/inference.py runs float32), the extractor's rows are the frame's
+# bit for bit (tools/spatial_layers.py --arch pspnet)
+SPATIAL_CASES = (
+    ("13", "spatial_serving", "resnext", 1, "ir_rgb", "bfloat16", None, 10,
+     ("ingest", "grouped_conv3x3_fused")),
+    ("13b", "spatial_pspnet", "pspnet", 1, "rgb", "float32", None, 5, ("ingest",)),
+    ("13c", "spatial_int8", "resnext_int8", 8, "ir_rgb", "bfloat16", None, 3,
+     ("ingest", "grouped_conv3x3_fused", "int8_conv")),
+    ("13d", "spatial_pspnet_bf16", "pspnet", 1, "rgb", "bfloat16", "float32", 5,
+     ("ingest",)),
+)
+
+
+def spatial_model(arch: str, weights: str, dev, dtype: str):
+    """Phase 13's model of ``arch`` on ``dev`` from ``weights`` (a float
+    state_dict), its activations in ``dtype``: ResNeXt-50 early fusion,
+    PSPNet-ResNet-50 RGB-only, or ResNeXt-50 early fusion converted to int8
+    (uncalibrated)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from heatnet_tpu_torch.models import build_network, net_resnext50
+    from heatnet_tpu_torch.models.layers import prepare_for_inference
+    from heatnet_tpu_torch.ops.quant import convert_int8
+
+    net = (build_network("resnet50", in_channels=3) if arch == "pspnet"
+           else net_resnext50(classes=13, input_channels=4))
+    net.load_state_dict(torch.load(weights, map_location="cpu", weights_only=True))
+    if arch == "resnext_int8":
+        convert_int8(net)
+    return prepare_for_inference(net, dev, getattr(torch, dtype))
 
 
 def spatial_worker(spec_path: str, out_path: str) -> None:
     """Phase 13's worker, rank ``RANK`` of ``WORLD_SIZE`` in a gloo group on
-    the one card: ResNeXt-50 from ``spec["weights"]`` serves the frame of
+    the one card: ``spatial_model`` of ``spec["arch"]`` serves the frames of
     ``spec["frames"]`` split by rows (``parallel/spatial.py::serve_frame``:
     ``shard_rows``, the ingest kernel on its raw rows, the model under
-    ``spatial_parallel``, argmax, the class map gathered). One warm-up
-    forward, one with the launches and the exchanges read around it, then
-    ``spec["reps"]`` timed forwards (host clock, each after a barrier, to a
-    synchronise). Each halo exchange after the warm-up is timed by CUDA
-    events recorded around its ``all_gather`` on the stream, read after the
-    forward's synchronise: the device-to-host copy, gloo and the copy back.
-    Writes its record to ``out_path`` (.json) and, rank 0, the class map and
-    the gathered logits beside it (.npz)."""
+    ``spatial_parallel``, argmax, the class map gathered); the int8 model is
+    first calibrated by rows on ``spec["calibration"]`` (``calibrate_frame``).
+    One warm-up forward, one with the launches, the exchanges and each
+    kernel's launch shapes read around it, then ``spec["reps"]`` timed
+    forwards (host clock, each after a barrier, to a synchronise). In those
+    timed forwards each halo exchange is timed by CUDA events recorded
+    around its ``all_gather`` on the stream, read after the forward's
+    synchronise: the device-to-host copy, gloo and the copy back. Writes its record to
+    ``out_path`` (.json) and its rows of the logits beside it (.npz), rank 0
+    also the class map."""
     import datetime
+    import inspect
 
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, ROOT)
-    from heatnet_tpu_torch.models import net_resnext50
-    from heatnet_tpu_torch.models.layers import prepare_for_inference
     from heatnet_tpu_torch.ops import fused_preproc as fp
     from heatnet_tpu_torch.ops import grouped_conv as gc
     from heatnet_tpu_torch.ops import int8_conv
+    from heatnet_tpu_torch.ops.quant import int8_layers
     from heatnet_tpu_torch.parallel import mesh as pm
     from heatnet_tpu_torch.parallel import spatial
 
@@ -1047,17 +1109,22 @@ def spatial_worker(spec_path: str, out_path: str) -> None:
         spec = json.load(f)
     rank = int(os.environ["RANK"])
     torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False  # as run_phases sets them
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{spec['port']}",
                             rank=rank, world_size=int(os.environ["WORLD_SIZE"]),
                             timeout=datetime.timedelta(seconds=SPATIAL_TIMEOUT_S))
-    model = net_resnext50(classes=13, input_channels=4)
-    model.load_state_dict(torch.load(spec["weights"], map_location="cpu", weights_only=True))
-    model = prepare_for_inference(model, dev)
+    model = spatial_model(spec["arch"], spec["weights"], dev, spec["dtype"])
     frames = dict(np.load(spec["frames"]))
     mesh = pm.create_mesh()
     kernels = (fp.INGEST, gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_FUSED,
                gc.GROUPED_CONV3X3_DX, int8_conv.INT8_CONV)
+    torch.cuda.reset_peak_memory_stats()
+    scales = None
+    if spec["arch"] == "resnext_int8":
+        spatial.calibrate_frame(model, dict(np.load(spec["calibration"])), mesh, dev)
+        scales = [float(m.x_scale) for _, m in int8_layers(model)]
 
     events, exchange_ms = [], []
 
@@ -1069,8 +1136,37 @@ def spatial_worker(spec_path: str, out_path: str) -> None:
         events.append((start, end))
         return out
 
+    # each kernel's launch shapes in the counted forward, with their counts
+    shapes = {}
+
+    def recording(module, name, describe):
+        real = getattr(module, name)
+        sig = inspect.signature(real)
+
+        def wrapper(*args, **kw):
+            key = json.dumps(describe(sig.bind(*args, **kw).arguments))
+            shapes[key] = shapes.get(key, 0) + 1
+            return real(*args, **kw)
+        return mock.patch.object(module, name, wrapper)
+
+    def int8_shape(a):
+        return {"kernel": "int8_conv", "x": list(a["x"].shape), "w": list(a["w_q"].shape),
+                "stride": a.get("stride", 1),
+                "padding": list(int8_conv.pad_hw(a.get("padding", 0))),
+                "dilation": a.get("dilation", 1), "groups": a.get("groups", 1),
+                "bias": a.get("bias") is not None, "epilogue": a.get("epilogue") is not None}
+
+    def fused_shape(a):
+        return {"kernel": "grouped_conv3x3_fused", "x": list(a["x"].shape),
+                "w": list(a["w"].shape), "groups": a["groups"], "dilation": a["dilation"]}
+
+    def ingest_shape(name):
+        return lambda a: {"kernel": "ingest", "fn": name,
+                          "x": [list(v.shape) for v in a.values() if torch.is_tensor(v)],
+                          "dtype": str(a.get("out_dtype", torch.bfloat16))[len("torch."):]}
+
     def serve():
-        out = spatial.serve_frame(model, frames, mesh, dev)
+        out = spatial.serve_frame(model, frames, mesh, dev, spec["modalities"])
         torch.cuda.synchronize()
         exchange_ms.append(sum(a.elapsed_time(b) for a, b in events))
         events.clear()
@@ -1083,72 +1179,175 @@ def spatial_worker(spec_path: str, out_path: str) -> None:
     spatial.reset_exchange()
     dist.barrier()
     with mock.patch.object(spatial, "all_gather", timed_all_gather):
-        pred, seg, _ = serve()
+        with recording(int8_conv, "int8_conv2d", int8_shape), \
+                recording(gc, "grouped_conv3x3_fused", fused_shape), \
+                recording(fp, "early_fusion_input", ingest_shape("early_fusion_input")), \
+                recording(fp, "rgb_normalize_fused", ingest_shape("rgb_normalize_fused")):
+            pred, seg, _ = serve()
         launches = {k.name: k.launches for k in kernels}
         exchange = dict(spatial.EXCHANGE)
-        seg_full = pm.gather_rows(seg, pm.spatial_sharding(mesh))
+        exchange_ms.clear()  # from here on, the same forwards as ms
         ms = []
         for _ in range(spec["reps"]):
             dist.barrier()
             t0 = time.perf_counter()
             serve()
             ms.append((time.perf_counter() - t0) * 1e3)
-    if rank == 0:
-        np.savez(out_path[:-len(".json")] + ".npz", pred=pred.cpu().numpy(),
-                 seg=seg_full.cpu().numpy())
+    np.savez(out_path[:-len(".json")] + ".npz", seg=seg.float().cpu().numpy(),
+             **({"pred": pred.cpu().numpy()} if rank == 0 else {}))
     with open(out_path, "w") as f:
         json.dump({"rank": rank, "launches": launches, "exchange": exchange,
-                   "exchange_ms": exchange_ms, "shard": list(seg.shape), "ms": ms}, f)
+                   "exchange_ms": exchange_ms, "shard": list(seg.shape), "ms": ms,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "scales": scales,
+                   "shapes": [dict(json.loads(k), count=v) for k, v in shapes.items()]}, f)
     dist.destroy_process_group()
 
 
-def spatial_phase(work: str, card: str, zero_counts, read_counts) -> dict:
-    """Phase 13: one 640x1920 frame served by ResNeXt-50 split by rows over
+def int8_work(n: int, cin: int, cout: int, k: int, stride: int, pad, dil: int, groups: int,
+              h: int, w: int):
+    """(bytes, operations) an int8 conv's call needs, ``pad`` as (height,
+    width): each input row and column some valid tap reads, once (bf16), the
+    output written once (bf16), the weight (int8) and its scales; two
+    operations per multiply-add of a tap inside the image."""
+    ho = (h + 2 * pad[0] - dil * (k - 1) - 1) // stride + 1
+    wo = (w + 2 * pad[1] - dil * (k - 1) - 1) // stride + 1
+
+    def valid_taps(size, size_out, p):
+        return sum(sum(0 <= o * stride - p + t * dil < size for o in range(size_out))
+                   for t in range(k))
+
+    def lines_read(size, size_out, p):
+        """Input rows (or columns) that some valid tap reads: a strided 1x1
+        conv reads every s-th, and NHWC rows make the skipped pixels free."""
+        return len({o * stride - p + t * dil for o in range(size_out) for t in range(k)}
+                   & set(range(size)))
+
+    macs = n * cout * (cin // groups) * valid_taps(h, ho, pad[0]) * valid_taps(w, wo, pad[1])
+    n_bytes = (n * cin * 2 * lines_read(h, ho, pad[0]) * lines_read(w, wo, pad[1])
+               + n * ho * wo * cout * 2 + cout * (cin // groups) * k * k + cout * 4)
+    return n_bytes, 2 * macs
+
+
+def int8_case(g, dev, time_ms, what: str, n: int, cin: int, cout: int, k: int, stride: int,
+              pad, dil: int, groups: int, h: int, w: int, bias: bool, epilogue: bool):
+    """The int8 conv at one launch shape, on inputs drawn from ``g``: x after
+    a ReLU, as every int8 layer of the model sees it (half of it zeros), and
+    the same x before it. The kernel is held bit for bit against its plain
+    version on both (``fail`` otherwise), then both are timed on x. Returns
+    the row (``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``, ``bytes``,
+    ``ops``, ``max_abs_err``, ``out_hw``) and (x, w_q, args) for a caller
+    that times more beside it."""
+    import torch
+
+    from heatnet_tpu_torch.ops import int8_conv
+
+    x_signed = (torch.randn((n, h, w, cin), generator=g) * 2).to(dev, torch.bfloat16)
+    x_signed = x_signed.permute(0, 3, 1, 2)
+    x = torch.relu(x_signed)
+    w_q, w_scale = int8_conv.quantize_weight(
+        torch.randn((cout, cin // groups, k, k), generator=g))
+    w_q, w_scale = w_q.to(dev), w_scale.to(dev)
+    w_pack = int8_conv.pack_weight(w_q, groups)
+    x_scale = (x_signed.float().abs().amax() / 100).reshape(())
+    b = (torch.randn(cout, generator=g) * 0.1).to(dev) if bias else None
+    ep = ((torch.rand(cout, generator=g) + 0.5).to(dev),
+          (torch.randn(cout, generator=g) * 0.1).to(dev), "relu", 0.01) if epilogue else None
+    args = (w_scale, x_scale, b, stride, pad, dil, groups, ep)
+    err = 0.0
+    for xi in (x, x_signed):
+        out = int8_conv.int8_conv2d(xi, w_q, w_pack, *args)
+        ref = int8_conv.int8_conv2d_plain(xi, w_q, *args)
+        torch.cuda.synchronize()
+        e = float((out.float() - ref.float()).abs().max())
+        err = max(err, e)
+        if not torch.equal(out, ref):
+            fail(f"int8_conv {what}: max |kernel - plain| {e}, not bit for bit")
+    out_hw = tuple(out.shape[2:])
+    del x_signed, out, ref
+    k_ms = time_ms(lambda: int8_conv.int8_conv2d(x, w_q, w_pack, *args))
+    p_ms = time_ms(lambda: int8_conv.int8_conv2d_plain(x, w_q, *args), reps=2)
+    n_bytes, ops = int8_work(n, cin, cout, k, stride, int8_conv.pad_hw(pad), dil, groups, h, w)
+    b_ms, b_by = bound_ms(n_bytes, ops, INT8_OP_PER_S)
+    return ({"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "bytes": n_bytes, "ops": ops, "max_abs_err": err, "out_hw": out_hw},
+            (x, w_q, args))
+
+
+def spatial_case(work: str, card: str, case, zero_counts, read_counts) -> tuple:
+    """One case of phase 13 (``SPATIAL_CASES``): its frames served by rows over
     ``SPATIAL_PROCS`` worker processes on the one card (``spatial_worker``),
     against the unsharded forward of the same weights here, through the
-    kernels and through their plain versions. Returns the phase's record
-    (``fail`` on any disagreement)."""
+    kernels and through their plain versions. Returns (the case's record,
+    the workers' records); ``fail`` on any disagreement."""
     import torch
 
     from heatnet_tpu_torch.data.loaders import to_device
-    from heatnet_tpu_torch.models import net_resnext50
-    from heatnet_tpu_torch.models.layers import init_params, prepare_for_inference
+    from heatnet_tpu_torch.eval.validate import normalize_frames
+    from heatnet_tpu_torch.models import build_network, net_resnext50
+    from heatnet_tpu_torch.models.layers import init_params
     from heatnet_tpu_torch.ops import fused_preproc as fp
     from heatnet_tpu_torch.ops import grouped_conv as gc
+    from heatnet_tpu_torch.ops import int8_conv
+    from heatnet_tpu_torch.ops.quant import calibrate_int8, int8_layers
 
-    t_13 = time.perf_counter()
+    phase, _, arch, batch, modalities, dtype, control, reps, required = case
+    t_case = time.perf_counter()
     dev = torch.device("cuda")
     h, w = SPATIAL_HW
-    net = net_resnext50(classes=13, input_channels=4)
+    net = (build_network("resnet50", in_channels=3) if arch == "pspnet"
+           else net_resnext50(classes=13, input_channels=4))
     init_params(net, torch.Generator().manual_seed(0))
-    weights = os.path.join(work, "spatial_weights.pt")
+    weights = os.path.join(work, f"spatial_{phase}_weights.pt")
     torch.save(net.state_dict(), weights)
-    net = prepare_for_inference(net, dev)
-    prng = np.random.RandomState(13)
-    frames = {"rgb": prng.randint(0, 256, (1, h, w, 3)).astype(np.uint8),
-              "ir": prng.randint(21000, 26000, (1, h, w, 1)).astype(np.uint16)}
-    frames_path = os.path.join(work, "spatial_frames.npz")
-    np.savez(frames_path, **frames)
+    del net
+    net = spatial_model(arch, weights, dev, dtype)
+    keys = ("rgb",) if modalities == "rgb" else ("rgb", "ir")
 
-    # the unsharded forward of the same weights, a comparison only
-    rgb, ir = to_device(frames["rgb"], dev), to_device(frames["ir"], dev)
+    def raw_frames(seed):
+        prng = np.random.RandomState(seed)
+        return {"rgb": prng.randint(0, 256, (batch, h, w, 3)).astype(np.uint8),
+                "ir": prng.randint(21000, 26000, (batch, h, w, 1)).astype(np.uint16)}
 
-    def forward():
+    spec = {"port": free_port(), "weights": weights, "arch": arch, "reps": reps,
+            "modalities": modalities, "dtype": dtype}
+    frames = {k: v for k, v in raw_frames(13).items() if k in keys}
+    spec["frames"] = os.path.join(work, f"spatial_{phase}_frames.npz")
+    np.savez(spec["frames"], **frames)
+    on_card = [to_device(frames[k], dev) for k in keys]
+    scales_ref = None
+    if arch == "resnext_int8":  # the unsharded calibration, a comparison only
+        calib = raw_frames(14)
+        spec["calibration"] = os.path.join(work, f"spatial_{phase}_calibration.npz")
+        np.savez(spec["calibration"], **calib)
+        calibrate_int8(net, [normalize_frames([to_device(calib[k], dev) for k in keys],
+                                              net.compute_dtype)])
+        scales_ref = [float(m.x_scale) for _, m in int8_layers(net)]
+        del calib
+
+    def forward(model=None):
+        model = net if model is None else model
         with torch.no_grad():
-            seg = net(fp.early_fusion_input(rgb, ir, 0, w, net.compute_dtype))[0]
+            seg = model(*normalize_frames(on_card, model.compute_dtype))[0]
             pred = seg.argmax(dim=-1)
         torch.cuda.synchronize()
         return seg, pred
 
+    # the unsharded forward of the same weights, a comparison only
     zero_counts()
     seg_ref, pred_ref = forward()
     once = read_counts()
     ms_ref = []
-    for _ in range(SPATIAL_REPS + 3):
+    for _ in range(reps + 3):
         t0 = time.perf_counter()
         forward()
         ms_ref.append((time.perf_counter() - t0) * 1e3)
     ref_p50 = float(np.percentile(ms_ref[3:], 50))
+    logit_tol, seg_ctrl = SPATIAL_LOGIT_TOL, None
+    if control is not None:  # the serving precision's own gap, twice: the logit bound
+        ctrl = spatial_model(arch, weights, dev, control)
+        seg_ctrl = forward(ctrl)[0].float()
+        del ctrl
+        logit_tol = 2 * float((seg_ref.float() - seg_ctrl).abs().max() / seg_ctrl.abs().max())
 
     def ingest_plain(rgb, ir, lo, hi, out_dtype=torch.bfloat16):
         return torch.cat([fp.rgb_plain(rgb[..., lo:hi, :]),
@@ -1157,23 +1356,38 @@ def spatial_phase(work: str, card: str, zero_counts, read_counts) -> dict:
     def conv_plain(x, w, scale, bias, groups, dilation=1, act="relu", slope=0.01):
         return gc.grouped_conv3x3_plain(x, w, groups, dilation, scale, bias, act, slope)
 
+    def int8_plain(x, w_q, w_pack, *a, **kw):
+        return int8_conv.int8_conv2d_plain(x, w_q, *a, **kw)
+
+    # the int8 model against the int8 conv's plain version alone, as phase 9b
+    # holds int8 serving: its other kernels round bf16 sums in another order
+    # than their plain versions, and each such step that crosses a
+    # quantization step upstream of an int8 layer moves it by a quantum
+    # (spatial_shapes holds those kernels at the shards' shapes)
+    plain = ([("int8_conv", int8_conv, "int8_conv2d", int8_plain)] if arch == "resnext_int8"
+             else [("ingest", fp, "early_fusion_input", ingest_plain),
+                   ("ingest", fp, "rgb_normalize_fused", lambda x, d: fp.rgb_plain(x).to(d)),
+                   ("grouped_conv3x3_fused", gc, "grouped_conv3x3_fused", conv_plain)])
+    plain_kernels = sorted({k for k, *_ in plain})
     zero_counts()
-    with mock.patch.object(fp, "early_fusion_input", ingest_plain), \
-            mock.patch.object(gc, "grouped_conv3x3_fused", conv_plain):
+    with contextlib.ExitStack() as stack:
+        for _, module, name, fn in plain:
+            stack.enter_context(mock.patch.object(module, name, fn))
         _, pred_plain = forward()
-    if any(read_counts().values()):
-        fail(f"phase 13: the plain-version forward launched a kernel: {read_counts()}")
+    if any(read_counts()[k] for k in plain_kernels):
+        fail(f"phase {phase}: the plain-version forward launched a kernel: {read_counts()}")
+    del on_card
+    torch.cuda.empty_cache()
     zero_counts()
 
-    spec = os.path.join(work, "spatial_spec.json")
-    with open(spec, "w") as f:
-        json.dump({"port": free_port(), "weights": weights, "frames": frames_path,
-                   "reps": SPATIAL_REPS}, f)
-    outs = [os.path.join(work, f"spatial_rank{r}.json") for r in range(SPATIAL_PROCS)]
+    spec_path = os.path.join(work, f"spatial_{phase}_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    outs = [os.path.join(work, f"spatial_{phase}_rank{r}.json") for r in range(SPATIAL_PROCS)]
     env = dict(os.environ, WORLD_SIZE=str(SPATIAL_PROCS))
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--spatial-worker",
-                               spec, outs[r]], env=dict(env, RANK=str(r)),
+                               spec_path, outs[r]], env=dict(env, RANK=str(r)),
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(SPATIAL_PROCS)]
     logs = []
@@ -1182,7 +1396,7 @@ def spatial_phase(work: str, card: str, zero_counts, read_counts) -> dict:
             remaining = max(1.0, SPATIAL_TIMEOUT_S - (time.perf_counter() - t0))
             logs.append(p.communicate(timeout=remaining)[0])
     except subprocess.TimeoutExpired:
-        fail(f"phase 13: a worker did not exit within {SPATIAL_TIMEOUT_S} s")
+        fail(f"phase {phase}: a worker did not exit within {SPATIAL_TIMEOUT_S} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -1191,16 +1405,17 @@ def spatial_phase(work: str, card: str, zero_counts, read_counts) -> dict:
     workers_s = time.perf_counter() - t0
     for r, (p, log) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
-            fail(f"phase 13: worker {r} exited {p.returncode}:\n{log[-3000:]}")
+            fail(f"phase {phase}: worker {r} exited {p.returncode}:\n{log[-3000:]}")
     recs = []
     for out in outs:
         with open(out) as f:
             recs.append(json.load(f))
-    got = np.load(outs[0][:-len(".json")] + ".npz")
-    pred, seg = got["pred"], torch.from_numpy(got["seg"]).to(dev)
-    if pred.shape != (1, h, w) or seg.shape != seg_ref.shape or not bool(
+    got = [np.load(out[:-len(".json")] + ".npz") for out in outs]
+    pred = got[0]["pred"]
+    seg = torch.from_numpy(np.concatenate([g["seg"] for g in got], 1)).to(dev)
+    if pred.shape != (batch, h, w) or seg.shape != seg_ref.shape or not bool(
             torch.isfinite(seg).all()):
-        fail(f"phase 13: gathered class map {pred.shape}, logits {tuple(seg.shape)}")
+        fail(f"phase {phase}: gathered class map {pred.shape}, logits {tuple(seg.shape)}")
     pred = torch.from_numpy(pred).to(dev).long()
     top2 = seg_ref.float().topk(2, dim=-1).values
     max_diff = float((seg.float() - seg_ref.float()).abs().max())
@@ -1213,56 +1428,174 @@ def spatial_phase(work: str, card: str, zero_counts, read_counts) -> dict:
     agree = float((same | near_tie).float().mean())
     agree_plain = float((pred == pred_plain).float().mean())
     agree_ref_plain = float((pred_ref == pred_plain).float().mean())
-    exact = bool(torch.equal(seg, seg_ref))
+    exact = bool(torch.equal(seg, seg_ref.float()))
+    rel_ctrl = None if seg_ctrl is None else float(
+        (seg.float() - seg_ctrl).abs().max() / seg_ctrl.abs().max())
+    del seg, seg_ref, seg_ctrl, pred, pred_ref, pred_plain, top2, near_tie, same, net
+    torch.cuda.empty_cache()
 
-    stage_rows = [(name, d, h // SPATIAL_PROCS // stride, n)
-                  for name, d, stride, n in (("mod2", 1, 4, 3), ("mod3", 1, 8, 4),
-                                             ("mod4", 2, 8, 6), ("mod5", 4, 8, 3))]
     print(f"  {card}", flush=True)
-    print(f"  unsharded forward at {h}x{w}, batch 1 (host clock, ingest to argmax): p50 "
-          f"{ref_p50:.3f} ms; launches {once}", flush=True)
+    print(f"  {phase}: unsharded forward at {batch}x{h}x{w}, {dtype} (host clock, ingest to "
+          f"argmax): p50 {ref_p50:.3f} ms; launches {once}", flush=True)
     for rec in recs:
         ex = rec["exchange"]
-        print(f"  worker {rec['rank']}: shard {rec['shard']}; launches per forward "
+        print(f"  {phase} worker {rec['rank']}: shard {rec['shard']}; launches per forward "
               f"{rec['launches']}; forward p50 {float(np.percentile(rec['ms'], 50)):.3f} ms "
               f"({SPATIAL_PROCS} processes share one card: not a latency figure); "
               f"exchanges per forward {ex['calls']}, {ex['bytes'] / 1e6:.3f} MB received, "
               f"p50 {float(np.percentile(rec['exchange_ms'], 50)):.3f} ms (CUDA events "
-              f"around each all_gather: to the host, gloo, back); grouped convs: {ex['extra_rows']} extra rows beside {ex['rows']} shard rows",
-              flush=True)
-    print("  extra rows per grouped conv, per shard: " + ", ".join(
-        f"{name} 2x{d} of {rows} ({2 * d / rows:.1%}) x{n}" for name, d, rows, n in stage_rows),
-        flush=True)
-    print(f"  class map against the unsharded forward: {agree:.6f} of pixels equal or "
-          f"near ties (need >= {SPATIAL_MIN_AGREEMENT}; {agree_raw:.6f} equal, "
-          f"{float(near_tie.float().mean()):.6f} near ties, top-2 gap <= {2 * max_diff:.3g}); "
-          f"largest logit difference {rel:.3g} of the largest |logit| (need <= "
-          f"{SPATIAL_LOGIT_TOL:.3g}; logits bit for bit: {exact})", flush=True)
-    print(f"  class map against the unsharded forward through the plain versions: "
+              f"around each all_gather: to the host, gloo, back); timed forwards "
+              f"{[round(v, 1) for v in rec['ms']]} ms, their exchanges "
+              f"{[round(v, 1) for v in rec['exchange_ms']]} ms; grouped convs: "
+              f"{ex['extra_rows']} extra rows beside {ex['rows']} shard rows; peak "
+              f"{rec['peak_gb']:.3f} GB", flush=True)
+    print(f"  {phase}: class map against the unsharded forward: {agree:.6f} of pixels equal "
+          f"or near ties (need >= {SPATIAL_MIN_AGREEMENT}; {agree_raw:.6f} equal, near "
+          f"ties where the top-2 gap <= {2 * max_diff:.3g}); largest logit difference "
+          f"{rel:.3g} of the largest |logit| (need <= {logit_tol:.3g}"
+          + ("" if control is None else
+             f", twice the unsharded forward's gap from its {control} twin; the "
+             f"sharded forward's from that twin: {rel_ctrl:.3g}")
+          + f"; logits bit for bit: {exact})", flush=True)
+    print(f"  {phase}: class map against the unsharded forward through the plain versions "
+          f"of {plain_kernels}: "
           f"{agree_plain:.6f} of pixels (need >= {MIN_AGREEMENT}; the unsharded kernel "
-          f"forward's: {agree_ref_plain:.6f}); workers {workers_s:.1f} s; phase 13 "
-          f"{time.perf_counter() - t_13:.1f} s", flush=True)
-    bad = [rec["rank"] for rec in recs if rec["launches"] != SPATIAL_PER_FORWARD]
+          f"forward's: {agree_ref_plain:.6f}); workers {workers_s:.1f} s; case "
+          f"{time.perf_counter() - t_case:.1f} s", flush=True)
+    scale_gap = None
+    if scales_ref is not None:  # every rank's, against the unsharded calibration's
+        n_set = sum(b > 0 for b in scales_ref)
+        gaps = [abs(a - b) / b for rec in recs for a, b in zip(rec["scales"], scales_ref)
+                if b > 0]
+        scale_gap = max(gaps)
+        unset = [a for rec in recs for a, b in zip(rec["scales"], scales_ref)
+                 if b == 0 and a != 0]
+        print(f"  {phase}: scales calibrated by rows against the unsharded calibration's, on "
+              f"each of {len(recs)} ranks: largest relative gap {scale_gap:.3g} over "
+              f"{n_set} layers (need <= {SPATIAL_SCALE_TOL}); {len(scales_ref) - n_set} "
+              f"layers float in both ({len(unset)} rank-layers not)", flush=True)
+        if (scale_gap > SPATIAL_SCALE_TOL or unset
+                or any(len(rec["scales"]) != len(scales_ref) for rec in recs)):
+            fail(f"phase {phase}: scales by rows {scale_gap} from the unsharded calibration's "
+                 f"or {len(unset)} rank-layers calibrated only by rows")
+    bad = [rec["rank"] for rec in recs if rec["launches"] != once]
     if bad:
-        fail(f"phase 13: workers {bad} launched other than {SPATIAL_PER_FORWARD} per forward")
-    if rel > SPATIAL_LOGIT_TOL:
-        fail(f"phase 13: largest logit difference {rel} of the largest |logit| > "
-             f"{SPATIAL_LOGIT_TOL}")
+        fail(f"phase {phase}: workers {bad} launched other than the unsharded forward's "
+             f"{once} per forward")
+    missing = [k for k in required if not once[k]]
+    if missing:
+        fail(f"phase {phase}: the forward launched no {missing}")
+    if rel > logit_tol:
+        fail(f"phase {phase}: largest logit difference {rel} of the largest |logit| > "
+             f"{logit_tol}")
     if agree < SPATIAL_MIN_AGREEMENT:
-        fail(f"phase 13: class-map agreement {agree} < {SPATIAL_MIN_AGREEMENT}")
+        fail(f"phase {phase}: class-map agreement {agree} < {SPATIAL_MIN_AGREEMENT}")
     if agree_plain < MIN_AGREEMENT:
-        fail(f"phase 13: class-map agreement with the plain versions {agree_plain} < "
+        fail(f"phase {phase}: class-map agreement with the plain versions {agree_plain} < "
              f"{MIN_AGREEMENT}")
-    launches = {k: sum(rec["launches"][k] for rec in recs) for k in SPATIAL_PER_FORWARD}
-    return {"spatial_serving": {
-        "launches": launches, "agreement": agree, "agreement_equal": agree_raw,
-        "near_tie_share": float(near_tie.float().mean()), "max_logit_diff_rel": rel,
-        "logits_bit_for_bit": exact, "agreement_plain": agree_plain,
-        "unsharded_forward_ms_p50": ref_p50,
-        "worker_forward_ms_p50": [float(np.percentile(rec["ms"], 50)) for rec in recs],
-        "exchange_per_forward": [rec["exchange"] for rec in recs],
-        "exchange_ms_p50": [float(np.percentile(rec["exchange_ms"], 50)) for rec in recs],
-        "workers_s": workers_s}}
+    launches = {k: sum(rec["launches"][k] for rec in recs) for k in once}
+    return {"launches": launches, "agreement": agree, "agreement_equal": agree_raw,
+            "max_logit_diff_rel": rel, "logit_bound": logit_tol,
+            "max_logit_diff_rel_to_control": rel_ctrl, "logits_bit_for_bit": exact,
+            "agreement_plain": agree_plain, "agreement_plain_of": plain_kernels,
+            "unsharded_forward_ms_p50": ref_p50,
+            "worker_forward_ms_p50": [float(np.percentile(rec["ms"], 50)) for rec in recs],
+            "exchange_per_forward": [rec["exchange"] for rec in recs],
+            "exchange_ms_p50": [float(np.percentile(rec["exchange_ms"], 50)) for rec in recs],
+            "peak_gb": [rec["peak_gb"] for rec in recs], "scale_gap": scale_gap,
+            "workers_s": workers_s}, recs
+
+
+def spatial_shapes(recs, check, time_ms) -> dict:
+    """Every launch shape rank 0 recorded in phase 13's cases, each kernel
+    against its plain version on seeded inputs of that shape: ingest and the
+    fused grouped conv within their stated tolerances (``check``), the int8
+    conv bit for bit (``int8_case``). Returns the largest error per kernel
+    and the int8 rows."""
+    import torch
+
+    from heatnet_tpu_torch.ops import fused_preproc as fp
+    from heatnet_tpu_torch.ops import grouped_conv as gc
+
+    dev = torch.device("cuda")
+    ingest_tol = {"bfloat16": (lambda r: 2.0 ** -8, "2^-8, one bf16 ulp below 1"),
+                  "float32": (lambda r: 1e-6, "1e-6")}
+    gc_tol = (lambda r: 2.0 ** -7 * r.abs() + 1e-3, "2^-7 |plain| + 1e-3")
+    errs = {"ingest": 0.0, "grouped_conv3x3_fused": 0.0, "int8_conv": 0.0}
+    rows = []
+    g = torch.Generator().manual_seed(16)
+    for phase, rec in recs.items():
+        for s in rec["shapes"]:
+            tag = f"{phase} x{s['count']}"
+            if s["kernel"] == "ingest":
+                shp = s["x"][0]
+                rgb = torch.randint(0, 256, shp[:3] + [3], generator=g, dtype=torch.uint8)
+                ir = torch.randint(21000, 26000, shp[:3] + [1], generator=g, dtype=torch.int32)
+                rgb = rgb.to(dev)
+                ir = ir.to(torch.int16).to(dev).view(torch.uint16)
+                dtype = getattr(torch, s["dtype"])
+                if s["fn"] == "rgb_normalize_fused":
+                    out, ref = fp.rgb_normalize_fused(rgb, dtype), fp.rgb_plain(rgb).to(dtype)
+                else:
+                    out = fp.early_fusion_input(rgb, ir, 0, shp[2], dtype)
+                    ref = torch.cat([fp.rgb_plain(rgb), fp.ir_plain(ir)], -1).to(dtype)
+                errs["ingest"] = max(errs["ingest"], check(
+                    f"{s['fn']} {tuple(shp[:3])} {s['dtype']} ({tag})", out, ref,
+                    *ingest_tol[s["dtype"]]))
+            elif s["kernel"] == "grouped_conv3x3_fused":
+                n, hh, ww, c = s["x"]
+                cpg, d = s["w"][1], s["dilation"]
+                x = torch.randn((n, hh, ww, c), generator=g).to(dev, torch.bfloat16)
+                wt = (torch.randn(s["w"], generator=g) / (9 * cpg) ** 0.5).to(dev, torch.bfloat16)
+                scale = (torch.rand(c, generator=g) + 0.5).to(dev)
+                bias = (torch.randn(c, generator=g) * 0.1).to(dev)
+                errs["grouped_conv3x3_fused"] = max(errs["grouped_conv3x3_fused"], check(
+                    f"grouped_conv3x3_fused {tuple(s['x'])} d{d} ({tag})",
+                    gc.grouped_conv3x3_fused(x, wt, scale, bias, c // cpg, d),
+                    gc.grouped_conv3x3_plain(x, wt, c // cpg, d, scale, bias, "relu"), *gc_tol))
+            else:
+                n, cin, hh, ww = s["x"]
+                cout, _, k, _ = s["w"]
+                st, pad, d, groups = s["stride"], tuple(s["padding"]), s["dilation"], s["groups"]
+                what = (f"{cin}->{cout} {k}x{k} s{st} pad {pad} d{d} g{groups} at "
+                        f"{n}x{hh}x{ww} ({tag})")
+                row, held = int8_case(g, dev, time_ms, what, n, cin, cout, k, st, pad, d,
+                                      groups, hh, ww, s["bias"], s["epilogue"])
+                del held
+                errs["int8_conv"] = max(errs["int8_conv"], row["max_abs_err"])
+                rows.append({"layer": what, "per_forward": s["count"], "ms": row["ms"],
+                             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                             "bound_by": row["bound_by"]})
+                print(f"  int8_conv {what}: equal; kernel_ms {row['ms']:.4f} plain_ms "
+                      f"{row['plain_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
+                      f"({row['bound_by']}) share of the bound "
+                      f"{row['bound_ms'] / row['ms']:.3f}", flush=True)
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errs, "int8_rows": rows}
+
+
+def spatial_phase(work: str, card: str, zero_counts, read_counts, check, time_ms) -> dict:
+    """Phase 13: each of ``SPATIAL_CASES`` (ResNeXt-50, PSPNet-ResNet-50 and
+    the int8 ResNeXt-50 on 640x1920 frames) served by rows over
+    ``SPATIAL_PROCS`` processes on the one card (``spatial_case``), then every
+    kernel launch shape the shards took against its plain version
+    (``spatial_shapes``). Returns the phase's records."""
+    t_13 = time.perf_counter()
+    out, recs = {}, {}
+    for case in SPATIAL_CASES:
+        phase, record, arch, batch, modalities, dtype = case[:6]
+        print(f"spatial path {phase}: parallel.spatial.serve_frame, {arch} ({dtype}), batch "
+              f"{batch} of {SPATIAL_HW[0]}x{SPATIAL_HW[1]} ({modalities}) split by rows over "
+              f"{SPATIAL_PROCS} gloo processes on one card", flush=True)
+        out[record], workers = spatial_case(work, card, case, zero_counts, read_counts)
+        recs[phase] = workers[0]
+    print("kernels: the launch shapes of phase 13's shards against the plain versions",
+          flush=True)
+    shapes = spatial_shapes(recs, check, time_ms)
+    out["spatial_int8"]["int8_rows"] = shapes["int8_rows"]
+    out["spatial_int8"]["max_abs_err"] = shapes["max_abs_err"]
+    print(f"  phase 13: {time.perf_counter() - t_13:.1f} s", flush=True)
+    return out
 
 
 def main() -> None:
@@ -3240,16 +3573,6 @@ def run_phases(work: str) -> None:
           flush=True)
 
     # 9a. the kernel against its plain version at each int8 layer shape
-    def valid_taps(size_in, size_out, k, s, p, d):
-        return sum(sum(0 <= o * s - p + t * d < size_in for o in range(size_out))
-                   for t in range(k))
-
-    def lines_read(size_in, size_out, k, s, p, d):
-        """Input rows (or columns) that some valid tap reads: a strided 1x1
-        conv reads every s-th, and NHWC rows make the skipped pixels free."""
-        return len({o * s - p + t * d for o in range(size_out) for t in range(k)}
-                   & set(range(size_in)))
-
     print(f"kernels: int8_conv at the {len(configs)} layer shapes of that forward, "
           "bit for bit against the plain version", flush=True)
     torch.cuda.empty_cache()
@@ -3270,39 +3593,19 @@ def run_phases(work: str) -> None:
           f"{time.perf_counter() - t_child:.1f} s", flush=True)
     i8_rows, i8_err = [], 0.0
     fmt = lambda v: "not measured" if v is None else f"{v:.4f}"  # noqa: E731
-    # inputs: a post-ReLU x, as every int8 layer of the model sees (half of
-    # it zeros), and for the equality check also the same x before the ReLU
     for ((cin, cout, k, s, p, d, groups, n, h, w), names), card_row in zip(
             configs.items(), card["layers"]):
         (k_dev, k_q, k_g, n_rec, n_launch) = card_row["relu"]
         k_dev_signed = card_row["signed"][0]
         g = torch.Generator().manual_seed(cin + cout + k + d + h)
-        x_signed = (torch.randn((n, h, w, cin), generator=g) * 2).to(dev, torch.bfloat16)
-        x_signed = x_signed.permute(0, 3, 1, 2)
-        x = torch.relu(x_signed)
-        w_q, w_scale = int8_conv.quantize_weight(
-            torch.randn((cout, cin // groups, k, k), generator=g))
-        w_q, w_scale = w_q.to(dev), w_scale.to(dev)
-        w_pack = int8_conv.pack_weight(w_q, groups)
-        x_scale = (x_signed.float().abs().amax() / 100).reshape(())
-        ep = None if groups == 1 else ((torch.rand(cout, generator=g) + 0.5).to(dev),
-                                       (torch.randn(cout, generator=g) * 0.1).to(dev),
-                                       "relu", 0.01)
-        args = (w_scale, x_scale, None, s, p, d, groups, ep)
         what = (f"{cin}->{cout} {k}x{k} s{s} d{d}{f' g{groups}' if groups > 1 else ''} "
                 f"at {n}x{h}x{w} (x{len(names)}, e.g. {names[0]})")
-        for xi in (x, x_signed):
-            out = int8_conv.int8_conv2d(xi, w_q, w_pack, *args)
-            ref = int8_conv.int8_conv2d_plain(xi, w_q, *args)
-            torch.cuda.synchronize()
-            err = float((out.float() - ref.float()).abs().max())
-            i8_err = max(i8_err, err)
-            if not torch.equal(out, ref):
-                fail(f"int8_conv {what}: max |kernel - plain| {err}, not bit for bit")
-        fn = lambda: int8_conv.int8_conv2d(x, w_q, w_pack, *args)
-        k_ms = time_ms(fn)
-        p_ms = time_ms(lambda: int8_conv.int8_conv2d_plain(x, w_q, *args), reps=2)
-        ho, wo = out.shape[2], out.shape[3]
+        row, (x, w_q, args) = int8_case(g, dev, time_ms, what, n, cin, cout, k, s, p, d,
+                                        groups, h, w, False, groups > 1)
+        i8_err = max(i8_err, row["max_abs_err"])
+        k_ms, p_ms, b_ms, b_by = row["ms"], row["plain_ms"], row["bound_ms"], row["bound_by"]
+        ho, wo = row["out_hw"]
+        x_scale = args[1]
         lib_ms = None
         if k == 1 and groups == 1 and cin % 8 == 0 and cout % 8 == 0 and n * ho * wo > 16:
             a = int8_conv.quantize_input(x[:, :, ::s, ::s], x_scale).to(torch.int8)
@@ -3314,18 +3617,13 @@ def run_phases(work: str) -> None:
         w_bf = w_q.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         cudnn_ms = time_ms(lambda: F.conv2d(x, w_bf, None, s, p, d, groups))
         del w_bf
-        macs = (n * cout * (cin // groups) * valid_taps(h, ho, k, s, p, d)
-                * valid_taps(w, wo, k, s, p, d))
-        n_bytes = (n * cin * 2 * lines_read(h, ho, k, s, p, d) * lines_read(w, wo, k, s, p, d)
-                   + n * ho * wo * cout * 2 + w_q.numel() + cout * 4)
-        b_ms, b_by = bound_ms(n_bytes, 2 * macs, INT8_OP_PER_S)
         i8_rows.append({"layer": what, "per_forward": len(names), "ms": k_ms,
                         "device_ms": k_dev, "device_ms_quantize": k_q,
                         "device_ms_gemm": k_g, "device_ms_signed_x": k_dev_signed,
                         "plain_ms": p_ms, "library_ms": lib_ms,
                         "cudnn_bf16_ms": cudnn_ms,
-                        "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-                        "ops": 2 * macs, "share_of_bound": b_ms / k_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "bytes": row["bytes"],
+                        "ops": row["ops"], "share_of_bound": b_ms / k_ms,
                         "card_share_of_bound": None if k_dev is None else b_ms / k_dev})
         print(f"  {what}: equal; card ms quantize {fmt(k_q)} + product {fmt(k_g)} = "
               f"{fmt(k_dev)} ({fmt(k_dev_signed)} on the signed x; {n_rec} records of "
@@ -3334,7 +3632,7 @@ def run_phases(work: str) -> None:
               f"(eager); kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f}; _int_mm "
               f"{'-' if lib_ms is None else f'{lib_ms:.4f}'}; cuDNN bf16 F.conv2d "
               f"{cudnn_ms:.4f} (another function's time, a yardstick only)", flush=True)
-        del x, x_signed, out, ref
+        del x
     torch.cuda.empty_cache()
     i8 = {key: sum(r["per_forward"] * r[key] for r in i8_rows)
           for key in ("ms", "plain_ms")}
@@ -4231,14 +4529,13 @@ def run_phases(work: str) -> None:
 
     later.update(capture_phase(work, zero_counts, q_counts))
 
-    # 13. height-sharded serving: one 640x1920 frame split by rows over 4
-    # gloo processes on the card, each ingesting its rows and running the
-    # fused grouped conv on halo-extended shards; launches read in each worker
-    print(f"spatial path: parallel.spatial.serve_frame, ResNeXt-50 (3,4,6,3) early fusion, "
-          f"batch 1 of {SPATIAL_HW[0]}x{SPATIAL_HW[1]} split by rows over {SPATIAL_PROCS} "
-          f"gloo processes on one card", flush=True)
+    # 13. height-sharded serving: 640x1920 frames split by rows over 4 gloo
+    # processes on the card, each ingesting its rows and running its kernels
+    # on halo-extended shards (ResNeXt-50, PSPNet, the int8 ResNeXt-50);
+    # launches read in each worker
     torch.cuda.empty_cache()
-    later.update(spatial_phase(work, card, zero_counts, q_counts))
+    later.update(spatial_phase(work, card, zero_counts, q_counts, check, time_ms))
+    spatial_err = later["spatial_int8"].pop("max_abs_err")
 
     # 14. the record: each kernel's launches on every path, read around it
     paths = {"serving": launches, "train_plain": train_launches, "train_conf": adv_launches,
@@ -4268,7 +4565,8 @@ def run_phases(work: str) -> None:
          "replaces": "heatnet_tpu/ops/pallas_preproc.py:60 (_ir_kernel), "
                      "heatnet_tpu/ops/pallas_preproc.py:68 (_rgb_kernel)",
          "launches": sum(by_path("ingest").values()),
-         "launches_by_path": by_path("ingest"), "max_abs_err": ingest_err,
+         "launches_by_path": by_path("ingest"),
+         "max_abs_err": max(ingest_err, spatial_err["ingest"]),
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
          "library_ms": None, "device_ms": k_dev,
          "device_share_of_bound": b_ms / k_dev,
@@ -4280,7 +4578,7 @@ def run_phases(work: str) -> None:
          "launches": sum(by_path("grouped_conv3x3", "grouped_conv3x3_fused").values()),
          "launches_by_path": {"forward": by_path("grouped_conv3x3"),
                               "fused": by_path("grouped_conv3x3_fused")},
-         "max_abs_err": gc_err,
+         "max_abs_err": max(gc_err, spatial_err["grouped_conv3x3_fused"]),
          "train_conf_launches": {
              "forward": adv_launches["grouped_conv3x3"],
              "fused": adv_launches["grouped_conv3x3_fused"],
@@ -4323,7 +4621,8 @@ def run_phases(work: str) -> None:
                      "heatnet_tpu/models/layers.py:531 (GroupedConvDense's int8 arm) and "
                      "heatnet_tpu/models/layers.py:859 (Int8Conv)",
          "launches": sum(by_path("int8_conv").values()),
-         "launches_by_path": by_path("int8_conv"), "max_abs_err": i8_err,
+         "launches_by_path": by_path("int8_conv"),
+         "max_abs_err": max(i8_err, spatial_err["int8_conv"]),
          "ms": i8["ms"], "plain_ms": i8["plain_ms"], "bound_ms": i8_bound,
          "bound_by": i8_by, "library_ms": i8_lib, "device_ms": i8["device_ms"],
          "device_ms_signed_x": i8["device_ms_signed_x"],

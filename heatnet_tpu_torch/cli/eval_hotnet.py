@@ -14,7 +14,7 @@ vectors' average, is printed and logged per run.
 
 A JAX run directory (an orbax ``checkpoint_best/`` directory) cannot be
 read here: convert it with ``heatnet_tpu_torch/io/from_jax.py::
-state_dict_from_jax`` where JAX runs (ROADMAP item 8).
+state_dict_from_jax`` where JAX runs (ROADMAP queue 6, item 5).
 
 Usage::
 
@@ -84,7 +84,7 @@ def load_run(run_dir: str, device: torch.device) -> Tuple[torch.nn.Module, str]:
             f"{run_dir} holds an orbax checkpoint_best/ directory, which the port cannot "
             "read: convert its params and batch_stats with heatnet_tpu_torch/io/"
             "from_jax.py::state_dict_from_jax where JAX runs and save them as "
-            "checkpoint_best.pth (ROADMAP item 8)")
+            "checkpoint_best.pth (ROADMAP queue 6, item 5)")
     model.load_state_dict(segnet_state_dict(load_state_dict(path)), strict=True)
     return prepare_for_inference(model, device), modalities
 

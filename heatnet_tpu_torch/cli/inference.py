@@ -16,7 +16,8 @@ random from seed 0 unless ``--resume`` names a PyTorch
 ``state_dict`` file or a ``{"epoch", "state_dict"}`` checkpoint of
 ``cli/train_plain.py`` (``io/from_jax.py`` converts JAX trees;
 ``cli/convert_checkpoint.py`` converts the reference's). Runs on the card
-unless ``--device cpu``. Not ported yet: orbax checkpoints (ROADMAP item 8).
+unless ``--device cpu``. Orbax checkpoints are not read: convert them where
+JAX runs (ROADMAP queue 6, item 5).
 
 ``--quant int8`` serves the int8 mode (:126-138, :194-203): the loaded float
 model goes through ``ops/quant.py::convert_int8`` and is calibrated on the

@@ -9,7 +9,9 @@
 // and GroupedConvDense's int8 arm (:531-540, the block-diagonal dense form of
 // the grouped 3x3). One kernel pair serves every int8 layer of ResNeXtSeg:
 // 1x1 at stride 1 and 2, 3x3, 3x3 dilated (ASPP's rates 12/24/36), the
-// grouped 3x3 (64 groups, 2/4/8/16 channels per group) and any other size.
+// grouped 3x3 (64 groups, 2/4/8/16 channels per group) and any other size,
+// padded alike in height and width or (a frame split by rows, the shard
+// extended by its halo rows) in width only.
 //
 // The function, exactly (the plain version is ops/int8_conv.py):
 //   x_q  = clip(rint(x / max(x_scale, 1e-12)), -127, 127)   (IEEE division)
@@ -96,7 +98,7 @@ struct Params {
   const float* ep_bias;
   __nv_bfloat16* out;     // (N, Ho, Wo, Cout)
   int h, w, cq, ho, wo, cout;
-  int kh, kw, stride, pad, dil;
+  int kh, kw, stride, pad_h, pad_w, dil;
   int cin_pad, chunks, cout_g, m;
   int flat;               // K steps run over (ky, kx, ci) across taps
   int tma_a;              // the activation tile comes by TMA (1x1, stride 1)
@@ -411,8 +413,8 @@ __device__ __forceinline__ Taps tile_taps(const Params& p, int m0, int bm) {
     }
   }
   Taps t;
-  tap_range(oy_lo, oy_hi, p.stride, p.pad, p.dil, p.kh, p.h, t.ky0, t.nky);
-  tap_range(ox_lo, ox_hi, p.stride, p.pad, p.dil, p.kw, p.w, t.kx0, t.nkx);
+  tap_range(oy_lo, oy_hi, p.stride, p.pad_h, p.dil, p.kh, p.h, t.ky0, t.nky);
+  tap_range(ox_lo, ox_hi, p.stride, p.pad_w, p.dil, p.kw, p.w, t.kx0, t.nkx);
   return t;
 }
 
@@ -489,8 +491,8 @@ int8_conv_gemm(const __grid_constant__ CUtensorMap w_map,
         ox = rem - oy * p.wo;
       }
       row_px[j] = img * p.h * p.w;
-      row_y[j] = m < p.m ? oy * p.stride - p.pad : INT_MIN / 2;  // never inside
-      row_x[j] = ox * p.stride - p.pad;
+      row_y[j] = m < p.m ? oy * p.stride - p.pad_h : INT_MIN / 2;  // never inside
+      row_x[j] = ox * p.stride - p.pad_w;
     }
     const int8_t* xb = p.xq + blk * p.cin_pad;
     const uint32_t b_bytes = BN * kBK;
@@ -742,7 +744,9 @@ cudaError_t launch_gemm(const CUtensorMap& w_map, const CUtensorMap& a_map,
 
 extern "C" {
 
-// x: (N, H, W, Cin) bf16; xq: scratch of N*H*W*cq int8, cq = (Cin / cin_g) *
+// x: (N, H, W, Cin) bf16, zero-padded by pad_h rows and pad_w columns a side
+// (pad_h 0 for a shard already extended by its halo rows, parallel/spatial.py);
+// xq: scratch of N*H*W*cq int8, cq = (Cin / cin_g) *
 // cin_pad, cin_pad = cin_g rounded up to 32; w: pack_weight's (blocks, rows,
 // kh*kw*cin_pad) int8, rows = cout_g rounded up to
 // 64; w_scale (Cout,), x_scale () f32 on the device; bias, ep_scale and ep_bias
@@ -753,7 +757,7 @@ extern "C" {
 int hn_int8_conv(const void* x, void* xq, const void* w, const void* w_scale,
                  const void* x_scale, const void* bias, const void* ep_scale,
                  const void* ep_bias, void* out, int n, int h, int wd, int cin, int ho,
-                 int wo, int cout, int kh, int kw, int stride, int pad, int dil,
+                 int wo, int cout, int kh, int kw, int stride, int pad_h, int pad_w, int dil,
                  int cin_g, int cout_g, int rows, int k_total, int act, float slope,
                  void* stream) {
   const long long m = static_cast<long long>(n) * ho * wo;
@@ -761,6 +765,7 @@ int hn_int8_conv(const void* x, void* xq, const void* w, const void* w_scale,
   const int blocks = cin_g > 0 ? cin / cin_g : 0;
   const long long cq = static_cast<long long>(blocks) * cin_pad;
   if (n < 1 || h < 1 || wd < 1 || ho < 1 || wo < 1 || cin_g < 1 || cout_g < 1 ||
+      pad_h < 0 || pad_w < 0 ||
       cin % cin_g != 0 || cout % cout_g != 0 || blocks != cout / cout_g ||
       rows % kRowAlign != 0 || rows < cout_g || k_total != kh * kw * cin_pad ||
       m > (1ll << 31) - 1 || static_cast<long long>(n) * h * wd > (1ll << 31) - 1 ||
@@ -815,11 +820,11 @@ int hn_int8_conv(const void* x, void* xq, const void* w, const void* w_scale,
   p.ep_bias = static_cast<const float*>(ep_bias);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.h = h; p.w = wd; p.cq = static_cast<int>(cq); p.ho = ho; p.wo = wo; p.cout = cout;
-  p.kh = kh; p.kw = kw; p.stride = stride; p.pad = pad; p.dil = dil;
+  p.kh = kh; p.kw = kw; p.stride = stride; p.pad_h = pad_h; p.pad_w = pad_w; p.dil = dil;
   p.cin_pad = cin_pad; p.chunks = (cin_pad + kBK - 1) / kBK; p.cout_g = cout_g;
   p.flat = cin_pad % kBK != 0;
   p.m = static_cast<int>(m);
-  p.tma_a = kh == 1 && kw == 1 && stride == 1 && pad == 0 && blocks == 1 &&
+  p.tma_a = kh == 1 && kw == 1 && stride == 1 && pad_h == 0 && pad_w == 0 && blocks == 1 &&
             cin_pad >= kBK && m >= bm;
   p.act = act; p.slope = slope;
   CUtensorMap w_map, a_map = {};

@@ -32,13 +32,15 @@ processes, train-mode statistics are those of the whole batch.
 
 Inside ``parallel.spatial.spatial_parallel``, a frame is split by rows over
 processes and each operation computes exactly its rows of the unsharded
-result: convolutions, transposed convolutions, the grouped conv and the max
-pool run on their shard extended by its halo of neighbouring rows
+result: convolutions, transposed convolutions, the grouped conv, the int8
+layers (float or int8 branch, chosen on the frame's shape) and the max pool
+run on their shard extended by its halo of neighbouring rows
 (``parallel/spatial.py``), the frame's true top and bottom padded as each
-operation pads them; ``global_avg_pool`` sums over the processes;
-``adaptive_avg_pool`` serves a factor of 1 or 2 in height. Train-mode BN,
-the int8 layers, ``resize_bilinear``, ``instance_norm`` and other pools
-raise there.
+operation pads them; ``global_avg_pool`` and ``adaptive_avg_pool(frame=True)``
+sum over the processes, and ``adaptive_avg_pool`` serves a factor of 1 or 2
+in height within a shard; ``resize_bilinear`` serves a map held whole to the
+frame's rows (``frame=True``) and a x2 upsample of a shard. Train-mode
+BN, ``instance_norm``, other pools and other resizes raise there.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from ..ops import grouped_conv as gc
 from ..ops import int8_conv
 from ..ops.lean_bn import lean_bn_act
 from ..parallel import spatial
-from ..parallel.mesh import batch_stats_group
+from ..parallel.mesh import all_reduce_max, batch_stats_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,16 +190,23 @@ class Conv2d(nn.Conv2d):
     init_std: Optional[float] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(x.dtype)
-        b = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv(x, self.weight.to(x.dtype),
+                          None if self.bias is None else self.bias.to(x.dtype))
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor,
+              b: Optional[torch.Tensor]) -> torch.Tensor:
         if spatial.spatial_group() is None:
             return self._conv_forward(x, w, b)
+        return F.conv2d(self._window(x), w, b, self.stride, (0, self.padding[1]),
+                        self.dilation, self.groups)
+
+    def _window(self, x: torch.Tensor) -> torch.Tensor:
+        """Split by rows: this shard and the halo that the conv, unpadded in
+        height, needs for exactly its rows."""
         if self.padding_mode != "zeros" or isinstance(self.padding, str):
             raise NotImplementedError("only zero-padded convs are served by rows")
-        xe = spatial.window_rows(x, self.kernel_size[0], self.stride[0],
-                                 self.padding[0], self.dilation[0])
-        return F.conv2d(xe, w, b, self.stride, (0, self.padding[1]), self.dilation,
-                        self.groups)
+        return spatial.window_rows(x, self.kernel_size[0], self.stride[0],
+                                   self.padding[0], self.dilation[0])
 
 
 class Linear(nn.Linear):
@@ -220,13 +229,28 @@ def normal002_conv(*args, **kw) -> Conv2d:
     return c
 
 
-def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
+                    frame: bool = False) -> torch.Tensor:
     """Bilinear resize of NCHW ``x``, half-pixel centres and no antialiasing
     (layers.py:1191-1205): ``F.interpolate(align_corners=False)``, 0.5x
-    downscales included."""
+    downscales included.
+
+    Split by rows, this shard's rows of the unsharded resize, in two forms:
+    ``frame=True``, ``x`` held whole by every process (PSPNet's pooled
+    priors) and ``out_hw`` the frame's size (``spatial.frame_resize_rows``);
+    or a x2 upsample of the shard in height (``PSPUpsample``'s,
+    ``spatial.upsample_rows``); a resize of the width alone is the shard's
+    own. Any other resize (the critics' among them) raises there."""
+    if spatial.spatial_group() is not None:
+        rows = x.shape[2]
+        if frame:
+            return spatial.frame_resize_rows(x, out_hw)
+        if out_hw[0] == 2 * rows:
+            return spatial.upsample_rows(x, out_hw)
+        if out_hw[0] != rows:
+            spatial.refuse(f"a bilinear resize of {rows} rows to {out_hw[0]}")
     if tuple(x.shape[2:]) == tuple(out_hw):
         return x
-    spatial.refuse("a bilinear resize")
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                          align_corners=False)
 
@@ -281,24 +305,26 @@ class GroupedConv(nn.Module):
             torch.empty(channels, channels // groups, 3, 3))
 
     def forward(self, x: torch.Tensor, epilogue=None) -> torch.Tensor:
+        return self._forward(x, self.weight, epilogue)
+
+    def _forward(self, x: torch.Tensor, weight: torch.Tensor, epilogue) -> torch.Tensor:
         if spatial.spatial_group() is not None:
             # the halo-extended shard is a fresh channels_last tensor: its
             # NHWC view is the contiguous operand the kernel takes
             d, rows = self.dilation, x.shape[2]
-            y = self._conv(spatial.halo_rows(x, d, d), epilogue)
+            y = self._conv(spatial.halo_rows(x, d, d), weight, epilogue)
             spatial.EXCHANGE["extra_rows"] += 2 * d
             spatial.EXCHANGE["rows"] += rows
             return y.narrow(2, d, rows)
-        return self._conv(x, epilogue)
+        return self._conv(x, weight, epilogue)
 
-    def _conv(self, x: torch.Tensor, epilogue) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor, weight: torch.Tensor, epilogue) -> torch.Tensor:
         xh = x.permute(0, 2, 3, 1)  # channels_last NCHW → contiguous NHWC view
         if epilogue is None:
-            y = gc.differentiable_grouped_conv3x3(xh, self.weight, self.groups,
-                                                  self.dilation)
+            y = gc.differentiable_grouped_conv3x3(xh, weight, self.groups, self.dilation)
         else:
             scale, bias, na = epilogue
-            y = gc.grouped_conv3x3_fused(xh, self.weight.to(x.dtype), scale, bias,
+            y = gc.grouped_conv3x3_fused(xh, weight.to(x.dtype), scale, bias,
                                          self.groups, self.dilation,
                                          na.activation, na.leaky_slope)
         return y.permute(0, 3, 1, 2)
@@ -377,6 +403,9 @@ class _Int8Layer:
         if self.calibrating:
             with torch.no_grad():
                 amax = x.detach().to(torch.float32).abs().amax()
+                group = spatial.spatial_group()
+                if group is not None:  # the frame's max, as JAX's over the global array
+                    amax = all_reduce_max(group, amax)
                 self.x_scale.copy_(torch.maximum(self.x_scale, amax / amax.new_tensor(127.0)))
 
     def _calibrated(self) -> bool:
@@ -389,7 +418,6 @@ class _Int8Layer:
         return self._positive[1]
 
     def _check_eval(self) -> None:
-        spatial.refuse("an int8 layer")
         if self.training:
             raise RuntimeError("int8 layers serve inference only (Int8Conv is not "
                                "differentiable); call model.eval()")
@@ -404,6 +432,10 @@ class Int8Conv2d(_Int8Layer, Conv2d):
     gate and the calibration decide: the int8 conv of ``ops/int8_conv.py``, or
     the float conv with the weight in the activations' dtype, which is the
     float model's conv bit for bit.
+
+    Split by rows, the gate reads the frame's pixels, not the shard's, and
+    either branch runs on the shard with its halo (``window_rows``), the int8
+    kernel unpadded in height and padded in width.
     """
 
     def __init__(self, conv: Conv2d, min_batch: int = 8, max_hw: int = 100_000):
@@ -420,14 +452,17 @@ class Int8Conv2d(_Int8Layer, Conv2d):
         n, _, h, w = x.shape
         w_q, w_pack, w_scale, w_float = self._weights(x.dtype)
         bias = self.bias
-        if h * w <= self.max_hw:
+        if spatial.frame_rows(h) * w <= self.max_hw:
             self._observe(x)
             if int8_batch_ok(n, self.min_batch) and self._calibrated():
+                pad_h, pad_w = self.padding
+                if spatial.spatial_group() is not None:
+                    x, pad_h = self._window(x), 0
                 return int8_conv.int8_conv2d(
                     x, w_q, w_pack, w_scale, self.x_scale,
                     None if bias is None else bias.to(torch.float32), self.stride[0],
-                    self.padding[0], self.dilation[0])
-        return self._conv_forward(x, w_float, None if bias is None else bias.to(x.dtype))
+                    (pad_h, pad_w), self.dilation[0])
+        return self._conv(x, w_float, None if bias is None else bias.to(x.dtype))
 
 
 class Int8GroupedConv(_Int8Layer, GroupedConv):
@@ -439,7 +474,9 @@ class Int8GroupedConv(_Int8Layer, GroupedConv):
     and the batch gate passes; the scale is recorded in either case. Otherwise
     it serves the float grouped conv. ``epilogue`` (bn3's affine + act) rides
     the int8 kernel's epilogue, after the dequantisation, as it rides the float
-    kernel's.
+    kernel's. Split by rows, H in the volume is the frame's; the int8 kernel
+    runs on the shard plus d rows a side, unpadded in height, and the float
+    branch as ``GroupedConv`` runs it.
     """
 
     MIN_CPG_NATIVE = 4         # GroupedConvDense.min_cpg_native
@@ -451,9 +488,9 @@ class Int8GroupedConv(_Int8Layer, GroupedConv):
         self._init_int8(min_batch, max_hw)
 
     def quantizes(self, n, h: int, w: int) -> bool:
-        """Whether a calibrated layer serves int8 at input (n, h, w). A
-        symbolic batch counts as 8 frames in the volume rule, as JAX's
-        dispatch counts an exported artifact's (:458-463)."""
+        """Whether a calibrated layer serves int8 at input (n, h, w), h the
+        frame's rows. A symbolic batch counts as 8 frames in the volume rule,
+        as JAX's dispatch counts an exported artifact's (:458-463)."""
         cpg = self.weight.shape[1]
         volume = (8 if isinstance(n, torch.SymInt) else n) * h * w * cpg
         native = cpg >= self.MIN_CPG_NATIVE and volume >= self.MIN_WORK_NATIVE
@@ -465,19 +502,16 @@ class Int8GroupedConv(_Int8Layer, GroupedConv):
         self._observe(x)
         w_q, w_pack, w_scale, w_float = self._weights(x.dtype)
         d = self.dilation
-        if self.quantizes(n, h, w) and self._calibrated():
+        if self.quantizes(n, spatial.frame_rows(h), w) and self._calibrated():
             ep = None if epilogue is None else (
                 epilogue[0], epilogue[1], epilogue[2].activation, epilogue[2].leaky_slope)
+            pad_h = d
+            if spatial.spatial_group() is not None:
+                x, pad_h = spatial.window_rows(x, 3, 1, d, d), 0
+                spatial.EXCHANGE["rows"] += h
             return int8_conv.int8_conv2d(x, w_q, w_pack, w_scale, self.x_scale, None, 1,
-                                         d, d, self.groups, ep)
-        xh = x.permute(0, 2, 3, 1)
-        if epilogue is None:
-            y = gc.differentiable_grouped_conv3x3(xh, w_float, self.groups, d)
-        else:
-            scale, bias, na = epilogue
-            y = gc.grouped_conv3x3_fused(xh, w_float, scale, bias, self.groups, d,
-                                         na.activation, na.leaky_slope)
-        return y.permute(0, 3, 1, 2)
+                                         (pad_h, d), d, self.groups, ep)
+        return self._forward(x, w_float, epilogue)
 
 
 def conv(in_channels: int, features: int, kernel: int, stride: int = 1,
@@ -525,10 +559,17 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(2, 3), keepdim=True)
 
 
-def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int],
+                      frame: bool = False) -> torch.Tensor:
     """``F.adaptive_avg_pool2d``: bins ``[floor(i*H/out), ceil((i+1)*H/out))``,
-    the arithmetic the JAX version reproduces. Split by rows, only a factor
-    of 1 or 2 in height (bins within a shard) is served."""
+    the arithmetic the JAX version reproduces (layers.py:1165).
+
+    Split by rows: ``frame=True`` pools the whole frame to ``out_hw``, the
+    result the same on every process (PSPNet's pyramid,
+    ``spatial.frame_pool``); otherwise the pool is the shard's own, served
+    for a factor of 1 or 2 in height (bins within a shard)."""
+    if spatial.spatial_group() is not None and frame:
+        return spatial.frame_pool(x, out_hw)
     if tuple(x.shape[2:]) == tuple(out_hw):
         return x
     if x.shape[2] not in (out_hw[0], 2 * out_hw[0]):

@@ -19,6 +19,12 @@ kept channels by 1/(1-p) (flax ``Dropout(broadcast_dims=(1, 2))``, :148-156).
 It runs in train mode only, on keep masks the caller draws from an explicit
 ``torch.Generator`` (``draw_dropout``) and passes to ``forward``: a
 train-mode forward without masks raises, and nothing reads the global RNG.
+
+Served split by rows (``parallel/spatial.py``), each process computes its
+rows of the frame's output: the pyramid pools the whole frame
+(``adaptive_avg_pool(frame=True)``, one all-reduce per prior), each prior
+is resized to this shard's rows of the frame, and the x2 upsamples take one
+row of halo a side.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import spatial
 from .extractors import feature_channels, make_extractor
 from .layers import BatchNorm, Conv2d, adaptive_avg_pool, conv, resize_bilinear
 
@@ -67,7 +74,10 @@ class PSPModule(nn.Module):
         self.bottleneck = Conv2d(in_channels * (len(self.sizes) + 1), out_channels, 1)
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        h, w = feats.shape[2:]
+        # the frame's size: split by rows (parallel/spatial.py), feats holds
+        # this shard's rows, each prior pools the whole frame and the resize
+        # gives back this shard's rows of the frame-sized prior
+        hw = (spatial.frame_rows(feats.shape[2]), feats.shape[3])
         c = feats.shape[1]
         weight = self.bottleneck.weight.to(feats.dtype)
 
@@ -76,8 +86,9 @@ class PSPModule(nn.Module):
 
         bottle = chunk(feats, len(self.sizes))
         for i, size in enumerate(self.sizes):
-            p = getattr(self, f"stage{i + 1}_conv")(adaptive_avg_pool(feats, (size, size)))
-            bottle = bottle + resize_bilinear(chunk(p, i), (h, w))
+            p = getattr(self, f"stage{i + 1}_conv")(
+                adaptive_avg_pool(feats, (size, size), frame=True))
+            bottle = bottle + resize_bilinear(chunk(p, i), hw, frame=True)
         return F.relu(bottle + self.bottleneck.bias.to(bottle.dtype)[:, None, None])
 
 

@@ -48,7 +48,7 @@ pixels, the taps ``tile_taps`` rules out (across taps, whole kernel rows).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -59,7 +59,7 @@ from .grouped_conv import ACTS, apply_act
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 INT8_CONV = Kernel("int8_conv", "hn_int8_conv",
-                   [_P] * 9 + [_I] * 17 + [ctypes.c_float, _P])
+                   [_P] * 9 + [_I] * 18 + [ctypes.c_float, _P])
 
 BLOCK = 64        # a grouped conv's channel block in the kernel
 CHAN_ALIGN = 32   # x_q's and the weight's channels per block and tap, padded
@@ -70,6 +70,17 @@ TILE_M = (128, 256)  # output pixels per kernel tile (256 beside a 128-channel t
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
+
+
+Padding = Union[int, Tuple[int, int]]
+
+
+def pad_hw(padding: Padding) -> Tuple[int, int]:
+    """``padding`` as (height, width): an int pads both alike. Split by rows
+    (``parallel/spatial.py``), a layer passes 0 in height and runs on its
+    shard extended by the halo."""
+    return (padding, padding) if isinstance(padding, int) else tuple(padding)
+
 
 Epilogue = Optional[Tuple[torch.Tensor, torch.Tensor, str, float]]
 
@@ -130,7 +141,7 @@ def quantize_padded(x: torch.Tensor, x_scale: torch.Tensor,
 
 
 def tile_taps(m0: int, m: int, ho: int, wo: int, h: int, w: int, kh: int, kw: int,
-              stride: int, padding: int, dilation: int,
+              stride: int, padding: Padding, dilation: int,
               tile: int = TILE_M[0]) -> Tuple[range, range]:
     """The taps (ky, kx ranges) the kernel multiplies for the output pixels
     ``m0 .. m0+tile-1`` of ``m``: those that read inside the image for some
@@ -146,12 +157,13 @@ def tile_taps(m0: int, m: int, ho: int, wo: int, h: int, w: int, kh: int, kw: in
         if oy[0] == oy[1]:
             ox = (r0 % wo, r1 % wo)
 
-    def valid(lo_hi, k, size):
-        ok = [t for t in range(k) if lo_hi[1] * stride - padding + t * dilation >= 0
-              and lo_hi[0] * stride - padding + t * dilation <= size - 1]
+    def valid(lo_hi, k, size, pad):
+        ok = [t for t in range(k) if lo_hi[1] * stride - pad + t * dilation >= 0
+              and lo_hi[0] * stride - pad + t * dilation <= size - 1]
         return range(ok[0], ok[-1] + 1) if ok else range(0)
 
-    return valid(oy, kh, h), valid(ox, kw, w)
+    pad_h, pad_w = pad_hw(padding)
+    return valid(oy, kh, h, pad_h), valid(ox, kw, w, pad_w)
 
 
 def quantize_input(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
@@ -162,12 +174,12 @@ def quantize_input(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
 
 
 def int8_sums_plain(x: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
-                    stride: int = 1, padding: int = 0, dilation: int = 1,
+                    stride: int = 1, padding: Padding = 0, dilation: int = 1,
                     groups: int = 1) -> torch.Tensor:
     """The int32 sums of the int8 conv, NCHW: the quantized operands convolved
     in float64 (exact for int8 operands)."""
     xq = quantize_input(x, x_scale).to(torch.float64)
-    return F.conv2d(xq, w_q.to(torch.float64), None, stride, padding, dilation,
+    return F.conv2d(xq, w_q.to(torch.float64), None, stride, pad_hw(padding), dilation,
                     groups).to(torch.int32)
 
 
@@ -190,7 +202,7 @@ def dequantize(acc: torch.Tensor, dtype: torch.dtype, w_scale: torch.Tensor,
 
 def int8_conv2d_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                       x_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                      stride: int = 1, padding: int = 0, dilation: int = 1,
+                      stride: int = 1, padding: Padding = 0, dilation: int = 1,
                       groups: int = 1, epilogue: Epilogue = None) -> torch.Tensor:
     """Plain version: ``int8_sums_plain``, then ``dequantize`` in x's dtype.
     The result is channels_last, as the kernel writes it (a float64
@@ -214,16 +226,20 @@ def check_operands(x: torch.Tensor, w_q: torch.Tensor, groups: int,
 def int8_conv2d(x: torch.Tensor, w_q: torch.Tensor, w_pack: Optional[torch.Tensor],
                 w_scale: torch.Tensor, x_scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, stride: int = 1,
-                padding: int = 0, dilation: int = 1, groups: int = 1,
+                padding: Padding = 0, dilation: int = 1, groups: int = 1,
                 epilogue: Epilogue = None) -> torch.Tensor:
     """The int8 conv of NCHW ``x`` (bf16 on the card) with ``w_q``; ``w_pack`` is
-    ``pack_weight(w_q, groups)``, which the kernel reads. Returns NCHW in
-    x's dtype (channels_last memory from the kernel)."""
+    ``pack_weight(w_q, groups)``, which the kernel reads; ``padding`` an int
+    or (height, width). Returns NCHW in x's dtype (channels_last memory from
+    the kernel)."""
     if tracing(x):
+        pad_h, pad_w = pad_hw(padding)
+        if pad_h != pad_w:
+            raise NotImplementedError("a traced int8 conv pads height and width alike")
         ep_scale, ep_bias, act, slope = epilogue if epilogue is not None else \
             (None, None, "none", 0.0)
         return torch.ops.heatnet.int8_conv(x, w_q, w_pack, w_scale, x_scale, bias,
-                                           stride, padding, dilation, groups, ep_scale,
+                                           stride, pad_h, dilation, groups, ep_scale,
                                            ep_bias, act, float(slope))
     check_operands(x, w_q, groups, epilogue)
     if x.device.type == "cpu":
@@ -237,7 +253,7 @@ def int8_conv2d(x: torch.Tensor, w_q: torch.Tensor, w_pack: Optional[torch.Tenso
 
 def int8_conv2d_cuda(x: torch.Tensor, w_pack: Optional[torch.Tensor],
                      w_scale: torch.Tensor, x_scale: torch.Tensor,
-                     bias: Optional[torch.Tensor], stride: int, padding: int,
+                     bias: Optional[torch.Tensor], stride: int, padding: Padding,
                      dilation: int, groups: int, epilogue: Epilogue,
                      w_shape) -> torch.Tensor:
     """One launch of ``csrc/int8_conv.cu`` (quantize pass and product) on
@@ -280,7 +296,7 @@ def int8_conv2d_cuda(x: torch.Tensor, w_pack: Optional[torch.Tensor],
             None if bias is None else bias.data_ptr(),
             None if ep_scale is None else ep_scale.data_ptr(),
             None if ep_bias is None else ep_bias.data_ptr(), out.data_ptr(),
-            n, h, w, c, ho, wo, o, kh, kw, stride, padding, dilation, cin_g, cout_g,
+            n, h, w, c, ho, wo, o, kh, kw, stride, *pad_hw(padding), dilation, cin_g, cout_g,
             w_pack.shape[1], w_pack.shape[2], ACTS[act], float(slope))
     dev = x.device.index
     stream = torch._C._cuda_getCurrentRawStream(dev)
@@ -292,8 +308,9 @@ def int8_conv2d_cuda(x: torch.Tensor, w_pack: Optional[torch.Tensor],
     return out
 
 
-def output_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: int,
+def output_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: Padding,
               dilation: int) -> Tuple[int, int]:
     """The conv's output height and width."""
-    return ((h + 2 * padding - dilation * (kh - 1) - 1) // stride + 1,
-            (w + 2 * padding - dilation * (kw - 1) - 1) // stride + 1)
+    pad_h, pad_w = pad_hw(padding)
+    return ((h + 2 * pad_h - dilation * (kh - 1) - 1) // stride + 1,
+            (w + 2 * pad_w - dilation * (kw - 1) - 1) // stride + 1)

@@ -40,11 +40,11 @@ written out:
   ``parallel/spatial.py``, and H must be a multiple of 8·n: the net's output
   stride is 8, so every stride-2 window of every shard starts on the shard's
   first row (ROADMAP §3, divergences by design).
-- ``all_gather`` and ``all_reduce_sum``: the collectives of the spatial
-  path, by the group's backend: NCCL moves card tensors directly; gloo
-  carries host tensors, so a card tensor is staged through host memory
-  explicitly and comes back to the card. A backend that cannot carry the
-  tensor raises.
+- ``all_gather``, ``all_reduce_sum`` and ``all_reduce_max``: the
+  collectives of the spatial path, by the group's backend: NCCL moves card
+  tensors directly; gloo carries host tensors, so a card tensor is staged
+  through host memory explicitly and comes back to the card. A backend that
+  cannot carry the tensor raises.
 """
 
 from __future__ import annotations
@@ -369,10 +369,20 @@ def all_gather(group, t: torch.Tensor) -> torch.Tensor:
     return out.to(t.device).view(t.dtype).view(n, *t.shape)
 
 
-def all_reduce_sum(group, t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the group, on ``t``'s device (a new tensor)."""
+def _all_reduce(group, t: torch.Tensor, op) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
         return t.clone()
     buf = t.detach().to(_carrier(group, t), copy=True).contiguous()
-    dist.all_reduce(buf, group=group)
+    dist.all_reduce(buf, op=op, group=group)
     return buf.to(t.device)
+
+
+def all_reduce_sum(group, t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the group, on ``t``'s device (a new tensor)."""
+    return _all_reduce(group, t, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(group, t: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``t`` over the group, on ``t``'s device (a new
+    tensor)."""
+    return _all_reduce(group, t, dist.ReduceOp.MAX)

@@ -1,12 +1,16 @@
 """The spatial path on the card, module by module, against the unsharded forward.
 
-    python -m heatnet_tpu_torch.tools.spatial_layers [--procs 4] [--height 640]
-        [--width 1920] [--cudnn-benchmark]
+    python -m heatnet_tpu_torch.tools.spatial_layers [--arch resnext50|pspnet]
+        [--procs 4] [--height 640] [--width 1920] [--cudnn-benchmark] [--float32]
 
-ResNeXt-50 early fusion (random weights, seed 0) serves one random raw
-frame unsharded in this process, then split by rows over ``--procs`` gloo
-processes sharing the one card (``parallel/spatial.py::serve_frame``), with
-forward hooks on the stem, the stages, ASPP's branches and the decoder.
+ResNeXt-50 early fusion or PSPNet-ResNet-50 RGB-only (``--arch``; random
+weights, seed 0) serves one random raw frame unsharded in this process, then
+split by rows over ``--procs`` gloo processes sharing the one card
+(``parallel/spatial.py::serve_frame``), with forward hooks on the stem, the
+stages, ASPP's branches and the decoder (PSPNet: the extractor's layers, the
+pyramid's pooled priors, the upsamples and the head). ``--float32`` runs
+every process in float32 with TF32 off, where only summation order separates
+the shards from the frame.
 Prints, per module, the share of elements that differ from the unsharded
 forward's and the largest difference relative to the largest |value|, the
 class-map agreement, and the card time (total and by kernel name) of one
@@ -30,20 +34,36 @@ import tempfile
 import numpy as np
 import torch
 
-MODULES = ("mod1", "mod2_1", "mod3_1", "mod4_1", "mod5_1", "aspp.conv1", "aspp.conv2",
-           "aspp.conv3", "aspp.conv4", "aspp.conv5", "aspp.fuse_conv", "up_seg_2",
-           "fuse_seg.conv1", "fuse_seg")
+# the hooked modules per architecture, the class map's last; those whose
+# output every process holds whole (a 1x1 global branch, the pooled priors)
+MODULES = {
+    "resnext50": ("mod1", "mod2_1", "mod3_1", "mod4_1", "mod5_1", "aspp.conv1", "aspp.conv2",
+                  "aspp.conv3", "aspp.conv4", "aspp.conv5", "aspp.fuse_conv", "up_seg_2",
+                  "fuse_seg.conv1", "fuse_seg"),
+    "pspnet": ("feats.conv1", "feats.layer1", "feats.layer2", "feats.layer3", "feats.layer4",
+               "psp.stage1_conv", "psp.stage2_conv", "psp.stage3_conv", "psp.stage4_conv",
+               "psp", "up_1", "up_2", "up_3", "final"),
+}
+WHOLE = ("aspp.conv5", "psp.stage1_conv", "psp.stage2_conv", "psp.stage3_conv",
+         "psp.stage4_conv")
 
 
-def _model(dev, weights):
-    from ..models import net_resnext50
+def _network(arch: str):
+    from ..models import build_network, net_resnext50
+
+    if arch == "pspnet":
+        return build_network("resnet50", in_channels=3)
+    return net_resnext50(classes=13, input_channels=4)
+
+
+def _model(dev, weights, arch, dtype):
     from ..models.layers import prepare_for_inference
 
-    net = net_resnext50(classes=13, input_channels=4)
+    net = _network(arch)
     net.load_state_dict(torch.load(weights, map_location="cpu", weights_only=True))
-    net = prepare_for_inference(net, dev)
+    net = prepare_for_inference(net, dev, dtype)
     acts = {}
-    for name in MODULES:
+    for name in MODULES[arch]:
         net.get_submodule(name).register_forward_hook(
             lambda m, i, out, name=name: acts.__setitem__(
                 name, out if torch.is_tensor(out) else out[0]))
@@ -73,20 +93,22 @@ def worker(work: str) -> None:
     from ..parallel import spatial
 
     rank = int(os.environ["RANK"])
+    arch, dtype = os.environ["ARCH"], _dtype(os.environ["FLOAT32"] == "1")
     torch.backends.cudnn.benchmark = os.environ.get("CUDNN_BENCHMARK") == "1"
     torch.cuda.set_device(0)
     dev = torch.device("cuda")
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{os.environ['PORT']}",
                             rank=rank, world_size=int(os.environ["WORLD_SIZE"]))
-    net, acts = _model(dev, os.path.join(work, "weights.pt"))
+    net, acts = _model(dev, os.path.join(work, "weights.pt"), arch, dtype)
     frames = dict(np.load(os.path.join(work, "frames.npz")))
     mesh = pm.create_mesh()
-    total, top = _kernel_ms(lambda: spatial.serve_frame(net, frames, mesh, dev))
+    modalities = "rgb" if arch == "pspnet" else "ir_rgb"
+    total, top = _kernel_ms(lambda: spatial.serve_frame(net, frames, mesh, dev, modalities))
     group = pm.data_group(mesh)
     out = {}
-    for name in MODULES:
+    for name in MODULES[arch]:
         a = acts[name]
-        out[name] = (a if a.shape[2] == 1 else torch.cat(
+        out[name] = (a if name in WHOLE else torch.cat(
             pm.all_gather(group, a).unbind(0), dim=2)).float().cpu().numpy()
     if rank == 0:
         np.savez(os.path.join(work, "sharded.npz"), **out)
@@ -94,13 +116,23 @@ def worker(work: str) -> None:
     dist.destroy_process_group()
 
 
+def _dtype(float32: bool) -> torch.dtype:
+    """The processes' compute dtype; float32 runs with TF32 off."""
+    if not float32:
+        return torch.bfloat16
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.float32
+
+
 def main(argv=None) -> None:
     from ..data.loaders import to_device
-    from ..models import net_resnext50
+    from ..eval.validate import normalize_frames
     from ..models.layers import init_params
-    from ..ops import fused_preproc as fp
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--arch", choices=sorted(MODULES), default="resnext50")
+    p.add_argument("--float32", action="store_true")
     p.add_argument("--procs", type=int, default=4)
     p.add_argument("--height", type=int, default=640)
     p.add_argument("--width", type=int, default=1920)
@@ -116,32 +148,37 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
     torch.backends.cudnn.benchmark = args.cudnn_benchmark
-    print(f"torch.backends.cudnn.benchmark = {args.cudnn_benchmark}", flush=True)
+    dtype = _dtype(args.float32)
+    print(f"{args.arch}, {dtype}; torch.backends.cudnn.benchmark = {args.cudnn_benchmark}",
+          flush=True)
     dev = torch.device("cuda")
+    modules = MODULES[args.arch]
     with tempfile.TemporaryDirectory() as work:
-        net = net_resnext50(classes=13, input_channels=4)
+        net = _network(args.arch)
         init_params(net, torch.Generator().manual_seed(0))
         torch.save(net.state_dict(), os.path.join(work, "weights.pt"))
         rng = np.random.RandomState(13)
         h, w = args.height, args.width
         frames = {"rgb": rng.randint(0, 256, (1, h, w, 3)).astype(np.uint8),
                   "ir": rng.randint(21000, 26000, (1, h, w, 1)).astype(np.uint16)}
+        if args.arch == "pspnet":
+            del frames["ir"]
         np.savez(os.path.join(work, "frames.npz"), **frames)
-        net, acts = _model(dev, os.path.join(work, "weights.pt"))
-        x = fp.early_fusion_input(to_device(frames["rgb"], dev), to_device(frames["ir"], dev),
-                                  0, w, net.compute_dtype)
+        net, acts = _model(dev, os.path.join(work, "weights.pt"), args.arch, dtype)
+        x = normalize_frames([to_device(v, dev) for v in frames.values()], dtype)
         with torch.no_grad():
-            total, top = _kernel_ms(lambda: net(x))
+            total, top = _kernel_ms(lambda: net(*x))
         ref = {k: v.float().cpu().numpy() for k, v in acts.items()}
         print(f"unsharded forward: card {total:.3f} ms; by kernel: {top}", flush=True)
         if args.cudnn_benchmark:
             torch.backends.cudnn.benchmark = False
             with torch.no_grad():
-                total, top = _kernel_ms(lambda: net(x))
+                total, top = _kernel_ms(lambda: net(*x))
             print(f"unsharded forward, benchmark off again in this process: card "
                   f"{total:.3f} ms; by kernel: {top}", flush=True)
         env = dict(os.environ, WORLD_SIZE=str(args.procs), PORT=str(_free_port()),
-                   CUDNN_BENCHMARK=str(int(args.cudnn_benchmark)))
+                   CUDNN_BENCHMARK=str(int(args.cudnn_benchmark)), ARCH=args.arch,
+                   FLOAT32=str(int(args.float32)))
         procs = [subprocess.Popen([sys.executable, "-m", "heatnet_tpu_torch.tools.spatial_layers",
                                    "--worker", work], env=dict(env, RANK=str(r)))
                  for r in range(args.procs)]
@@ -154,12 +191,14 @@ def main(argv=None) -> None:
         if any(codes):
             raise SystemExit(f"a worker failed: exit codes {codes}")
         got = np.load(os.path.join(work, "sharded.npz"))
-        for name in MODULES:
+        for name in modules:
             a, b = got[name], ref[name]
+            d = np.abs(a - b)
+            row = int(np.unravel_index(np.argmax(d), d.shape)[2])
             print(f"{name:16s} {str(b.shape):22s} elements that differ {float((a != b).mean()):.6f}, "
-                  f"largest difference {float(np.abs(a - b).max() / np.abs(b).max()):.3g} of the "
-                  f"largest |value|", flush=True)
-        a, b = got["fuse_seg"].argmax(1), ref["fuse_seg"].argmax(1)
+                  f"largest difference {float(d.max() / np.abs(b).max()):.3g} of the "
+                  f"largest |value| (row {row})", flush=True)
+        a, b = got[modules[-1]].argmax(1), ref[modules[-1]].argmax(1)
         print(f"class-map agreement {float((a == b).mean()):.6f}", flush=True)
 
 

@@ -68,7 +68,9 @@ def packed_sums(xq, w_pack, n, h, w, ho, wo, groups, cout_g, k, s, p, d, tile):
     """int32 sums ``(N, Ho, Wo, blocks * cout_g)`` as the kernel forms them,
     ``tile`` output pixels at a time: K_STEP-wide steps of K = (ky, kx, ci),
     one tap's at a time where cin_pad is a multiple of K_STEP, else across
-    taps over the kernel rows ``tile_taps`` keeps."""
+    taps over the kernel rows ``tile_taps`` keeps; ``p`` the padding, an int
+    or (height, width)."""
+    ph, pw = int8_conv.pad_hw(p)
     blocks = w_pack.shape[0]
     cin_pad = xq.shape[-1] // blocks
     step = int8_conv.K_STEP
@@ -81,13 +83,13 @@ def packed_sums(xq, w_pack, n, h, w, ho, wo, groups, cout_g, k, s, p, d, tile):
         rows = torch.arange(m0, min(m0 + tile, m))
         img, rem = rows // (ho * wo), rows % (ho * wo)
         oy, ox = rem // wo, rem % wo
-        kys, kxs = int8_conv.tile_taps(m0, m, ho, wo, h, w, k, k, s, p, d, tile)
+        kys, kxs = int8_conv.tile_taps(m0, m, ho, wo, h, w, k, k, s, (ph, pw), d, tile)
         if cin_pad % step:
             kxs = range(k)  # across taps: whole kernel rows only
         skipped += k * k - len(kys) * len(kxs)
 
         def a_piece(tap, ci):  # the 16 channels at ci of tap's pixels
-            iy, ix = oy * s - p + (tap // k) * d, ox * s - p + (tap % k) * d
+            iy, ix = oy * s - ph + (tap // k) * d, ox * s - pw + (tap % k) * d
             ok = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
             a = torch.zeros((len(rows), blocks, 16), dtype=torch.float64)
             a[ok] = xf[img[ok], iy[ok], ix[ok], :, ci:ci + 16]
@@ -132,13 +134,13 @@ KINDS = [(2, 64, 64, 3, 1, 1, 6, 7, 1, False), (2, 256, 128, 1, 2, 1, 7, 9, 1, F
 JAX_KINDS = [KINDS[i] for i in (0, 2, 3, 5, 8, 11)]
 
 
-def _packed(x, w_q, x_scale, n, cin, cout, k, s, d, h, w, groups, tile=128):
+def _packed(x, w_q, x_scale, n, cin, cout, k, s, d, h, w, groups, tile=128, pad=None):
     """The packed reference's sums, NHWC, and how many (tile, tap) K steps
-    it skipped."""
+    it skipped; ``pad`` (height, width), 'same' by default."""
     xt = torch.from_numpy(x).permute(0, 3, 1, 2)
-    pad = d * (k // 2)
-    ho = (h + 2 * pad - d * (k - 1) - 1) // s + 1
-    wo = (w + 2 * pad - d * (k - 1) - 1) // s + 1
+    if pad is None:
+        pad = d * (k // 2)
+    ho, wo = int8_conv.output_hw(h, w, k, k, s, pad, d)
     cout_g = cout if groups == 1 else int8_conv.BLOCK
     return packed_sums(int8_conv.quantize_padded(xt, x_scale, groups),
                        int8_conv.pack_weight(w_q, groups), n, h, w, ho, wo, groups,
@@ -159,6 +161,28 @@ def test_packed_sums_equal_plain(n, cin, cout, k, s, d, h, w, groups, bias):
         np.testing.assert_array_equal(sums.numpy(), plain.permute(0, 2, 3, 1).numpy())
         if (k, d, h) == (3, 12, 30):
             assert skipped > 0  # the tiles of the top and bottom rows drop a row of taps
+
+
+# the 3x3 kinds as a frame split by rows runs them (parallel/spatial.py): the
+# shard extended by its halo rows, no padding in height, 'same' in width
+SHARD_KINDS = [KINDS[i] for i in (0, 3, 4, 8)]
+
+
+@pytest.mark.parametrize("n,cin,cout,k,s,d,h,w,groups,bias", SHARD_KINDS)
+def test_packed_sums_unpadded_in_height_equal_plain(n, cin, cout, k, s, d, h, w, groups,
+                                                   bias):
+    rng = np.random.RandomState(cin + k + d + 1)
+    x = rng.randn(n, h, w, cin).astype(np.float32)
+    w_q, _ = int8_conv.quantize_weight(
+        torch.from_numpy(rng.randn(cout, cin // groups, k, k).astype(np.float32)))
+    x_scale = torch.tensor(float(np.abs(x).max()) / 100)
+    pad = (0, d * (k // 2))
+    plain = int8_conv.int8_sums_plain(torch.from_numpy(x).permute(0, 3, 1, 2), w_q,
+                                      x_scale, s, pad, d, groups)
+    assert plain.shape[2] == h - 2 * d * (k // 2) and plain.shape[3] == w
+    for tile in int8_conv.TILE_M:
+        sums, _ = _packed(x, w_q, x_scale, n, cin, cout, k, s, d, h, w, groups, tile, pad)
+        np.testing.assert_array_equal(sums.numpy(), plain.permute(0, 2, 3, 1).numpy())
 
 
 @pytest.mark.parametrize("n,cin,cout,k,s,d,h,w,groups,bias", JAX_KINDS)

@@ -854,3 +854,108 @@ def test_halo_extended_fused_grouped_conv_equals_the_whole_frame(dev, c, cpg, d,
         _close(out, gc.grouped_conv3x3_plain(ext, wt, GROUPS, d, s, b, "relu"))
         part = out[:, d:d + rows]
         assert torch.equal(part, whole[:, r * rows:(r + 1) * rows]), r
+
+
+# The int8 launches of one shard in chip_smoke.py 13c: ResNeXt-50 early
+# fusion, batch 8 of 640x1920 split by rows over 4 processes, the layers
+# gated on the frame's shape (the stem and mod3-5's grouped convs float).
+# (cin, cout, k, stride, pad_w, dilation, groups, shard rows with the halo, W)
+INT8_SHARD_CASES = [
+    (64, 256, 1, 1, 0, 1, 1, 40, 480), (64, 128, 1, 1, 0, 1, 1, 40, 480),
+    (128, 128, 3, 1, 1, 1, 64, 42, 480), (128, 256, 1, 1, 0, 1, 1, 40, 480),
+    (256, 128, 1, 1, 0, 1, 1, 40, 480), (256, 512, 1, 2, 0, 1, 1, 40, 480),
+    (256, 256, 1, 2, 0, 1, 1, 40, 480), (256, 512, 1, 1, 0, 1, 1, 20, 240),
+    (512, 256, 1, 1, 0, 1, 1, 20, 240), (512, 1024, 1, 1, 0, 1, 1, 20, 240),
+    (512, 512, 1, 1, 0, 1, 1, 20, 240), (1024, 512, 1, 1, 0, 1, 1, 20, 240),
+    (1024, 2048, 1, 1, 0, 1, 1, 20, 240), (1024, 1024, 1, 1, 0, 1, 1, 20, 240),
+    (2048, 1024, 1, 1, 0, 1, 1, 20, 240), (2048, 256, 1, 1, 0, 1, 1, 20, 240),
+    (2048, 256, 3, 1, 12, 12, 1, 44, 240), (2048, 256, 3, 1, 24, 24, 1, 68, 240),
+    (2048, 256, 3, 1, 36, 36, 1, 92, 240), (2048, 256, 1, 1, 0, 1, 1, 1, 1),
+    (1280, 256, 1, 1, 0, 1, 1, 20, 240), (256, 13, 1, 1, 0, 1, 1, 20, 240),
+    (256, 1, 1, 1, 0, 1, 1, 20, 240), (269, 269, 3, 1, 1, 1, 1, 42, 480),
+    (269, 13, 3, 1, 1, 1, 1, 42, 480)]
+
+
+@pytest.mark.parametrize("cin,cout,k,s,pad_w,d,groups,h,w", INT8_SHARD_CASES)
+def test_int8_conv_at_the_spatial_shard_shapes_equals_plain(dev, cin, cout, k, s, pad_w, d,
+                                                           groups, h, w):
+    """Each int8 launch of a 160-row shard (its halo rows included, no
+    padding in height), batch 8, bit for bit with the plain version, on
+    signed and post-ReLU x, the grouped layer with bn3's epilogue. For the
+    3x3 layers, the other way to serve the shard (the same rows padded in
+    height too, the extra output rows dropped) gives the same rows."""
+    from heatnet_tpu_torch.ops import int8_conv
+
+    x, w_q, w_pack, w_scale, x_scale, bias, scale = _int8_operands(
+        dev, 8, cin, cout, k, groups, h, w, torch.bfloat16, seed=cin + cout + k + d + h)
+    kw = dict(epilogue=(scale, bias, "relu", 0.01)) if groups > 1 else dict(bias=bias)
+    for xi in (x, torch.relu(x)):
+        out = int8_conv.int8_conv2d(xi, w_q, w_pack, w_scale, x_scale, stride=s,
+                                    padding=(0, pad_w), dilation=d, groups=groups, **kw)
+        ref = int8_conv.int8_conv2d_plain(xi, w_q, w_scale, x_scale, stride=s,
+                                          padding=(0, pad_w), dilation=d, groups=groups, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
+        if k == 3:  # rows pad_w .. h - pad_w of x padded alike: the same rows
+            sym = int8_conv.int8_conv2d(xi, w_q, w_pack, w_scale, x_scale, stride=s,
+                                        padding=pad_w, dilation=d, groups=groups, **kw)
+            assert torch.equal(sym[:, :, pad_w:pad_w + out.shape[2]], out)
+
+
+def test_spatial_upsample_and_pyramid_by_rows_equal_the_whole_map(dev, monkeypatch):
+    """PSPNet's x2 upsample and pyramid by rows (``parallel/spatial.py``) on
+    the card, each of 4 ranks emulated in this process (its rank and the
+    group's size; its halo rows cut from the whole map; the all-reduce the
+    sum over the ranks): the x2 upsample's rows (bf16) equal
+    ``F.interpolate`` of the whole map's, but for the frame's first and last
+    row, within one bf16 step there (the resize clamps its source row at the
+    edge, the shard blends the edge row with its copy: the same value up to
+    an f32 rounding); the pooled priors (f32, sizes 1, 2,
+    3 and 6 over the 20-row shards of an 80-row map, bins straddling shards)
+    ``F.adaptive_avg_pool2d`` within 1e-5, and their frame-sized resizes'
+    rows (bf16) ``F.interpolate``'s within one bf16 step."""
+    import torch.nn.functional as F
+
+    from heatnet_tpu_torch.parallel import spatial
+
+    n, rows = 4, 20
+    g = torch.Generator().manual_seed(16)
+    x = torch.randn((1, 64, n * rows, 48), generator=g).to(dev)
+    x = x.contiguous(memory_format=torch.channels_last)
+    rank = {"r": 0}
+    monkeypatch.setattr(spatial, "_SPATIAL_GROUP", object())
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: n)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: rank["r"])
+    monkeypatch.setattr(spatial, "all_reduce_sum", lambda group, t: t)
+
+    def halo(shard, above, below, replicate):
+        r = rank["r"]
+        idx = torch.arange(r * rows - above, (r + 1) * rows + below).clamp(0, n * rows - 1)
+        return whole.index_select(2, idx.to(dev))
+
+    monkeypatch.setattr(spatial, "halo_rows", lambda s, a, b, replicate=False: halo(
+        s, a, b, replicate))
+    whole = x.to(torch.bfloat16)
+    want = F.interpolate(whole, size=(2 * n * rows, 96), mode="bilinear", align_corners=False)
+    for r in range(n):
+        rank["r"] = r
+        got = spatial.upsample_rows(whole[:, :, r * rows:(r + 1) * rows], (2 * rows, 96))
+        part = want[:, :, 2 * r * rows:2 * (r + 1) * rows]
+        inner = slice(int(r == 0), 2 * rows - int(r == n - 1))
+        assert torch.equal(got[:, :, inner], part[:, :, inner]), r
+        assert float((got.float() - part.float()).abs().max()) <= \
+            2.0 ** -7 * float(part.float().abs().max()), r
+    for size in (1, 2, 3, 6):
+        pooled = 0
+        for r in range(n):
+            rank["r"] = r
+            pooled = pooled + spatial.frame_pool(x[:, :, r * rows:(r + 1) * rows], (size, size))
+        ref = F.adaptive_avg_pool2d(x, size)
+        assert float((pooled - ref).abs().max()) <= 1e-5 * float(ref.abs().max()), size
+        prior = ref.to(torch.bfloat16)
+        want = F.interpolate(prior, size=(n * rows, 48), mode="bilinear", align_corners=False)
+        for r in range(n):
+            rank["r"] = r
+            got = spatial.frame_resize_rows(prior, (n * rows, 48)).float()
+            part = want[:, :, r * rows:(r + 1) * rows].float()
+            assert float((got - part).abs().max()) <= 2.0 ** -7 * float(part.abs().max()), r

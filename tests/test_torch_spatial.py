@@ -1,16 +1,18 @@
 """Height-sharded serving (``parallel/spatial.py``, ``spatial_sharding``) on the CPU.
 
 The counterpart of ``tests/test_mesh.py::test_spatial_sharding_matches_unsharded``:
-JAX's ``ResNeXtSeg(structure=(1,1,1,1))`` in float32 (numpy weights,
-``numpy_init``) serves one numpy-seeded 1x128x64 raw frame unsharded
-(``_device_normalize``, then the model); its weights reach the port through
-``state_dict_from_jax``. Four gloo processes (``torch_spatial_worker.py``,
-launched once for the module as ``torchrun`` would, with a time limit) serve
-the frame split by rows over 4 and over 2 of them (``serve_frame``: raw rows,
-ingest, the model under ``spatial_parallel``, argmax), for early fusion with
-3 and 4 input channels and late fusion with the cert branch. At 4 shards a
-shard holds 4 rows at stride 8, so ASPP's halos (12, 24, 36 rows) span
-several shards and run past the frame.
+JAX's ``ResNeXtSeg(structure=(1,1,1,1))`` and PSPNet-ResNet-18 in float32
+(numpy weights, ``numpy_init``) serve one numpy-seeded 1x128x64 raw frame
+unsharded (``_device_normalize``, then the model); their weights reach the
+port through ``state_dict_from_jax``. Four gloo processes
+(``torch_spatial_worker.py``, launched once for the module as ``torchrun``
+would, with a time limit) serve the frame split by rows over 4 and over 2 of
+them (``serve_frame``: raw rows, ingest, the model under
+``spatial_parallel``, argmax), for early fusion with 3 and 4 input channels,
+late fusion with the cert branch, and PSPNet RGB-only and in late fusion. At
+4 shards a shard holds 4 rows at stride 8, so ASPP's halos (12, 24, 36 rows)
+span several shards and run past the frame, and PSPNet's pyramid bins of 3
+and 6 (over the frame's 16 rows) straddle shards.
 
 - the gathered logits (and cert map) against JAX's at rtol 1e-3 / atol
   2e-3 (the repo's parity tolerance), and against the port's own unsharded
@@ -18,11 +20,24 @@ several shards and run past the frame.
   ``tests/test_mesh.py:185``);
 - the gathered class maps equal JAX's argmax, except where JAX's own top-2
   logits are within 1e-3;
+- the int8 segnet (early fusion, ``min_batch`` 2 and ``max_hw`` 4096, so that
+  the frame's stem conv is float while a full-resolution shard would
+  quantize: ``torch_spatial_worker.INT8``): at batch 1 the float model served
+  by rows bit for bit; at batch 2, calibrated by rows (``calibrate_frame``),
+  the unsharded calibration's scales (rtol 1e-6) and its int8 logits (1e-5);
+  served on JAX's scales (calibrated unsharded at batch 1, on float outputs,
+  as ``tests/test_torch_int8.py`` does), JAX's int8 logits within 2e-2 of
+  the largest |logit| (that file's tolerance: BN's f32 arithmetic differs
+  between the frameworks by an ulp, which can move a value across a
+  quantization step);
 - ``halo_rows`` at halos smaller than, equal to and larger than a shard,
-  ``fill`` beyond the frame;
+  ``fill`` or the frame's edge rows beyond the frame; ``all_reduce_max``
+  over the 4 processes;
 - on one process: ``shard_rows``/``gather_rows`` against JAX's placement,
-  and the refusals under the context (train mode, a height that is not a
-  multiple of 8·n, PSPNet).
+  every PSPNet backend of ``build_network`` under the context against its
+  own unsharded forward, the frame pool and the frame-sized resize against
+  PyTorch's, and the refusals under the context (train mode, instance
+  norms, other resizes and pools, a height that is not a multiple of 8·n).
 """
 
 import os
@@ -36,13 +51,17 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from heatnet_tpu.eval.validate import _device_normalize
 from heatnet_tpu.models import ResNeXtSeg as JaxResNeXtSeg
+from heatnet_tpu.models.registry import build_network as jax_build_network
+from heatnet_tpu.ops.quant import calibrate_int8 as jax_calibrate
 from heatnet_tpu.parallel import mesh as jax_mesh
 from heatnet_tpu_torch.io.from_jax import state_dict_from_jax
 from heatnet_tpu_torch.models import ResNeXtSeg, build_network
-from heatnet_tpu_torch.models.layers import prepare_for_inference
+from heatnet_tpu_torch.models import layers as L
+from heatnet_tpu_torch.models.layers import init_params, prepare_for_inference
 from heatnet_tpu_torch.parallel import mesh as pm
 from heatnet_tpu_torch.parallel import spatial
 
@@ -55,10 +74,21 @@ H, W = 128, 64
 NEAR_TIE = 1e-3
 
 
-def _frames():
-    rng = np.random.RandomState(0)
-    return {"rgb": rng.randint(0, 256, (1, H, W, 3)).astype(np.uint8),
-            "ir": rng.randint(21000, 26000, (1, H, W, 1)).astype(np.uint16)}
+def _frames(n=1, seed=0):
+    rng = np.random.RandomState(seed)
+    return {"rgb": rng.randint(0, 256, (n, H, W, 3)).astype(np.uint8),
+            "ir": rng.randint(21000, 26000, (n, H, W, 1)).astype(np.uint16)}
+
+
+def _jax_model(arch, kw):
+    if arch == "pspnet":
+        return jax_build_network(dtype=jnp.float32, **kw)
+    return JaxResNeXtSeg(structure=worker.TINY, dtype=jnp.float32, **kw)
+
+
+def _normalized(frames, modalities):
+    keys = ["rgb"] + (["ir"] if "ir" in modalities else [])
+    return [np.asarray(_device_normalize(jnp.asarray(frames[k]))) for k in keys]
 
 
 def _free_port() -> int:
@@ -67,21 +97,31 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _int8_env(mp):
+    for k, v in (("HEATNET_QUANT", "int8"),
+                 ("HEATNET_INT8_MIN_BATCH", str(worker.INT8["min_batch"])),
+                 ("HEATNET_QUANT_MAX_HW", str(worker.INT8["max_hw"]))):
+        mp.setenv(k, v)
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
-    """JAX's unsharded outputs per case, and the 4 workers' results."""
+    """JAX's unsharded outputs per case and its int8 logits on its own
+    scales, and the 4 workers' results."""
     work = tmp_path_factory.mktemp("spatial")
-    frames = _frames()
+    frames, frames2 = _frames(), _frames(2, seed=1)
     np.savez(work / "frames.npz", **frames)
+    np.savez(work / "frames_int8.npz", **frames2)
     models = {}
-    for name, (kw, modalities) in worker.CASES.items():
-        m_j = JaxResNeXtSeg(structure=worker.TINY, dtype=jnp.float32, **kw)
-        keys = ["rgb"] + (["ir"] if "ir" in modalities else [])
-        ins = [np.asarray(_device_normalize(jnp.asarray(frames[k]))) for k in keys]
+    for name, (arch, kw, modalities) in list(worker.CASES.items()) + [
+            ("int8", ("resnext", {"input_channels": 4}, "ir_rgb"))]:
+        m_j = _jax_model(arch, kw)
+        ins = _normalized(frames, modalities)
         v = numpy_init(m_j, *ins)
         models[name] = (m_j, v, ins)
         torch.save(state_dict_from_jax(v["params"], v.get("batch_stats")),
                    work / f"{name}.pt")
+    int8_variables = models.pop("int8")[1]
 
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, WORLD_SIZE="4", MASTER_ADDR="localhost",
@@ -93,12 +133,25 @@ def run(tmp_path_factory):
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(4)]
     logs, want = [], {}
-    try:
-        for name, (m_j, v, ins) in models.items():  # while the workers run
+    try:  # while the workers run: JAX's scales first, for the workers' last part
+        mp = pytest.MonkeyPatch()
+        try:
+            _int8_env(mp)
+            m_j = JaxResNeXtSeg(structure=worker.TINY, dtype=jnp.float32, input_channels=4)
+            v = jax_calibrate(m_j.apply, int8_variables,
+                              [tuple(map(jnp.asarray, _normalized(frames, "ir_rgb")))],
+                              train=False)
+            torch.save(state_dict_from_jax(v["params"], v["batch_stats"], quant=v["quant"]),
+                       work / "jax_scales.tmp")
+            os.replace(work / "jax_scales.tmp", work / "jax_scales.pt")
+            want["int8"] = np.asarray(japply(m_j, v, *_normalized(frames2, "ir_rgb"))[0])
+        finally:
+            mp.undo()
+        for name, (m_j, v, ins) in models.items():
             seg, _, cert = japply(m_j, v, *ins)
             want[name] = (np.asarray(seg), None if cert is None else np.asarray(cert))
         for p in procs:
-            logs.append(p.communicate(timeout=240)[0])
+            logs.append(p.communicate(timeout=300)[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -151,15 +204,59 @@ def test_sharded_class_map_equals_jax_but_at_near_ties(run, case):
 
 @pytest.mark.parametrize("halo", worker.HALOS, ids=lambda h: h[0])
 def test_halo_rows_take_the_neighbours_rows_and_fill_beyond_the_frame(run, halo):
-    name, above, below = halo
+    name, above, below, replicate = halo
     x = worker.halo_input()
     rows = worker.HALO_SHAPE[2] // 4
-    padded = np.pad(x, ((0, 0), (0, 0), (above, below), (0, 0)),
-                    constant_values=worker.HALO_FILL)
+    pad = ((0, 0), (0, 0), (above, below), (0, 0))
+    padded = (np.pad(x, pad, mode="edge") if replicate
+              else np.pad(x, pad, constant_values=worker.HALO_FILL))
     got = run[1][f"halo/{name}"]
     assert got.shape == (4,) + x.shape[:2] + (above + rows + below, x.shape[3])
     for r in range(4):
         np.testing.assert_array_equal(got[r], padded[:, :, r * rows:(r + 1) * rows + above + below])
+
+
+def test_all_reduce_max_over_4_gloo_processes(run):
+    got = run[1]["all_reduce_max"]
+    want = np.stack([worker.max_input(r) for r in range(4)]).max(0)
+    assert got.shape == (4,) + want.shape
+    for r in range(4):  # every rank holds the max
+        np.testing.assert_array_equal(got[r], want)
+
+
+@pytest.mark.parametrize("n", worker.SHARDS, ids=lambda n: f"{n}shards")
+def test_int8_segnet_at_batch_1_by_rows_is_the_float_model_bit_for_bit(run, n):
+    got = run[1]
+    assert got[f"int8/{n}/b1_int8"].shape == (1, H, W, 13)
+    np.testing.assert_array_equal(got[f"int8/{n}/b1_int8"], got[f"int8/{n}/b1_float"])
+
+
+@pytest.mark.parametrize("n", worker.SHARDS, ids=lambda n: f"{n}shards")
+def test_int8_calibrated_by_rows_has_the_unsharded_scales(run, n):
+    got = run[1]
+    names = list(got["int8/names"])
+    want = got["int8/1/scales"]
+    # the stem's first conv sees the frame's 8192 > max_hw pixels: float, no
+    # scale, though a shard's rows (2048 or 4096 pixels) are within max_hw
+    assert want[names.index("mod1.conv1")] == 0.0
+    assert (np.delete(want, names.index("mod1.conv1")) > 0).all()
+    np.testing.assert_allclose(got[f"int8/{n}/scales"], want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("n", worker.SHARDS, ids=lambda n: f"{n}shards")
+def test_int8_served_by_rows_equals_the_unsharded_int8_forward(run, n):
+    got = run[1]
+    assert got["int8/1/seg"].shape == (2, H, W, 13)
+    np.testing.assert_allclose(got[f"int8/{n}/seg"], got["int8/1/seg"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", worker.SHARDS, ids=lambda n: f"{n}shards")
+def test_int8_by_rows_on_jax_scales_matches_jax_int8(run, n):
+    want, got = run
+    seg_j = want["int8"]
+    seg = got[f"int8/{n}/seg_jax_scales"]
+    tol = 2e-2 * np.abs(seg_j).max()
+    assert seg.shape == seg_j.shape and np.abs(seg - seg_j).max() <= tol
 
 
 @pytest.fixture
@@ -229,8 +326,69 @@ def test_a_height_not_a_multiple_of_8n_raises(one_process):
         _tiny_model()(torch.zeros(1, 36, 32, 3))  # mod3's stride-2 1x1s on 9 rows
 
 
-def test_pspnet_raises_under_the_context(one_process):
-    model = prepare_for_inference(build_network("resnet18"), torch.device("cpu"))
-    with torch.no_grad(), spatial.spatial_parallel(one_process), \
-            pytest.raises(NotImplementedError, match="adaptive pool"):
-        model(torch.zeros(1, 64, 64, 3))
+BACKENDS = [("squeezenet", False), ("densenet", False), ("resnet18", False),
+            ("resnet34", False), ("resnet50", False), ("resnet101", False),
+            ("resnet152", False), ("resnet18", True)]
+
+
+@pytest.mark.parametrize("backend,late_fusion", BACKENDS,
+                         ids=[b + ("_late" if lf else "") for b, lf in BACKENDS])
+def test_every_pspnet_backend_under_the_context_equals_unsharded(one_process, backend,
+                                                                 late_fusion):
+    """A mesh of one process: the rules apply (the windows, the frame pool,
+    the frame-sized resize), the exchanges are local."""
+    model = build_network(backend, in_channels=4 if late_fusion else 3,
+                          late_fusion=late_fusion)
+    init_params(model, torch.Generator().manual_seed(0))
+    model = prepare_for_inference(model, torch.device("cpu"))
+    rng = np.random.RandomState(2)
+    ins = [torch.from_numpy(rng.rand(1, 48, 40, c).astype(np.float32) * 2 - 1)
+           for c in ((3, 1) if late_fusion else (3,))]
+    with torch.no_grad():
+        want = model(*ins)[0]
+        with spatial.spatial_parallel(one_process):
+            got = model(*ins)[0]
+    assert got.shape == (1, 48, 40, 13)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("size", [1, 2, 3, 6])
+def test_frame_pool_and_frame_resize_equal_torch_on_one_process(one_process, size):
+    x = torch.from_numpy(np.random.RandomState(size).randn(2, 5, 16, 9).astype(np.float32))
+    x = x.contiguous(memory_format=torch.channels_last)
+    with spatial.spatial_parallel(one_process):
+        pooled = L.adaptive_avg_pool(x, (size, size), frame=True)
+        resized = L.resize_bilinear(pooled, (16, 9), frame=True)
+        up = L.resize_bilinear(x, (32, 18))
+    np.testing.assert_allclose(pooled.numpy(), F.adaptive_avg_pool2d(x, size).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(resized.numpy(), F.interpolate(
+        pooled, size=(16, 9), mode="bilinear", align_corners=False).numpy(),
+        rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(up.numpy(), F.interpolate(
+        x, size=(32, 18), mode="bilinear", align_corners=False).numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_all_reduce_max_over_one_process_is_a_copy(one_process):
+    group = pm.data_group(one_process)
+    t = torch.tensor([1.0, -2.0, 3.0])
+    got = pm.all_reduce_max(group, t)
+    assert torch.equal(got, t) and got.data_ptr() != t.data_ptr()
+
+
+REFUSED = {
+    "instance_norm": (lambda x: L.instance_norm(x), "instance_norm"),
+    "downscale": (lambda x: L.resize_bilinear(x, (4, 4)), "bilinear resize of 8 rows to 4"),
+    "upsample_x4": (lambda x: L.resize_bilinear(x, (32, 8)), "bilinear resize of 8 rows to 32"),
+    "pool_to_3": (lambda x: L.adaptive_avg_pool(x, (3, 3)), "adaptive pool of 8 rows to 3"),
+}
+
+
+@pytest.mark.parametrize("what", list(REFUSED))
+def test_a_refused_operation_raises_and_names_itself(one_process, what):
+    fn, match = REFUSED[what]
+    x = torch.randn(1, 2, 8, 8)
+    fn(x)  # served without the context
+    with spatial.spatial_parallel(one_process), pytest.raises(NotImplementedError,
+                                                             match=match):
+        fn(x)
