@@ -284,6 +284,24 @@ Phases, each of which exits non-zero on failure:
        int8 conv bit for bit, each 3x3 shape also timed the other way: its
        rows padded in height too and the extra rows dropped), and each
        worker's peak memory;
+   13e. the supervised train step split by rows
+       (``parallel/spatial.py::train_frames``): ResNeXt-50 early fusion at
+       full width and depth (random weights, seed 0), bf16, at train_plain's
+       operating point (batch 10 of 320x640, a seeded label; 80 rows per
+       shard, 10 at stride 8) over the same 4 gloo workers
+       (``--spatial-train-worker``), 3 Adam steps at lr 1e-6 against the
+       unsharded steps here on the same weights and batch: losses within
+       1e-2 relative, each step-0 gradient within max(0.05, 2x the unsharded
+       step's distance from its plain versions), each running statistic
+       after each step within max(1e-3, 2x the unsharded steps' distance
+       from their float32 twin), all on every rank; 16 forward and 16 dx
+       grouped-conv launches per worker per step (0 fused, 0 ingest); the
+       forward and backward exchanges (count, MB, ms by CUDA events), the
+       workers' and the unsharded step's p50, each worker's peak memory;
+   13f. the same for PSPNet-ResNet-50 (config #1, RGB only, float32) at
+       batch 2 with seeded dropout keep masks (no port kernel); then every
+       launch shape of 13e's extended shards (forward and dx) against its
+       plain version;
 14. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
    launches on every path); the last line is ``{"ok": true, "device": {...}}``.
 
@@ -296,7 +314,8 @@ Without a card, or run from a directory that does not hold the package, it
 prints no result and exits non-zero. ``--int8-card-times SPEC OUT`` is phase
 9a's child process (SPEC and OUT are JSON files), ``--serve-artifact SPEC
 OUT`` phase 10e's, ``--profile-serving OUT`` phase 11e's, ``--spatial-worker
-SPEC OUT`` phase 13's workers; none is an entry point.
+SPEC OUT`` phase 13's workers, ``--spatial-train-worker SPEC OUT`` phase
+13e's; none is an entry point.
 """
 
 import contextlib
@@ -1509,9 +1528,9 @@ def spatial_case(work: str, card: str, case, zero_counts, read_counts) -> tuple:
 def spatial_shapes(recs, check, time_ms) -> dict:
     """Every launch shape rank 0 recorded in phase 13's cases, each kernel
     against its plain version on seeded inputs of that shape: ingest and the
-    fused grouped conv within their stated tolerances (``check``), the int8
-    conv bit for bit (``int8_case``). Returns the largest error per kernel
-    and the int8 rows."""
+    grouped conv (fused, epilogue-free forward and dx) within their stated
+    tolerances (``check``), the int8 conv bit for bit (``int8_case``).
+    Returns the largest error per kernel and the int8 rows."""
     import torch
 
     from heatnet_tpu_torch.ops import fused_preproc as fp
@@ -1521,7 +1540,8 @@ def spatial_shapes(recs, check, time_ms) -> dict:
     ingest_tol = {"bfloat16": (lambda r: 2.0 ** -8, "2^-8, one bf16 ulp below 1"),
                   "float32": (lambda r: 1e-6, "1e-6")}
     gc_tol = (lambda r: 2.0 ** -7 * r.abs() + 1e-3, "2^-7 |plain| + 1e-3")
-    errs = {"ingest": 0.0, "grouped_conv3x3_fused": 0.0, "int8_conv": 0.0}
+    errs = {"ingest": 0.0, "grouped_conv3x3_fused": 0.0, "int8_conv": 0.0,
+            "grouped_conv3x3": 0.0, "grouped_conv3x3_dx": 0.0}
     rows = []
     g = torch.Generator().manual_seed(16)
     for phase, rec in recs.items():
@@ -1542,6 +1562,17 @@ def spatial_shapes(recs, check, time_ms) -> dict:
                 errs["ingest"] = max(errs["ingest"], check(
                     f"{s['fn']} {tuple(shp[:3])} {s['dtype']} ({tag})", out, ref,
                     *ingest_tol[s["dtype"]]))
+            elif s["kernel"] in ("grouped_conv3x3", "grouped_conv3x3_dx"):
+                n, hh, ww, c = s["x"]
+                cpg, d = s["w"][1], s["dilation"]
+                x = torch.randn((n, hh, ww, c), generator=g).to(dev, torch.bfloat16)
+                wt = (torch.randn(s["w"], generator=g) / (9 * cpg) ** 0.5).to(dev, torch.bfloat16)
+                dx = s["kernel"] == "grouped_conv3x3_dx"
+                fn = gc.grouped_conv3x3_dx if dx else gc.grouped_conv3x3
+                errs[s["kernel"]] = max(errs[s["kernel"]], check(
+                    f"{s['kernel']} {tuple(s['x'])} d{d} ({tag})", fn(x, wt, c // cpg, d),
+                    gc.grouped_conv3x3_plain(x, gc.dx_weight(wt, c // cpg) if dx else wt,
+                                             c // cpg, d), *gc_tol))
             elif s["kernel"] == "grouped_conv3x3_fused":
                 n, hh, ww, c = s["x"]
                 cpg, d = s["w"][1], s["dilation"]
@@ -1598,6 +1629,420 @@ def spatial_phase(work: str, card: str, zero_counts, read_counts, check, time_ms
     return out
 
 
+# Phases 13e-13f: the supervised train step split by rows
+# (parallel/spatial.py::train_frames) over SPATIAL_PROCS gloo processes on
+# the one card, train_plain's operating point (batch 10 of 320x640: 80 rows
+# per shard, 10 at stride 8, so ASPP's rates reach up to 4 shards away) and
+# PSPNet-ResNet-50 (config #1) in float32 at batch 2; Adam at lr 1e-6 from
+# the same random weights (seed 0) and batch as the unsharded step here.
+# (phase, its record, architecture, batch, activations, launches per step)
+SPATIAL_TRAIN_CASES = (
+    ("13e", "spatial_train", "resnext", N_TRAIN, "bfloat16",
+     {"ingest": 0, "grouped_conv3x3": 16, "grouped_conv3x3_fused": 0,
+      "grouped_conv3x3_dx": 16}),
+    ("13f", "spatial_train_pspnet", "pspnet", 2, "float32",
+     {"ingest": 0, "grouped_conv3x3": 0, "grouped_conv3x3_fused": 0,
+      "grouped_conv3x3_dx": 0}),
+)
+SPATIAL_TRAIN_STEPS = 3
+SPATIAL_TRAIN_LR = 1e-6
+# running statistics after each step, each tensor's largest difference from
+# the unsharded step's over its largest |value| (stats_rel): at most this, or
+# twice the unsharded bf16 steps' own distance from their float32 twin (bf16
+# rounding taken in another order moves ASPP's fuse_conv statistics by 2 %
+# at random init, as far as the grouped conv's plain version moves them; in
+# float32 the split step's lie within 2e-6 of the unsharded step's on the
+# CPU, tests/test_torch_spatial_train.py in float64 within 1e-5)
+SPATIAL_STATS_TOL = 1e-3
+
+
+def stats_rel(a, b) -> float:
+    """Largest |a - b| over the largest |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def spatial_train_inputs(arch: str, batch: int, weights: str, dev, dtype: str):
+    """Phase 13e-13f's model of ``arch`` from ``weights`` in train mode on
+    ``dev`` (activations in ``dtype``), its seeded batch on ``dev`` (whole
+    frames: normalised NHWC image and NHW label, a tenth of it ignored) and
+    PSPNet's keep masks for each step (None for the segnet)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from heatnet_tpu_torch.models import build_network, net_resnext50
+    from heatnet_tpu_torch.models.layers import prepare_for_training
+
+    net = (build_network("resnet50", in_channels=3) if arch == "pspnet"
+           else net_resnext50(classes=13, input_channels=4))
+    net.load_state_dict(torch.load(weights, map_location="cpu", weights_only=True))
+    model = prepare_for_training(net, dev, getattr(torch, dtype))
+    h, w = CROP
+    prng = np.random.RandomState(15)
+    image = prng.rand(batch, h, w, 3 if arch == "pspnet" else 4).astype(np.float32) * 2 - 1
+    label = prng.randint(0, 13, (batch, h, w))
+    label[prng.rand(batch, h, w) < 0.1] = 13
+    data = {"image": torch.from_numpy(image).to(dev), "label": torch.from_numpy(label).to(dev)}
+    masks = ([model.draw_dropout(batch, torch.Generator().manual_seed(17 + i))
+              for i in range(SPATIAL_TRAIN_STEPS)] if arch == "pspnet" else None)
+    return model, data, masks
+
+
+def spatial_train_steps(model, data, masks, mesh=None, before=None, after=None,
+                        steps: int = SPATIAL_TRAIN_STEPS):
+    """``steps`` steps of ``train/supervised.py::make_train_step``
+    (Adam at ``SPATIAL_TRAIN_LR``) on ``data``: unsharded, or split by rows
+    over ``mesh`` (``parallel/spatial.py::train_frames``); ``before(i)`` and
+    ``after(i)`` run around step i. Returns the losses, the step ms (host
+    clock to a synchronise), the step-0 gradients (float32, on the host) and
+    the BN running statistics after each step."""
+    import torch
+
+    from heatnet_tpu_torch.parallel import spatial
+    from heatnet_tpu_torch.train.optim import create_optimizer
+    from heatnet_tpu_torch.train.state import TrainState
+    from heatnet_tpu_torch.train.supervised import make_train_step
+
+    opt, sched = create_optimizer({"type": "Adam", "learning_rate": SPATIAL_TRAIN_LR},
+                                  model.parameters())
+    grads = {}
+
+    def keep(*_):
+        if not grads:
+            grads.update({k: p.grad.float().cpu() for k, p in model.named_parameters()
+                          if p.grad is not None})
+
+    opt.register_step_pre_hook(keep)
+    state = TrainState(model, opt, sched)
+    step = make_train_step(model, mesh=mesh)
+    losses, ms, stats = [], [], []
+    for i in range(steps):
+        dropout = None if masks is None else masks[i]
+        if before is not None:
+            before(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mesh is None:
+            _, metrics = step(state, data, dropout)
+        else:
+            _, metrics = spatial.train_frames(step, state, data, mesh, dropout)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        stats.append({k: b.float().cpu() for k, b in model.named_buffers() if "running" in k})
+        if after is not None:
+            after(i)
+    return losses, ms, grads, stats
+
+
+def spatial_train_worker(spec_path: str, out_path: str) -> None:
+    """Phase 13e-13f's worker, rank ``RANK`` of ``WORLD_SIZE`` in a gloo group
+    on the one card: ``spatial_train_steps`` by rows from ``spec``'s weights
+    and batch. Around each step it reads the kernels' launches and the
+    exchanges (``parallel.spatial.EXCHANGE``), each forward exchange's
+    ``all_gather`` and each backward exchange's ``sum_halo_grads`` timed by
+    CUDA events, and every launch shape of the grouped conv's forward and dx
+    kernels. Then it holds its losses, step-0 gradients and running
+    statistics against the unsharded step's (``spec["reference"]``) and
+    writes its record to ``out_path``."""
+    import datetime
+    import inspect
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from heatnet_tpu_torch.ops import fused_preproc as fp
+    from heatnet_tpu_torch.ops import grouped_conv as gc
+    from heatnet_tpu_torch.parallel import mesh as pm
+    from heatnet_tpu_torch.parallel import spatial
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False  # as run_phases sets them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{spec['port']}",
+                            rank=rank, world_size=int(os.environ["WORLD_SIZE"]),
+                            timeout=datetime.timedelta(seconds=SPATIAL_TIMEOUT_S))
+    model, data, masks = spatial_train_inputs(spec["arch"], spec["batch"], spec["weights"],
+                                              dev, spec["dtype"])
+    mesh = pm.create_mesh()
+    kernels = (fp.INGEST, gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_FUSED, gc.GROUPED_CONV3X3_DX)
+    events = {"fwd": [], "bwd": []}
+
+    def timed(name, fn):
+        def run(group, t):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(group, t)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return run
+
+    shapes = {}
+
+    def recording(name):
+        real = getattr(gc, name)
+        sig = inspect.signature(real)
+
+        def wrapper(*args, **kw):
+            a = sig.bind(*args, **kw).arguments
+            x = a["x"] if "x" in a else a["dy"]
+            key = json.dumps({"kernel": name, "x": list(x.shape), "w": list(a["w"].shape),
+                              "dilation": a.get("dilation", 1)})
+            shapes[key] = shapes.get(key, 0) + 1
+            return real(*args, **kw)
+        return mock.patch.object(gc, name, wrapper)
+
+    launches, exchange, exchange_ms = [], [], []
+
+    def before(i):
+        for k in kernels:
+            k.launches = 0
+        spatial.reset_exchange()
+        dist.barrier()
+
+    def after(i):
+        torch.cuda.synchronize()
+        launches.append({k.name: k.launches for k in kernels})
+        exchange.append(dict(spatial.EXCHANGE))
+        exchange_ms.append({k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()})
+        for v in events.values():
+            v.clear()
+
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(spatial, "all_gather", timed("fwd", pm.all_gather)), \
+            mock.patch.object(spatial, "sum_halo_grads", timed("bwd", spatial.sum_halo_grads)), \
+            recording("grouped_conv3x3"), recording("grouped_conv3x3_dx"):
+        losses, ms, grads, stats = spatial_train_steps(model, data, masks, mesh, before, after)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    ref = torch.load(spec["reference"], map_location="cpu", weights_only=True)
+    rows = []  # (name, rel L2 from the unsharded step's gradient, its bound)
+    for k, tol in ref["tol"].items():
+        want = ref["grads"][k]
+        rows.append((k, float((grads[k] - want).norm() / want.norm()), tol))
+    # per step: (distance over its bound, distance, bound, name), farthest first
+    stats_rows = [sorted(((stats_rel(v, want[k]) / bound[k], stats_rel(v, want[k]), bound[k], k)
+                          for k, v in got.items()), reverse=True)
+                  for got, want, bound in zip(stats, ref["stats"], ref["stats_tol"])]
+    with open(out_path, "w") as f:
+        json.dump({"rank": rank, "launches": launches, "exchange": exchange,
+                   "exchange_ms": exchange_ms, "ms": ms, "losses": losses,
+                   "grads_compared": len(rows), "grads_bad": [r for r in rows if r[1] > r[2]],
+                   "grads_worst": sorted(rows, key=lambda r: r[1] / r[2])[-5:],
+                   "stats_compared": len(stats_rows[-1]),
+                   "stats_worst": [rows[:3] for rows in stats_rows],
+                   "peak_gb": peak_gb,
+                   "shapes": [dict(json.loads(k), count=v) for k, v in shapes.items()]}, f)
+    dist.destroy_process_group()
+
+
+def spatial_train_case(work: str, card: str, case, zero_counts, read_counts) -> tuple:
+    """One case of phases 13e-13f (``SPATIAL_TRAIN_CASES``): the unsharded
+    steps here (their launches, losses, step-0 gradients and running
+    statistics, and for a case that launches the port's kernels its step-0
+    gradients through their plain versions, whose distance sets each
+    gradient's bound), then the same steps by rows over ``SPATIAL_PROCS``
+    worker processes (``spatial_train_worker``). Returns (the case's record,
+    the workers' records); ``fail`` on any disagreement."""
+    import torch
+
+    from heatnet_tpu_torch.models import build_network, net_resnext50
+    from heatnet_tpu_torch.models.layers import init_params
+    from heatnet_tpu_torch.ops import grouped_conv as gc
+
+    phase, _, arch, batch, dtype, per_step = case
+    t_case = time.perf_counter()
+    dev = torch.device("cuda")
+    net = (build_network("resnet50", in_channels=3) if arch == "pspnet"
+           else net_resnext50(classes=13, input_channels=4))
+    init_params(net, torch.Generator().manual_seed(0))
+    weights = os.path.join(work, f"spatial_{phase}_weights.pt")
+    torch.save(net.state_dict(), weights)
+    del net
+
+    # the unsharded steps, a comparison only
+    model, data, masks = spatial_train_inputs(arch, batch, weights, dev, dtype)
+    once = []
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, grads_k, stats = spatial_train_steps(
+        model, data, masks, before=lambda i: zero_counts(),
+        after=lambda i: once.append({k: v for k, v in read_counts().items() if k in per_step}))
+    peak_ref = torch.cuda.max_memory_allocated() / 1e9
+    # the step's time: the same steps again on the warm model
+    ref_ms = spatial_train_steps(model, data, masks)[1]
+    ref_p50 = float(np.percentile(ref_ms, 50))
+    bad = [c for c in once if c != per_step]
+    if bad:
+        fail(f"phase {phase}: the unsharded step launched {bad[0]}, not {per_step}")
+    # each gradient's bound: twice the unsharded step's distance from its
+    # plain versions, at least GRAD_TOL; each running statistic's after each
+    # step: twice the unsharded steps' distance from their float32 twin (the
+    # plain versions, which take float32), at least SPATIAL_STATS_TOL
+    def fwd_plain(x, w, groups, dilation=1):
+        return gc.grouped_conv3x3_plain(x, w, groups, dilation)
+
+    def dx_plain(dy, w, groups, dilation=1):
+        return gc.grouped_conv3x3_plain(dy, gc.dx_weight(w, groups), groups, dilation)
+
+    def plain_steps(precision, steps):
+        model, data, masks = spatial_train_inputs(arch, batch, weights, dev, precision)
+        zero_counts()
+        with mock.patch.object(gc, "grouped_conv3x3", fwd_plain), \
+                mock.patch.object(gc, "grouped_conv3x3_dx", dx_plain):
+            out = spatial_train_steps(model, data, masks, steps=steps)
+        if any(read_counts().values()):
+            fail(f"phase {phase}: the plain-version step launched a kernel")
+        return out
+
+    dist_plain, stats_f32 = {}, stats
+    if any(per_step.values()):
+        grads_p = plain_steps(dtype, 1)[2]
+        dist_plain = {k: float((grads_k[k] - g).norm() / g.norm()) for k, g in grads_p.items()
+                      if float(grads_k[k].norm()) >= 1e-4}
+        del grads_p
+    if dtype != "float32":
+        stats_f32 = plain_steps("float32", SPATIAL_TRAIN_STEPS)[3]
+    tol = {k: max(GRAD_TOL, 2.0 * dist_plain.get(k, 0.0)) for k, g in grads_k.items()
+           if float(g.norm()) >= 1e-4}
+    stats_tol = [{k: max(SPATIAL_STATS_TOL, 2.0 * stats_rel(a[k], b[k])) for k in a}
+                 for a, b in zip(stats, stats_f32)]
+    if dist_plain:
+        print(f"  {phase}: the unsharded step's step-0 gradients against its plain versions: "
+              f"{len(dist_plain)} tensors, rel L2 max {max(dist_plain.values()):.3g}, "
+              f"{sum(v < GRAD_TOL for v in dist_plain.values())} within {GRAD_TOL}; its running "
+              f"statistics against its float32 twin's after each step apart by up to "
+              f"{[max(stats_rel(a[k], b[k]) for k in a) for a, b in zip(stats, stats_f32)]}",
+              flush=True)
+    del model, data, masks, stats_f32
+    torch.cuda.empty_cache()
+    reference = os.path.join(work, f"spatial_{phase}_reference.pt")
+    torch.save({"grads": {k: grads_k[k] for k in tol}, "tol": tol, "stats": stats,
+                "stats_tol": stats_tol}, reference)
+    del grads_k
+
+    spec = {"port": free_port(), "weights": weights, "arch": arch, "batch": batch,
+            "dtype": dtype, "reference": reference}
+    spec_path = os.path.join(work, f"spatial_{phase}_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    outs = [os.path.join(work, f"spatial_{phase}_rank{r}.json") for r in range(SPATIAL_PROCS)]
+    env = dict(os.environ, WORLD_SIZE=str(SPATIAL_PROCS))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--spatial-train-worker", spec_path, outs[r]],
+                              env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(SPATIAL_PROCS)]
+    logs = []
+    try:
+        for p in procs:
+            remaining = max(1.0, SPATIAL_TIMEOUT_S - (time.perf_counter() - t0))
+            logs.append(p.communicate(timeout=remaining)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase {phase}: a worker did not exit within {SPATIAL_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    workers_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"phase {phase}: worker {r} exited {p.returncode}:\n{log[-3000:]}")
+    recs = []
+    for out in outs:
+        with open(out) as f:
+            recs.append(json.load(f))
+
+    print(f"  {card}", flush=True)
+    print(f"  {phase}: unsharded step at {batch}x{CROP[0]}x{CROP[1]}, {dtype} (host clock, "
+          f"forward to the optimizer, batch on the card): ms {[round(v, 2) for v in ms]}, "
+          f"then warm {[round(v, 2) for v in ref_ms]}, p50 {ref_p50:.3f}; losses "
+          f"{[round(v, 6) for v in losses]}; launches per step {once[0]}; peak "
+          f"{peak_ref:.3f} GB", flush=True)
+    failures = []
+    for rec in recs:
+        ex = rec["exchange"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], losses))
+        name, dist_w, tol_w = rec["grads_worst"][-1]
+        stats_w = max((rows[0] for rows in rec["stats_worst"]), key=lambda r: r[0])
+        print(f"  {phase} worker {rec['rank']}: step ms {[round(v, 1) for v in rec['ms']]}, "
+              f"p50 {float(np.percentile(rec['ms'], 50)):.1f} ({SPATIAL_PROCS} processes share "
+              f"one card: not a latency figure); launches per step {rec['launches'][0]}; "
+              f"exchanges per step: forward {ex[0]['calls']}, {ex[0]['bytes'] / 1e6:.3f} MB "
+              f"received, backward {ex[0]['bwd_calls']}, {ex[0]['bwd_bytes'] / 1e6:.3f} MB "
+              f"summed; their ms per step (CUDA events around each all_gather and "
+              f"sum_halo_grads: to the host, gloo, back): forward "
+              f"{[round(e['fwd'], 1) for e in rec['exchange_ms']]}, backward "
+              f"{[round(e['bwd'], 1) for e in rec['exchange_ms']]}; grouped convs "
+              f"{ex[0]['extra_rows']} extra rows beside {ex[0]['rows']} shard rows per step; "
+              f"peak {rec['peak_gb']:.3f} GB", flush=True)
+        print(f"  {phase} worker {rec['rank']} against the unsharded step: losses "
+              f"{[round(v, 6) for v in rec['losses']]} (largest rel {loss_rel:.3g}, tolerance "
+              f"{STEP_LOSS_TOL}); {rec['grads_compared']} step-0 gradients of norm >= 1e-4, "
+              f"{len(rec['grads_bad'])} beyond their bound, nearest to it {name} at "
+              f"{dist_w:.3g} of {tol_w:.3g}; running statistics of {rec['stats_compared']} "
+              f"tensors after each step, nearest to their bound (name, distance, bound) "
+              f"{[[(k, d, b) for _, d, b, k in w] for w in rec['stats_worst']]}; "
+              f"gradients nearest their bound "
+              f"{rec['grads_worst']}", flush=True)
+        if not loss_rel <= STEP_LOSS_TOL:
+            failures.append(f"worker {rec['rank']}: loss rel {loss_rel}")
+        if rec["grads_bad"] or rec["grads_compared"] < 50:
+            failures.append(f"worker {rec['rank']}: gradients {rec['grads_bad'][:5]} of "
+                            f"{rec['grads_compared']}")
+        if not stats_w[0] <= 1.0 or rec["stats_compared"] < 50:
+            failures.append(f"worker {rec['rank']}: running statistics {stats_w}")
+        if any(c != per_step for c in rec["launches"]):
+            failures.append(f"worker {rec['rank']}: launches {rec['launches']}")
+        # every exchange but the one of the input image carries its gradient back
+        if not all(e["calls"] > 1 and e["bwd_calls"] == e["calls"] - 1 for e in ex):
+            failures.append(f"worker {rec['rank']}: exchanges {ex}")
+    print(f"  {phase}: workers {workers_s:.1f} s; case {time.perf_counter() - t_case:.1f} s",
+          flush=True)
+    if failures:
+        fail(f"phase {phase}: the step by rows disagrees with the unsharded step: {failures}")
+    launches = {k: sum(sum(c[k] for c in rec["launches"]) for rec in recs) for k in per_step}
+    return {"launches": launches, "unsharded_step_ms": ms, "unsharded_warm_step_ms": ref_ms,
+            "unsharded_step_ms_p50": ref_p50,
+            "unsharded_losses": losses, "unsharded_peak_gb": peak_ref,
+            "worker_step_ms_p50": [float(np.percentile(rec["ms"], 50)) for rec in recs],
+            "worker_losses": [rec["losses"] for rec in recs],
+            "exchange_per_step": [rec["exchange"][0] for rec in recs],
+            "exchange_ms": [rec["exchange_ms"] for rec in recs],
+            "grads_worst": [rec["grads_worst"] for rec in recs],
+            "stats_worst": [rec["stats_worst"] for rec in recs],
+            "peak_gb": [rec["peak_gb"] for rec in recs], "workers_s": workers_s}, recs
+
+
+def spatial_train_phase(work: str, card: str, zero_counts, read_counts, check,
+                        time_ms) -> dict:
+    """Phases 13e-13f: each of ``SPATIAL_TRAIN_CASES`` trained by rows over
+    ``SPATIAL_PROCS`` processes on the one card against the unsharded step
+    (``spatial_train_case``), then every launch shape of the extended shards'
+    grouped-conv forward and dx against its plain version
+    (``spatial_shapes``). Returns the phases' records; ``max_abs_err`` of the
+    first holds the shapes' largest error per kernel."""
+    t_13e = time.perf_counter()
+    out, recs = {}, {}
+    for case in SPATIAL_TRAIN_CASES:
+        phase, record, arch, batch, dtype = case[:5]
+        print(f"spatial path {phase}: parallel.spatial.train_frames, {arch} ({dtype}), "
+              f"{SPATIAL_TRAIN_STEPS} steps at batch {batch} of {CROP[0]}x{CROP[1]} split by "
+              f"rows over {SPATIAL_PROCS} gloo processes on one card", flush=True)
+        out[record], workers = spatial_train_case(work, card, case, zero_counts, read_counts)
+        recs[phase] = workers[0]
+    print("kernels: the launch shapes of phase 13e's shards against the plain versions",
+          flush=True)
+    out["spatial_train"]["max_abs_err"] = spatial_shapes(recs, check, time_ms)["max_abs_err"]
+    print(f"  phases 13e-13f: {time.perf_counter() - t_13e:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--int8-card-times"]:
         int8_card_times(*sys.argv[2:4])
@@ -1610,6 +2055,9 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--spatial-worker"]:
         spatial_worker(*sys.argv[2:4])
+        return
+    if sys.argv[1:2] == ["--spatial-train-worker"]:
+        spatial_train_worker(*sys.argv[2:4])
         return
     with tempfile.TemporaryDirectory() as work:
         run_phases(work)
@@ -3381,13 +3829,14 @@ def run_phases(work: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got, peak = counts(), torch.cuda.max_memory_allocated() / 1e9
-        card = [ms for _, ms in harness_steps]
+        step_ms = [ms for _, ms in harness_steps]
         host = [s * 1e3 for s in run.step_seconds]
         eval_fps = sum(run.eval_frames.values()) / sum(run.eval_seconds.values())
         print(f"  8b. {name}: launches {got} (want none); steps {len(run.losses)}, losses "
               f"{[round(v, 6) for v in run.losses]}; step ms (CUDA events, H2D to SGD) "
-              f"p50 {np.percentile(card, 50):.2f} p95 {np.percentile(card, 95):.2f}, each "
-              f"{[round(v, 2) for v in card]}; host clock p50 {np.percentile(host, 50):.2f}; "
+              f"p50 {np.percentile(step_ms, 50):.2f} p95 {np.percentile(step_ms, 95):.2f}, "
+              f"each "
+              f"{[round(v, 2) for v in step_ms]}; host clock p50 {np.percentile(host, 50):.2f}; "
               f"peak memory {peak:.2f} GB; eval {eval_fps:.1f} frames/s (decode ahead, H2D, "
               f"forward, confusion matrix); day acc {run.overall_acc['day']:.4f} mIoU "
               f"{run.miou['day']:.4f}, night acc {run.overall_acc['night']:.4f} mIoU "
@@ -3401,8 +3850,9 @@ def run_phases(work: str) -> None:
                  f"matrices {[int(cf.sum()) for cf in run.confusion.values()]}")
         harness_runs[name] = run
         later[f"train_baseline_{name}"] = {
-            "launches": got, "losses": run.losses, "step_ms_cuda_events": card,
-            "step_ms_p50_p95": (float(np.percentile(card, 50)), float(np.percentile(card, 95))),
+            "launches": got, "losses": run.losses, "step_ms_cuda_events": step_ms,
+            "step_ms_p50_p95": (float(np.percentile(step_ms, 50)),
+                                float(np.percentile(step_ms, 95))),
             "step_ms_host": host, "peak_memory_gb": peak, "eval_frames_per_s": eval_fps,
             "overall_acc": run.overall_acc, "miou": run.miou,
             "card_vs_cpu": harness_check[name]}
@@ -3587,14 +4037,14 @@ def run_phases(work: str) -> None:
     if child.returncode != 0:
         fail(f"the int8 card-time process: rc {child.returncode}\n{child.stderr[-3000:]}")
     with open(times_path) as f:
-        card = json.load(f)
-    fwd_card_ms, fwd_q_ms, fwd_g_ms, fwd_recs, fwd_launched = card["forward"]
+        card_times = json.load(f)
+    fwd_card_ms, fwd_q_ms, fwd_g_ms, fwd_recs, fwd_launched = card_times["forward"]
     print(f"  card times (torch.profiler) from a process of its own, "
           f"{time.perf_counter() - t_child:.1f} s", flush=True)
     i8_rows, i8_err = [], 0.0
     fmt = lambda v: "not measured" if v is None else f"{v:.4f}"  # noqa: E731
     for ((cin, cout, k, s, p, d, groups, n, h, w), names), card_row in zip(
-            configs.items(), card["layers"]):
+            configs.items(), card_times["layers"]):
         (k_dev, k_q, k_g, n_rec, n_launch) = card_row["relu"]
         k_dev_signed = card_row["signed"][0]
         g = torch.Generator().manual_seed(cin + cout + k + d + h)
@@ -4537,6 +4987,13 @@ def run_phases(work: str) -> None:
     later.update(spatial_phase(work, card, zero_counts, q_counts, check, time_ms))
     spatial_err = later["spatial_int8"].pop("max_abs_err")
 
+    # 13e-13f. the supervised train step split by rows over the same 4 gloo
+    # processes (ResNeXt-50 at train_plain's operating point, PSPNet-ResNet-50
+    # in float32) against the unsharded step; launches read in each worker
+    torch.cuda.empty_cache()
+    later.update(spatial_train_phase(work, card, zero_counts, q_counts, check, time_ms))
+    train_err = later["spatial_train"].pop("max_abs_err")
+
     # 14. the record: each kernel's launches on every path, read around it
     paths = {"serving": launches, "train_plain": train_launches, "train_conf": adv_launches,
              **{name: r["launches"] for name, r in later.items()}}
@@ -4578,7 +5035,8 @@ def run_phases(work: str) -> None:
          "launches": sum(by_path("grouped_conv3x3", "grouped_conv3x3_fused").values()),
          "launches_by_path": {"forward": by_path("grouped_conv3x3"),
                               "fused": by_path("grouped_conv3x3_fused")},
-         "max_abs_err": max(gc_err, spatial_err["grouped_conv3x3_fused"]),
+         "max_abs_err": max(gc_err, spatial_err["grouped_conv3x3_fused"],
+                            train_err["grouped_conv3x3"]),
          "train_conf_launches": {
              "forward": adv_launches["grouped_conv3x3"],
              "fused": adv_launches["grouped_conv3x3_fused"],
@@ -4597,7 +5055,8 @@ def run_phases(work: str) -> None:
          "replaces": "heatnet_tpu/ops/pallas_grouped_conv.py:297 (grouped_conv3x3 "
                      "custom VJP: forward _kernel :121, dx of _bwd :313)",
          "launches": sum(by_path("grouped_conv3x3_dx").values()),
-         "launches_by_path": by_path("grouped_conv3x3_dx"), "max_abs_err": dx_err,
+         "launches_by_path": by_path("grouped_conv3x3_dx"),
+         "max_abs_err": max(dx_err, train_err["grouped_conv3x3_dx"]),
          "ms": dx_sums[0], "plain_ms": dx_sums[1], "bound_ms": dx_bound,
          "bound_by": dx_by, "library_ms": dx_sums[2],
          "train_forward_launches": train_launches["grouped_conv3x3"],

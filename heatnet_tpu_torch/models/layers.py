@@ -39,8 +39,10 @@ run on their shard extended by its halo of neighbouring rows
 operation pads them; ``global_avg_pool`` and ``adaptive_avg_pool(frame=True)``
 sum over the processes, and ``adaptive_avg_pool`` serves a factor of 1 or 2
 in height within a shard; ``resize_bilinear`` serves a map held whole to the
-frame's rows (``frame=True``) and a x2 upsample of a shard. Train-mode
-BN, ``instance_norm``, other pools and other resizes raise there.
+frame's rows (``frame=True``) and a x2 upsample of a shard. Train-mode BN
+takes its statistics over the shards, every exchange carries its gradient
+back (training by rows). ``instance_norm``, other pools and other resizes
+raise there, as the int8 layers do in train mode anywhere.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ from ..ops import grouped_conv as gc
 from ..ops import int8_conv
 from ..ops.lean_bn import lean_bn_act
 from ..parallel import spatial
-from ..parallel.mesh import all_reduce_max, batch_stats_group
+from ..parallel.mesh import all_reduce_max, batch_stats_group, stats_split_by_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +97,12 @@ class BatchNorm(nn.BatchNorm2d):
     statistics update the running ones, as only the first replica's buffers
     persist under ``nn.DataParallel`` (``_grouped_train_call``, :200-266).
     A batch that ``groups`` does not divide raises.
+
+    Over processes (``parallel.mesh.batch_stats_group``) the count, sum and
+    sum of squares are all-reduced in float64 (``ops/lean_bn.py``). Under
+    ``data_parallel`` each process holds whole batch groups; split by rows
+    (``spatial_parallel``) each batch group takes its statistics over every
+    shard, and group 0's, equal on every process, update the running ones.
     """
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9,
@@ -107,13 +115,16 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        spatial.refuse("train-mode BatchNorm")
         group = batch_stats_group()
-        if group is not None and self.groups == 1:
-            y, mean, var = lean_bn_act(x, self.weight, self.bias, self.eps, "none", 0.0,
-                                       group, torch.float64)
-            self.update_running(mean, var)
-            return y
+        if group is not None and (self.groups == 1 or stats_split_by_rows()):
+            if x.shape[0] % self.groups:
+                raise ValueError(f"batch {x.shape[0]} not divisible by bn_groups "
+                                 f"{self.groups}")
+            outs = [spatial.ordered(lambda t: lean_bn_act(
+                t, self.weight, self.bias, self.eps, "none", 0.0, group, torch.float64),
+                xg, self.weight, self.bias) for xg in x.chunk(self.groups)]
+            self.update_running(*outs[0][1:])
+            return outs[0][0] if self.groups == 1 else torch.cat([o[0] for o in outs])
         groups = self.groups
         if group is not None:
             # the global batch's contiguous groups: whole groups on each process
@@ -164,11 +175,10 @@ class ABN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if (self.training and self.norm_act.bn_groups == 1
                 and os.environ.get("HEATNET_BN_IMPL") == "lean"):
-            spatial.refuse("train-mode BatchNorm")
             bn = self.bn
-            a, mean, var = lean_bn_act(x, bn.weight, bn.bias, bn.eps,
-                                       self.norm_act.activation, self.norm_act.leaky_slope,
-                                       batch_stats_group())
+            a, mean, var = spatial.ordered(lambda t: lean_bn_act(
+                t, bn.weight, bn.bias, bn.eps, self.norm_act.activation,
+                self.norm_act.leaky_slope, batch_stats_group()), x, bn.weight, bn.bias)
             bn.update_running(mean, var)
             return a
         return self.norm_act.act(self.bn(x))

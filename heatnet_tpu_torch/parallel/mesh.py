@@ -29,10 +29,13 @@ written out:
   all-reduced in the forward and the matching sums in the backward, as
   XLA reduces a sharded batch's moments (``tests/test_mesh.py:52``).
   Over one process the all-reduce is the identity, and the layers keep
-  their single-process path.
+  their single-process path. ``parallel.spatial.spatial_parallel`` sets the
+  same group for frames split by rows (``batch_stats_over``):
+  ``stats_split_by_rows`` tells the layers whether the processes hold other
+  samples or other rows of the same samples.
 
 - ``spatial_sharding`` (:207-217): NHWC dimension 1, the height, over
-  ``data``, for batch-1 serving of frames too large for one card.
+  ``data``, for serving and training on frames too large for one card.
   ``shard_rows`` keeps this process's block of rows (rank r of n: rows
   ``[r*H/n, (r+1)*H/n)``) and ``gather_rows`` puts the blocks back
   together. JAX's GSPMD inserts the halo exchanges the convolutions need and
@@ -44,7 +47,9 @@ written out:
   collectives of the spatial path, by the group's backend: NCCL moves card
   tensors directly; gloo carries host tensors, so a card tensor is staged
   through host memory explicitly and comes back to the card. A backend that
-  cannot carry the tensor raises.
+  cannot carry the tensor raises. ``all_reduce_sum`` is differentiable: the
+  sum is held by every process and each process's loss reads it, so the
+  gradient of each part is the sum over the group of the result's gradient.
 """
 
 from __future__ import annotations
@@ -64,7 +69,9 @@ import torch.nn as nn
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
-_BATCH_STATS_GROUP = None
+# (the group over which train-mode BN statistics are taken, or None; whether
+# its processes hold other rows of the same samples rather than other samples)
+_BATCH_STATS = (None, False)
 
 
 def maybe_initialize_distributed(device: Optional[torch.device] = None,
@@ -271,20 +278,33 @@ def all_reduce_gradients(mesh, params) -> None:
 def batch_stats_group() -> Optional[Any]:
     """The process group over which train-mode BN statistics are taken, or
     None for this process's batch alone (see ``data_parallel``)."""
-    return _BATCH_STATS_GROUP
+    return _BATCH_STATS[0]
+
+
+def stats_split_by_rows() -> bool:
+    """Whether ``batch_stats_group``'s processes hold rows of the same
+    samples (``spatial_parallel``) rather than other samples."""
+    return _BATCH_STATS[1]
 
 
 @contextlib.contextmanager
-def data_parallel(mesh):
-    """Train-mode BN statistics over the whole batch of the mesh's ``data``
-    dimension while the block runs (only when it spans several processes)."""
-    global _BATCH_STATS_GROUP
-    prev = _BATCH_STATS_GROUP
-    _BATCH_STATS_GROUP = data_group(mesh) if data_size(mesh) > 1 else None
+def batch_stats_over(mesh, by_rows: bool):
+    """Train-mode BN statistics over the processes of the mesh's ``data``
+    dimension while the block runs (only when it spans several processes),
+    which hold other samples or, ``by_rows``, other rows of the same ones."""
+    global _BATCH_STATS
+    prev = _BATCH_STATS
+    _BATCH_STATS = (data_group(mesh) if data_size(mesh) > 1 else None, by_rows)
     try:
         yield mesh
     finally:
-        _BATCH_STATS_GROUP = prev
+        _BATCH_STATS = prev
+
+
+def data_parallel(mesh):
+    """Train-mode BN statistics over the whole batch of the mesh's ``data``
+    dimension while the block runs (only when it spans several processes)."""
+    return batch_stats_over(mesh, by_rows=False)
 
 
 # The net's output stride: InitBlock's stride-2 conv and max pool, mod3's
@@ -371,15 +391,31 @@ def all_gather(group, t: torch.Tensor) -> torch.Tensor:
 
 def _all_reduce(group, t: torch.Tensor, op) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
-        return t.clone()
+        return t.detach().clone()
     buf = t.detach().to(_carrier(group, t), copy=True).contiguous()
     dist.all_reduce(buf, op=op, group=group)
     return buf.to(t.device)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the group of each process's part; the gradient of each
+    part is the sum over the group of the result's gradient."""
+
+    @staticmethod
+    def forward(ctx, group, t):
+        ctx.group = group
+        return _all_reduce(group, t, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, _all_reduce(ctx.group, grad, dist.ReduceOp.SUM)
+
+
 def all_reduce_sum(group, t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the group, on ``t``'s device (a new tensor)."""
-    return _all_reduce(group, t, dist.ReduceOp.SUM)
+    """The sum of ``t`` over the group, on ``t``'s device (a new tensor),
+    differentiable: every process holds the sum, and the gradient that
+    reaches ``t`` is the group's sum of the gradients that reach the sum."""
+    return _AllReduceSum.apply(group, t)
 
 
 def all_reduce_max(group, t: torch.Tensor) -> torch.Tensor:

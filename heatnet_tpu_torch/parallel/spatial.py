@@ -1,4 +1,5 @@
-"""Height-sharded serving: the halo exchanges that GSPMD writes for JAX.
+"""Height-sharded serving and training: the halo exchanges that GSPMD writes
+for JAX.
 
 ``heatnet_tpu/parallel/mesh.py::spatial_sharding`` splits a frame's height
 over the ``data`` axis, and XLA inserts the exchanges that each window
@@ -31,19 +32,44 @@ it is written out:
 - ``serve_frame``: one frame served across the mesh's processes, each
   ingesting its own raw rows; ``calibrate_frame``: the int8 layers' scales
   calibrated on frames split the same way (each scale the max over every
-  shard, the unsharded calibration's).
+  shard, the unsharded calibration's); ``train_frames``: the supervised
+  train step on a batch split the same way, JAX's step on a batch placed by
+  ``spatial_sharding``.
 
-This is serving only: eval mode, no gradient. Operations whose window or
-statistics span the frame in other ways (instance norms, train-mode BN,
-bilinear resizes other than PSPNet's two forms, pools to other sizes than
-half within a shard) raise under the context and name themselves.
+Training by rows: every exchange carries its gradient back. ``halo_rows``'
+backward returns each halo row's gradient to the rank that owns the row,
+where it is summed (the transpose of the ``all_gather`` slicing: one
+``all_reduce_sum`` of the ``(n, edges)`` gradients, of which each rank takes
+its own; beyond the frame, the gradient of ``replicate``'s copies goes to
+the edge row and that of ``fill`` is dropped). ``global_mean`` and
+``frame_pool`` sum through the differentiable ``mesh.all_reduce_sum``, whose
+gradient is the group's sum of the replicated result's gradients, since
+every rank's part of the loss reads the whole result. Train-mode BN takes
+its count, sum and sum of squares over the group (``models/layers.py``,
+``mesh.batch_stats_over``). The collectives of the backward must be issued
+in the same order on every rank, and autograd orders the ready nodes of a
+graph that differs between ranks (``frame_pool`` takes other rows of each
+bin on each rank) as it finds them: ``ordered`` chains every operation whose
+backward communicates to the one before it by a scalar token, so the
+backward issues them in the reverse of the forward's order on every rank.
+The chain reaches an operation that no loss reads too (ASPP's cert head in
+the supervised step): its backward runs on zero gradients, and its
+parameters get zero gradients where the unsharded step leaves them none.
+
+Operations whose window or statistics span the frame in other ways
+(instance norms, bilinear resizes other than PSPNet's two forms, pools to
+other sizes than half within a shard) raise under the context and name
+themselves, as the int8 layers do in train mode.
 
 ``EXCHANGE`` counts the exchanges, the bytes each process receives, and the
 rows the halo-extended grouped convs compute beyond their shards
-(``extra_rows``, beside the shard rows they serve, ``rows``). These are host
-counters only: nothing here waits for the card to time an exchange (a
-caller that wants the time wraps ``all_gather``, as ``chip_smoke.py``
-phase 13 does with CUDA events).
+(``extra_rows``, beside the shard rows they serve, ``rows``); the backward's
+exchanges apart (``bwd_calls``, and ``bwd_bytes``, the bytes of each
+all-reduced gradient tensor: a ring all-reduce receives 2(n-1)/n of them).
+These are host counters only: nothing here waits for the card to time an
+exchange (a caller that wants the time wraps ``all_gather`` and
+``sum_halo_grads``, as ``chip_smoke.py`` phases 13 and 13e do with CUDA
+events).
 """
 
 from __future__ import annotations
@@ -55,12 +81,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .mesh import (all_gather, all_reduce_sum, data_group, gather_rows,
+from .mesh import (all_gather, all_reduce_sum, batch_stats_over, data_group, gather_rows,
                    shard_rows, spatial_sharding)
 
 _SPATIAL_GROUP = None
+_TOKEN = None  # the last ``ordered`` operation's token in this forward, or None
 
-EXCHANGE = {"calls": 0, "bytes": 0, "extra_rows": 0, "rows": 0}
+EXCHANGE = {"calls": 0, "bytes": 0, "extra_rows": 0, "rows": 0, "bwd_calls": 0,
+            "bwd_bytes": 0}
 
 
 def reset_exchange() -> None:
@@ -77,14 +105,65 @@ def spatial_group():
 def spatial_parallel(mesh):
     """The layers compute their rows of a frame split over the mesh's
     ``data`` dimension while the block runs (a mesh of one process included:
-    the rules apply, the exchanges are local)."""
-    global _SPATIAL_GROUP
+    the rules apply, the exchanges are local), and train-mode BN takes its
+    statistics over those processes (over one, its own)."""
+    global _SPATIAL_GROUP, _TOKEN
     prev = _SPATIAL_GROUP
-    _SPATIAL_GROUP = data_group(mesh)
+    _SPATIAL_GROUP, _TOKEN = data_group(mesh), None
     try:
-        yield mesh
+        with batch_stats_over(mesh, by_rows=True):
+            yield mesh
     finally:
-        _SPATIAL_GROUP = prev
+        _SPATIAL_GROUP, _TOKEN = prev, None
+
+
+class _Enter(torch.autograd.Function):
+    """``x`` unchanged; in the backward, the token's gradient (zero) is
+    given to the previous ordered operation once this one's is done."""
+
+    @staticmethod
+    def forward(ctx, x, token):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, grad.new_zeros(())
+
+
+class _Exit(torch.autograd.Function):
+    """``y`` unchanged and a new token; the backward waits for the token's
+    gradient, i.e. for the next ordered operation's backward."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y), y.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, grad, _token_grad):
+        global _TOKEN
+        _TOKEN = None  # this forward's graph is being consumed
+        return grad
+
+
+def ordered(fn, x: torch.Tensor, *also: torch.Tensor):
+    """``fn(x)``, an operation whose backward runs a collective, chained to
+    the previous such operation of this forward so that its backward runs
+    before theirs: every rank issues the backward's collectives in the
+    reverse of the forward's order, whatever graph its rows make. ``fn`` may
+    return a tuple whose first element carries the gradient. Outside
+    ``spatial_parallel``, without gradient, or when neither ``x`` nor
+    ``also`` (the operation's other differentiable inputs) requires one,
+    ``fn(x)`` alone."""
+    global _TOKEN
+    if (_SPATIAL_GROUP is None or not torch.is_grad_enabled()
+            or not any(t.requires_grad for t in (x,) + also)):
+        return fn(x)
+    if _TOKEN is not None:
+        x = _Enter.apply(x, _TOKEN)
+    out = fn(x)
+    first = out[0] if isinstance(out, tuple) else out
+    first, _TOKEN = _Exit.apply(first)
+    return (first,) + tuple(out[1:]) if isinstance(out, tuple) else first
 
 
 def refuse(what: str) -> None:
@@ -109,45 +188,43 @@ def frame_rows(rows: int) -> int:
     return rows * torch.distributed.get_world_size(_SPATIAL_GROUP)
 
 
-def halo_rows(x: torch.Tensor, above: int, below: int, group=None,
-              fill: float = 0.0, replicate: bool = False) -> torch.Tensor:
-    """NCHW ``x`` (this rank's rows) with ``above`` rows of the ranks before
-    it and ``below`` of the ranks after it, in the layout of ``x``; beyond
-    the frame ``fill``, or with ``replicate`` the frame's first (last) row
-    again. Every rank of ``group`` (the active ``spatial_group()`` if None)
-    calls it together with equal shards."""
-    if above == 0 and below == 0:
-        return x
-    if group is None:
-        group = _SPATIAL_GROUP
+def _halo_plan(n: int, r: int, rows: int, above: int, below: int):
+    """Where ``halo_rows`` takes its rows: each rank sends its first ``top``
+    and last ``bot`` rows (``edges``); ``pieces`` are (rank q, offset in q's
+    edges, offset in the extended shard, rows) for rank r."""
+    first, last = r * rows - above, (r + 1) * rows + below
+    top, bot = min(below, rows), min(above, rows)
+    pieces = []
+    for q in range(r - 1, -1, -1):  # the ranks before: their last rows
+        lo, hi = max(first, q * rows), (q + 1) * rows
+        if lo >= hi:
+            break
+        pieces.append((q, top + lo - q * rows - (rows - bot), lo - first, hi - lo))
+    for q in range(r + 1, n):  # the ranks after: their first rows
+        lo, hi = q * rows, min((q + 1) * rows, last)
+        if lo >= hi:
+            break
+        pieces.append((q, 0, lo - first, hi - lo))
+    # rows beyond the frame: a0 above its first row, b0 below its last
+    return top, bot, pieces, max(0, -first), max(0, last - n * rows)
+
+
+def _halo_forward(x, above, below, group, fill, replicate):
     n = torch.distributed.get_world_size(group)
     r = torch.distributed.get_rank(group)
     rows = x.shape[2]
-    first = r * rows - above  # global row of out's first row
-    last = (r + 1) * rows + below  # one past the global row of out's last row
+    top, bot, pieces, a0, b0 = _halo_plan(n, r, rows, above, below)
     out = _empty_rows(x, above + rows + below)
     out.narrow(2, above, rows).copy_(x)
     if n > 1:
-        top, bot = min(below, rows), min(above, rows)
         edges = torch.cat([x.narrow(2, 0, top), x.narrow(2, rows - bot, bot)], 2)
         gathered = all_gather(group, edges)
-        for q in range(r - 1, -1, -1):  # the ranks before: their last rows
-            lo, hi = max(first, q * rows), (q + 1) * rows
-            if lo >= hi:
-                break
-            src = gathered[q].narrow(2, top + lo - q * rows - (rows - bot), hi - lo)
-            out.narrow(2, lo - first, hi - lo).copy_(src)
-        for q in range(r + 1, n):  # the ranks after: their first rows
-            lo, hi = q * rows, min((q + 1) * rows, last)
-            if lo >= hi:
-                break
-            out.narrow(2, lo - first, hi - lo).copy_(gathered[q].narrow(2, 0, hi - lo))
+        for q, src, dst, count in pieces:
+            out.narrow(2, dst, count).copy_(gathered[q].narrow(2, src, count))
         EXCHANGE["calls"] += 1
         EXCHANGE["bytes"] += (n - 1) * edges.numel() * edges.element_size()
-    # rows beyond the frame: a0 above its first row, b0 below its last; the
-    # frame's edge rows are in out (a halo that reaches past the frame took
-    # the whole shards of the ranks between)
-    a0, b0 = max(0, -first), max(0, last - n * rows)
+    # the frame's edge rows are in out (a halo that reaches past the frame
+    # took the whole shards of the ranks between)
     end = out.shape[2]
     for start, count, edge in ((0, a0, a0), (end - b0, b0, end - b0 - 1)):
         if count:
@@ -157,6 +234,68 @@ def halo_rows(x: torch.Tensor, above: int, below: int, group=None,
             else:
                 beyond.fill_(fill)
     return out
+
+
+def sum_halo_grads(group, grads: torch.Tensor) -> torch.Tensor:
+    """The backward's exchange: the ``(n, edges)`` halo gradients of every
+    rank summed over the group (rank q then takes its slice ``q``)."""
+    return all_reduce_sum(group, grads)
+
+
+def _halo_backward(grad, rows, above, below, group, replicate):
+    """The gradient of ``halo_rows``' input from that of its output: the
+    shard's own rows, plus every halo row's gradient on the rank that owns
+    the row (the transpose of the forward's slicing)."""
+    n = torch.distributed.get_world_size(group)
+    r = torch.distributed.get_rank(group)
+    top, bot, pieces, a0, b0 = _halo_plan(n, r, rows, above, below)
+    end = grad.shape[2]
+    if replicate and (a0 or b0):  # the copies beyond the frame: to its edge row
+        grad = grad.clone()
+        for start, count, edge in ((0, a0, a0), (end - b0, b0, end - b0 - 1)):
+            if count:
+                grad.narrow(2, edge, 1).add_(grad.narrow(2, start, count).sum(2, keepdim=True))
+    dx = grad.narrow(2, above, rows).clone()
+    if n > 1:
+        nb, c, _, w = grad.shape
+        edges = grad.new_zeros((n, nb, c, top + bot, w))
+        for q, src, dst, count in pieces:
+            edges[q].narrow(2, src, count).copy_(grad.narrow(2, dst, count))
+        mine = sum_halo_grads(group, edges)[r]
+        dx.narrow(2, 0, top).add_(mine.narrow(2, 0, top))
+        dx.narrow(2, rows - bot, bot).add_(mine.narrow(2, top, bot))
+        EXCHANGE["bwd_calls"] += 1
+        EXCHANGE["bwd_bytes"] += edges.numel() * edges.element_size()
+    return dx
+
+
+class _HaloRows(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, above, below, group, fill, replicate):
+        ctx.args = (x.shape[2], above, below, group, replicate)
+        return _halo_forward(x, above, below, group, fill, replicate)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _halo_backward(grad, *ctx.args), None, None, None, None, None
+
+
+def halo_rows(x: torch.Tensor, above: int, below: int, group=None,
+              fill: float = 0.0, replicate: bool = False) -> torch.Tensor:
+    """NCHW ``x`` (this rank's rows) with ``above`` rows of the ranks before
+    it and ``below`` of the ranks after it, in the layout of ``x``; beyond
+    the frame ``fill``, or with ``replicate`` the frame's first (last) row
+    again. Every rank of ``group`` (the active ``spatial_group()`` if None)
+    calls it together with equal shards. Differentiable: the backward sends
+    each halo row's gradient back to its owner (``sum_halo_grads``)."""
+    if above == 0 and below == 0:
+        return x
+    if group is None:
+        group = _SPATIAL_GROUP
+    if torch.is_grad_enabled() and x.requires_grad:
+        return ordered(lambda t: _HaloRows.apply(t, above, below, group, fill, replicate), x)
+    return _halo_forward(x, above, below, group, fill, replicate)
 
 
 def window_rows(x: torch.Tensor, kernel: int, stride: int, padding: int,
@@ -188,12 +327,19 @@ def transposed_rows(x: torch.Tensor, kernel: int, stride: int, padding: int,
     return halo_rows(x, above, below), above * stride + padding
 
 
+def _sum_dtype(x: torch.Tensor) -> torch.dtype:
+    """float32 sums for bf16, f16 and f32 shards; float64 stays float64."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def global_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean over the whole frame's H, W of NCHW shards, kept as 1x1: the
-    per-shard sum in float32, summed over the group, divided by the frame's
-    pixel count, cast back."""
+    per-shard sum in float32 (float64 for float64), summed over the group, divided by the frame's
+    pixel count, cast back. Its gradient is the group's sum of the mean's
+    gradients, spread over this shard's pixels."""
     n = torch.distributed.get_world_size(_SPATIAL_GROUP)
-    s = all_reduce_sum(_SPATIAL_GROUP, x.float().sum(dim=(2, 3), keepdim=True))
+    s = ordered(lambda t: all_reduce_sum(_SPATIAL_GROUP, t),
+                x.to(_sum_dtype(x)).sum(dim=(2, 3), keepdim=True))
     return (s / (x.shape[2] * n * x.shape[3])).to(x.dtype)
 
 
@@ -201,7 +347,8 @@ def frame_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
     """``F.adaptive_avg_pool2d`` of the whole frame of NCHW shards, the same
     ``(N, C, oh, ow)`` on every process: the bins ``[floor(i*H/oh),
     ceil((i+1)*H/oh))`` over the frame's H, which overlap and straddle
-    shards. Each process sums its rows of every bin in float32 and pools the
+    shards. Each process sums its rows of every bin in float32 (float64 for
+    float64) and pools the
     width (not split) itself; one ``all_reduce_sum`` adds the processes'
     sums, which are divided by the bins' row counts and cast back."""
     n = torch.distributed.get_world_size(_SPATIAL_GROUP)
@@ -212,12 +359,12 @@ def frame_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
     sums = []
     for lo, hi in bins:  # this shard's rows of each bin, local indices
         lo, hi = max(lo - r * rows, 0), min(hi - r * rows, rows)
-        sums.append(x.narrow(2, lo, hi - lo).sum(2, keepdim=True, dtype=torch.float32)
-                    if lo < hi else x.new_zeros((nb, c, 1, w), dtype=torch.float32))
+        sums.append(x.narrow(2, lo, hi - lo).sum(2, keepdim=True, dtype=_sum_dtype(x))
+                    if lo < hi else x.new_zeros((nb, c, 1, w), dtype=_sum_dtype(x)))
     # height bins of one row each: the width's bins only
     s = F.adaptive_avg_pool2d(torch.cat(sums, 2), (oh, ow))
-    s = all_reduce_sum(_SPATIAL_GROUP, s)
-    counts = torch.tensor([hi - lo for lo, hi in bins], dtype=torch.float32, device=x.device)
+    s = ordered(lambda t: all_reduce_sum(_SPATIAL_GROUP, t), s)
+    counts = torch.tensor([hi - lo for lo, hi in bins], dtype=_sum_dtype(x), device=x.device)
     return (s / counts.view(1, 1, oh, 1)).to(x.dtype).contiguous(
         memory_format=torch.channels_last)
 
@@ -227,8 +374,9 @@ def frame_resize_rows(x: torch.Tensor, out_hw) -> torch.Tensor:
     antialiasing, ``F.interpolate(align_corners=False)``) of ``x``, a map
     every process holds whole (PSPNet's pooled priors), to ``out_hw``, the
     frame's size: the width resized first, then each output row blended from
-    its two source rows, both in float32 as PyTorch's kernel computes
-    (``scale = in / out``, source ``(y + 0.5) * scale - 0.5`` clamped at 0)."""
+    its two source rows, both in float32 (float64 for float64) as PyTorch's
+    kernel computes (``scale = in / out``, source ``(y + 0.5) * scale - 0.5``
+    clamped at 0)."""
     n = torch.distributed.get_world_size(_SPATIAL_GROUP)
     r = torch.distributed.get_rank(_SPATIAL_GROUP)
     in_h = x.shape[2]
@@ -236,9 +384,10 @@ def frame_resize_rows(x: torch.Tensor, out_hw) -> torch.Tensor:
     if oh % n:
         raise ValueError(f"{oh} rows do not split into {n} shards")
     rows = oh // n
-    xw = F.interpolate(x.float(), size=(in_h, ow), mode="bilinear", align_corners=False)
-    scale = torch.tensor(in_h, dtype=torch.float32) / oh
-    y = torch.arange(r * rows, (r + 1) * rows, dtype=torch.float32)
+    ct = _sum_dtype(x)
+    xw = F.interpolate(x.to(ct), size=(in_h, ow), mode="bilinear", align_corners=False)
+    scale = torch.tensor(in_h, dtype=ct) / oh
+    y = torch.arange(r * rows, (r + 1) * rows, dtype=ct)
     src = ((y + 0.5) * scale - 0.5).clamp_min(0.0)
     y0 = src.long().clamp_max(in_h - 1)
     y1 = (y0 + 1).clamp_max(in_h - 1)
@@ -304,3 +453,22 @@ def calibrate_frame(model: torch.nn.Module, frames: Dict[str, np.ndarray], mesh,
     dev = resolve(device)
     with spatial_parallel(mesh):
         return calibrate_int8(model, [_ingest_rows(model, frames, mesh, dev, modalities)])
+
+
+def train_frames(step, state, batch, mesh, dropout=None):
+    """One supervised step on whole frames split by rows over the processes
+    of ``mesh``'s ``data`` dimension: JAX's ``make_train_step`` on a batch
+    placed by ``spatial_sharding``.
+
+    ``step`` is ``train/supervised.py::make_train_step(model, mesh=mesh)``;
+    ``batch`` holds ``image`` (NHWC, normalised) and ``label`` (NHW), the
+    whole frames, as every process holds them, on the model's device; each
+    process keeps its rows (``shard_rows``) and runs ``step`` under
+    ``spatial_parallel``. ``dropout``: PSPNet's keep masks (``draw_dropout``,
+    (N, C)), the same on every process. Returns ``step``'s (state, metrics),
+    the loss and accuracy the whole batch's; each process's parameters and
+    running statistics stay equal to the others'."""
+    sharding = spatial_sharding(mesh)
+    rows = {k: shard_rows(v, sharding).contiguous() for k, v in batch.items()}
+    with spatial_parallel(mesh):
+        return step(state, rows, dropout)

@@ -6,7 +6,9 @@ batch under the JAX package's sharded ``jit``, unless the model's
 ``NormAct.bn_groups`` splits it. Over a data-parallel mesh
 (``parallel/mesh.py``) the step takes the mean loss of the whole batch: each
 process sums its rows' cross-entropy over the whole batch's valid count and
-the gradients are summed over the processes. A model with train-mode dropout (PSPNet)
+the gradients are summed over the processes; split by rows
+(``parallel/spatial.py::train_frames``) the same sums hold, each process's
+pixels being its rows of every sample. A model with train-mode dropout (PSPNet)
 takes its keep masks per step as an argument (``draw_dropout``, from the
 caller's ``torch.Generator``), where the JAX step folds the step count into
 a dropout key.
@@ -33,6 +35,8 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
     ``ignore_index`` masked out; the mean over the others, and 0 when every
     pixel is masked (where ``F.cross_entropy`` gives NaN).
 
+    The log-softmax runs in float32 (float64 logits stay float64: JAX has no
+    float64 without x64, and a float64 check of the port keeps its precision).
     A label outside ``[-classes, classes)`` that is not ignored gives NaN, as
     the JAX version's ``take_along_axis`` fills it (a 12-class head fed
     label 12); a gather there would fault on the card. Negative labels
@@ -41,7 +45,8 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
     valid = labels != ignore_index
     inside = (labels >= -classes) & (labels < classes)
     safe = torch.where(valid & inside, labels, 0).long().remainder(classes)
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    logp = torch.log_softmax(logits.to(torch.promote_types(logits.dtype, torch.float32)),
+                             dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, torch.where(inside, nll, float("nan")), 0.0)
     if not reduce:
@@ -60,10 +65,13 @@ def robust_loss(loss: torch.Tensor, a: float = 0.5, c: float = 1.0) -> torch.Ten
     return (b / d) * (torch.pow(torch.square(loss / c) / b + 1.0, 0.5 * d) - 1.0)
 
 
-def _accuracy(seg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _accuracy(seg: torch.Tensor, labels: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Hits over valid pixels; with a ``mesh``, both summed over its ``data``
+    dimension first: the whole batch's accuracy, as the JAX step's."""
     valid = labels != IGNORE_INDEX
     hit = valid & (seg.argmax(-1) == labels)
-    return hit.sum() / valid.sum().clamp(min=1)
+    hits, count = global_count(mesh, torch.stack([hit.sum(), valid.sum()]))
+    return hits / count.clamp(min=1)
 
 
 def make_train_step(model: nn.Module, learn_batch_stats: bool = True, mesh=None):
@@ -73,8 +81,10 @@ def make_train_step(model: nn.Module, learn_batch_stats: bool = True, mesh=None)
     ``dropout`` is a PSPNet's keep masks for this step (``draw_dropout``).
     With ``learn_batch_stats=False`` the BN running statistics are restored
     after the train-mode forward, as the JAX step keeps the old ones. With a
-    ``mesh`` the batch is this process's rows of the whole batch, and the
-    loss in ``metrics`` is the whole batch's.
+    ``mesh`` the batch is this process's part of the whole batch, its
+    samples (``data_parallel``) or its rows of every sample
+    (``parallel/spatial.py::train_frames``), and the loss and accuracy in
+    ``metrics`` are the whole batch's.
     """
 
     def train_step(state: TrainState, batch,
@@ -100,7 +110,7 @@ def make_train_step(model: nn.Module, learn_batch_stats: bool = True, mesh=None)
                 for b, k in zip(model.buffers(), kept):
                     b.copy_(k)
         with torch.no_grad():
-            acc = _accuracy(seg, batch["label"])
+            acc = _accuracy(seg, batch["label"], mesh)
         return state, {"loss": loss.detach(), "accuracy": acc}
 
     return train_step

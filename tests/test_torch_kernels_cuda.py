@@ -856,6 +856,47 @@ def test_halo_extended_fused_grouped_conv_equals_the_whole_frame(dev, c, cpg, d,
         assert torch.equal(part, whole[:, r * rows:(r + 1) * rows]), r
 
 
+@pytest.mark.parametrize("c,cpg,d,h,w", TRAIN_STAGES)
+def test_halo_extended_forward_and_dx_equal_the_whole_frame(dev, c, cpg, d, h, w):
+    """The train step by rows (``chip_smoke.py`` 13e: batch 10 of 320x640
+    over 4 processes): each shard, extended by d rows of its neighbours
+    (zeros beyond the frame), through the epilogue-free forward, d rows
+    dropped a side, equals the whole frame's launch at those rows bit for
+    bit. The dx kernel on the extended shard's output gradient (its halo rows
+    zero, as the dropped rows give it) equals the whole frame's dx bit for
+    bit at the rows whose taps all lie in the shard, and the shards' dx added
+    where the halos overlap (the halo exchange's backward) is the whole
+    frame's within a bf16 step of each part. Each extended launch is held
+    against the plain version."""
+    n, groups = 10, c // cpg
+    g = torch.Generator().manual_seed(c + d + h)
+    x = torch.randn((n, h, w, c), generator=g).to(torch.bfloat16).to(dev)
+    dy = torch.randn((n, h, w, c), generator=g).to(torch.bfloat16).to(dev)
+    wt = (torch.randn((c, cpg, 3, 3), generator=g) / (9 * cpg) ** 0.5).to(torch.bfloat16)
+    wt = wt.to(dev)
+    whole = gc.grouped_conv3x3(x, wt, groups, d)
+    dx_whole = gc.grouped_conv3x3_dx(dy, wt, groups, d)
+    rows = h // 4
+    total = torch.zeros((n, h + 2 * d, w, c), device=dev)  # frame row f at f + d
+    parts = torch.zeros_like(total)
+    for r in range(4):
+        lo, hi = r * rows - d, (r + 1) * rows + d
+        ext = torch.zeros((n, rows + 2 * d, w, c), dtype=torch.bfloat16, device=dev)
+        ext[:, max(lo, 0) - lo:min(hi, h) - lo] = x[:, max(lo, 0):min(hi, h)]
+        out = gc.grouped_conv3x3(ext, wt, groups, d)
+        _close(out, gc.grouped_conv3x3_plain(ext, wt, groups, d))
+        assert torch.equal(out[:, d:d + rows], whole[:, r * rows:(r + 1) * rows]), r
+        dy_ext = torch.zeros_like(ext)
+        dy_ext[:, d:d + rows] = dy[:, r * rows:(r + 1) * rows]
+        dx = gc.grouped_conv3x3_dx(dy_ext, wt, groups, d)
+        _close(dx, gc.grouped_conv3x3_plain(dy_ext, gc.dx_weight(wt, groups), groups, d))
+        assert torch.equal(dx[:, 2 * d:rows], dx_whole[:, r * rows + d:(r + 1) * rows - d]), r
+        total[:, r * rows:r * rows + rows + 2 * d] += dx.float()
+        parts[:, r * rows:r * rows + rows + 2 * d] += dx.float().abs()
+    err = (total[:, d:d + h] - dx_whole.float()).abs() - 2.0 ** -7 * parts[:, d:d + h]
+    assert float(err.max()) <= 0, float(err.max())
+
+
 # The int8 launches of one shard in chip_smoke.py 13c: ResNeXt-50 early
 # fusion, batch 8 of 640x1920 split by rows over 4 processes, the layers
 # gated on the frame's shape (the stem and mod3-5's grouped convs float).

@@ -11,7 +11,7 @@
   (1,1,1,1) ResNeXtSeg on batch 4 split 2 + 2 against one process on batch
   4 (``torch_mesh_cases.py``), with the default BN, with
   ``HEATNET_BN_IMPL=lean`` and with ``bn_groups`` 2 (a group per process):
-  the loss at rtol 2e-3 / atol 2e-4, every
+  the loss at rtol 2e-3 / atol 2e-4, the accuracy the whole batch's, every
   parameter's update (SGD, so the gradient) and every running statistic at
   rtol 1e-5 (atol 1e-5 of the tensor's largest value: f32 sums in another
   order); a validator over the mesh (5 frames, batches of 2, the tail
@@ -128,9 +128,12 @@ def test_two_process_step_equals_one_process_on_the_whole_batch(
     got = two_process_run
     np.testing.assert_allclose(got[f"{impl}/loss"], want[f"{impl}/loss"],
                                rtol=2e-3, atol=2e-4)
+    # the whole batch's hits over its valid pixels, not this process's
+    np.testing.assert_allclose(got[f"{impl}/accuracy"], want[f"{impl}/accuracy"],
+                               rtol=0, atol=1e-12)
     compared = 0
     for k, v in want.items():
-        if "/loss" in k:
+        if "/loss" in k or "/accuracy" in k:
             continue
         scale = float(np.abs(v).max()) if v.size else 0.0
         np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-5 * scale, err_msg=k)

@@ -36,8 +36,10 @@ and 6 (over the frame's 16 rows) straddle shards.
 - on one process: ``shard_rows``/``gather_rows`` against JAX's placement,
   every PSPNet backend of ``build_network`` under the context against its
   own unsharded forward, the frame pool and the frame-sized resize against
-  PyTorch's, and the refusals under the context (train mode, instance
+  PyTorch's, the train step by rows equal to the unsharded step, and the
+  refusals under the context (the int8 layers in train mode, instance
   norms, other resizes and pools, a height that is not a multiple of 8·n).
+  Training by rows over several processes: ``tests/test_torch_spatial_train.py``.
 """
 
 import os
@@ -62,8 +64,12 @@ from heatnet_tpu_torch.io.from_jax import state_dict_from_jax
 from heatnet_tpu_torch.models import ResNeXtSeg, build_network
 from heatnet_tpu_torch.models import layers as L
 from heatnet_tpu_torch.models.layers import init_params, prepare_for_inference
+from heatnet_tpu_torch.ops.quant import convert_int8
 from heatnet_tpu_torch.parallel import mesh as pm
 from heatnet_tpu_torch.parallel import spatial
+from heatnet_tpu_torch.train.optim import create_optimizer
+from heatnet_tpu_torch.train.state import TrainState
+from heatnet_tpu_torch.train.supervised import make_train_step
 
 import torch_spatial_worker as worker
 from test_torch_late_fusion import japply, numpy_init
@@ -309,12 +315,47 @@ def _tiny_model():
     return prepare_for_inference(model, torch.device("cpu"))
 
 
-def test_train_mode_raises_under_the_context(one_process):
-    model = _tiny_model().train()
-    x = torch.zeros(1, 64, 32, 3)
-    with spatial.spatial_parallel(one_process), pytest.raises(NotImplementedError,
-                                                             match="train-mode BatchNorm"):
-        model(x)
+def _tiny_step(mesh=None):
+    """One SGD step of a (1,1,1,1) segnet on a seeded 2x64x32 batch,
+    unsharded or by rows over ``mesh``: the loss, accuracy, gradients and
+    state after it."""
+    model = ResNeXtSeg(structure=worker.TINY, input_channels=3)
+    init_params(model, torch.Generator().manual_seed(4))
+    opt, sched = create_optimizer({"type": "SGD", "learning_rate": 1e-3}, model.parameters())
+    grads = {}
+    opt.register_step_pre_hook(lambda *_: grads.update(
+        {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}))
+    state = TrainState(model.train(), opt, sched)
+    rng = np.random.RandomState(6)
+    batch = {"image": torch.from_numpy(rng.rand(2, 64, 32, 3).astype(np.float32) * 2 - 1),
+             "label": torch.from_numpy(rng.randint(0, 14, (2, 64, 32)))}
+    if mesh is None:
+        _, m = make_train_step(model)(state, batch)
+    else:
+        _, m = spatial.train_frames(make_train_step(model, mesh=mesh), state, batch, mesh)
+    return m, grads, model.state_dict()
+
+
+def test_the_step_under_the_context_equals_the_unsharded_step(one_process):
+    """A mesh of one process: the step by rows (windows, the global pool and
+    BN, the exchanges local) is the unsharded step."""
+    m0, g0, s0 = _tiny_step()
+    m1, g1, s1 = _tiny_step(one_process)
+    np.testing.assert_allclose(float(m1["loss"]), float(m0["loss"]), rtol=1e-6)
+    assert float(m1["accuracy"]) == float(m0["accuracy"])
+    assert set(g1) == set(g0) and len(g0) > 50
+    for k, g in g0.items():
+        np.testing.assert_allclose(g1[k].numpy(), g.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(g.abs().max()) + 1e-8, err_msg=k)
+    for k, v in s0.items():
+        np.testing.assert_allclose(s1[k].numpy(), v.numpy(), rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def test_an_int8_layer_in_train_mode_still_raises_and_names_itself(one_process):
+    model = convert_int8(ResNeXtSeg(structure=worker.TINY, input_channels=3)).train()
+    with spatial.spatial_parallel(one_process), pytest.raises(RuntimeError,
+                                                             match="int8 layers serve"):
+        model(torch.zeros(1, 64, 32, 3))
 
 
 def test_a_height_not_a_multiple_of_8n_raises(one_process):

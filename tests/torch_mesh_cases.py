@@ -29,7 +29,8 @@ IMPLS = ("default", "lean", "bn_groups2")
 def train_step(impl: str, mesh=None) -> dict:
     """One SGD step (lr 0.1, so the update is the gradient's scale) on the
     whole batch, or on this process's rows of it over ``mesh``; returns the
-    loss, every parameter's update and every buffer after the step. ``impl``
+    loss and accuracy, every parameter's update and every buffer after the
+    step. ``impl``
     is the BN: the default, the lean one (the caller sets
     ``HEATNET_BN_IMPL``), or the default with statistics per batch half.
 
@@ -51,7 +52,8 @@ def train_step(impl: str, mesh=None) -> dict:
     with pm.data_parallel(mesh):
         _, metrics = make_train_step(model, mesh=mesh)(
             state, {"image": torch.from_numpy(image), "label": torch.from_numpy(label)})
-    out = {f"{impl}/loss": float(metrics["loss"])}
+    out = {f"{impl}/loss": float(metrics["loss"]),
+           f"{impl}/accuracy": float(metrics["accuracy"])}
     for k, p in model.named_parameters():
         out[f"{impl}/update/{k}"] = (p.detach() - before[k]).numpy()
     for k, b in model.named_buffers():
