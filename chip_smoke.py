@@ -229,6 +229,36 @@ Phases, each of which exits non-zero on failure:
        inside ``utils/profiling.trace`` and ``annotate``: the trace names the
        ingest and fused grouped-conv kernels and the span;
        ``scan_benchmark`` of the forward beside the CUDA-event p50;
+   11f. ``cli.train_conf`` (structure 1 1 1 1, batch 2 of a 2-frame pack, 2
+       cyclegan critics, a critic and a seg step, ``--moddrop --irscale``)
+       and ``cli.train_plain`` (two steps) alone and as rank 0 of 1 under a
+       torchrun-style environment (NCCL; cuDNN deterministic and the critics'
+       resizes with 11b's fixed-order backward): the printed losses, the
+       losses and the final ``state_dict`` bit for bit, the same launches;
+   11g. the adversarial critic, seg and critic steps
+       (``train/adversarial.py``'s ``mesh=``) at phase 4c's point (ResNeXt-50
+       early fusion, 6 cyclegan critics, the IR teacher, batch 16 of 320x640
+       from phase 4c's pack, ``--moddrop --irscale``, RMSprop at lr 1e-7)
+       over 2 gloo worker processes on the card (``--dp-adversarial-worker``,
+       8 frames each, augmented from the whole batch's draws) against one
+       process on the whole batch here (its train-mode BN on the workers'
+       code, a gloo group of one): every rank's losses within 1e-2
+       relative, each gradient of norm >= 1e-4 of each phase's first step
+       within max(0.05, 2x the one-process step's distance from its plain
+       versions in float32), each running statistic after each step within
+       max(1e-3, 2x that distance), the ranks' parameters bit for bit after
+       each step; how the gradient bounds spread, naming those of 0.5 or
+       more; a planted fault (each rank's own part of the gradients, as if
+       the all-reduce were skipped) through the same comparison, which must
+       fail it; then the same over 2 workers in float32 through the plain
+       versions against the float32 twin, every gradient within 0.05 and
+       statistic within 1e-3, with its own planted fault (the bf16 bounds
+       of the seg step's segnet gradients pass 0.5, since that step lies
+       about 1.0 from its twin); per worker and step the launches (32 forward per critic
+       step; 32 forward, 32 dx and 16 fused per seg step), the gradient
+       all-reduce's bytes and ms (CUDA events), step ms and peak memory,
+       beside the one process's step p50; then every launch shape of the
+       workers' grouped convs against its plain version; 11f and 11g's time;
 12. the capture path, host code at the shipped rig's sizes
    (``experiments/calibrations/example_rig``: RGB 1920x1080, IR 640x512);
    the kernels' launch counts are read around 12b-12c and must stay 0:
@@ -313,12 +343,14 @@ forward (``grouped_conv3x3_fused``) and the input gradient
 Without a card, or run from a directory that does not hold the package, it
 prints no result and exits non-zero. ``--int8-card-times SPEC OUT`` is phase
 9a's child process (SPEC and OUT are JSON files), ``--serve-artifact SPEC
-OUT`` phase 10e's, ``--profile-serving OUT`` phase 11e's, ``--spatial-worker
+OUT`` phase 10e's, ``--profile-serving OUT`` phase 11e's,
+``--dp-adversarial-worker SPEC OUT`` phase 11g's workers, ``--spatial-worker
 SPEC OUT`` phase 13's workers, ``--spatial-train-worker SPEC OUT`` phase
 13e's; none is an entry point.
 """
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -2043,6 +2075,497 @@ def spatial_train_phase(work: str, card: str, zero_counts, read_counts, check,
     return out
 
 
+# Phase 11g: the adversarial steps data parallel (train/adversarial.py's
+# mesh=) at phase 4c's operating point over DP_PROCS gloo processes on the
+# one card, each on its rows of the same batch, against one process on the
+# whole batch here: ResNeXt-50 early fusion, 6 cyclegan critics and the IR
+# teacher, batch N_ADV of CROP, --moddrop --irscale, RMSprop at DP_LR.
+DP_PROCS = 2
+DP_PHASES = ("train_critic", "train_seg", "train_critic")
+DP_GRAD_STEPS = (0, 1)  # each phase's first step
+# RMSprop's first update moves each element 10 lr sign(g), and the seg
+# step's bf16 gradients at random init are mostly rounding, so the third
+# step's loss reads that rounding: at 1e-6 it spread 5.291-5.358 over three
+# runs of the workers (one process 5.262-5.269), past STEP_LOSS_TOL
+DP_LR = 1e-7
+DP_TIMEOUT_S = 300
+# the launches of one step in each process, whatever its rows
+DP_PER_STEP = {
+    "train_critic": {"ingest": 0, "grouped_conv3x3": 32, "grouped_conv3x3_fused": 0,
+                     "grouped_conv3x3_dx": 0},
+    "train_seg": {"ingest": 0, "grouped_conv3x3": 32, "grouped_conv3x3_fused": 16,
+                  "grouped_conv3x3_dx": 32},
+}
+
+
+def param_digest(model):
+    """A position-weighted sum of the parameters' bits on the card (int64,
+    mod 2^64): equal for equal bits."""
+    import torch
+
+    total = torch.zeros((), dtype=torch.int64, device=next(model.parameters()).device)
+    for p in model.parameters():
+        bits = p.detach().reshape(-1).view(torch.int32).long()
+        weights = torch.arange(1, 2 * bits.numel(), 2, dtype=torch.int64, device=bits.device)
+        total = total * 1000003 + (bits * weights).sum()
+    return total
+
+
+def dp_adversarial_inputs(spec: dict, dev, mesh=None, dtype=None):
+    """Phase 11g's model (seed 0) and the teacher from phase 4c's checkpoint
+    (activations bf16, or ``dtype``), the whole batch's augmentation (this
+    process's rows of it over ``mesh``) and the seg step's draws, both
+    augmentations on."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from heatnet_tpu_torch.data.loaders import DeviceAugment, batch_iterator
+    from heatnet_tpu_torch.data.packed import PackedFreiburgTrainDataset
+    from heatnet_tpu_torch.io.checkpoint import load_state_dict, restore_renamed
+    from heatnet_tpu_torch.models import ConfSegnet, ResNeXtSeg
+    from heatnet_tpu_torch.models.layers import (init_params, prepare_for_inference,
+                                                 prepare_for_training)
+    from heatnet_tpu_torch.parallel import mesh as pm
+    from heatnet_tpu_torch.train import adversarial as adv
+
+    model = ConfSegnet(disc_arch="cyclegan", num_critics=6)
+    init_params(model, torch.Generator().manual_seed(0))
+    model = prepare_for_training(model, dev, dtype)
+    if mesh is not None:
+        pm.replicate(mesh, model)
+    # cli.train_conf.load_teacher's IR ResNeXt-50, in the chosen precision
+    teacher = ResNeXtSeg(structure=(3, 4, 6, 3), input_channels=1)
+    restore_renamed(teacher, load_state_dict(spec["teacher"]), "trgb_segnet.", "")
+    teacher = prepare_for_inference(teacher, dev, dtype)
+    raw = next(batch_iterator(PackedFreiburgTrainDataset(spec["pack"]), N_ADV, seed=0))
+    batch = DeviceAugment(CROP, dev)(torch.Generator().manual_seed(1), raw, mesh)
+    draws = adv.draw_seg_aug(torch.Generator().manual_seed(2))
+    draws.moddrop = draws.irscale = True
+    return model, teacher, batch, draws
+
+
+def dp_adversarial_steps(model, teacher, batch, draws, mesh=None, before=None, after=None):
+    """Critic, seg and critic steps (``make_adversarial_steps``, RMSprop at
+    ``DP_LR``) on ``batch``: one process, or this process's rows over
+    ``mesh``; ``before(i)`` and ``after(i)`` run around step i. Returns the
+    losses, the step ms (host clock to a synchronise), the gradients of each
+    phase's first step (float32, on the host; summed over the processes) and
+    the running statistics after each step."""
+    import torch
+
+    from heatnet_tpu_torch.train import adversarial as adv
+
+    cfg = adv.AdversarialConfig(moddrop=True, irscale=True, night_supervision=True)
+    state = adv.make_phase_optimizers(model, lambda count: DP_LR)
+    seg_step, critic_step = adv.make_adversarial_steps(model, cfg, teacher, mesh)
+    grads = []
+
+    def keep(*_):
+        if len(grads) in DP_GRAD_STEPS:
+            grads.append({k: p.grad.float().cpu() for k, p in model.named_parameters()
+                          if p.grad is not None})
+        else:
+            grads.append({})
+
+    for ts in (state.seg, state.critic):
+        ts.optimizer.register_step_pre_hook(keep)
+    losses, ms, stats = [], [], []
+    for i, phase in enumerate(DP_PHASES):
+        if before is not None:
+            before(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if phase == "train_seg":
+            metrics = seg_step(state, batch, draws)
+        else:
+            metrics = critic_step(state, batch)
+        losses.append(float(metrics["total_loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        stats.append({k: b.float().cpu() for k, b in model.named_buffers() if "running" in k})
+        if after is not None:
+            after(i)
+    return losses, ms, grads[:len(DP_GRAD_STEPS)], stats
+
+
+@contextlib.contextmanager
+def plain_grouped_convs():
+    """The grouped conv's three wrappers replaced by their plain versions,
+    which take float32: a step's float32 twin."""
+    from heatnet_tpu_torch.ops import grouped_conv as gc
+
+    def fwd_plain(x, w, groups, dilation=1):
+        return gc.grouped_conv3x3_plain(x, w, groups, dilation)
+
+    def dx_plain(dy, w, groups, dilation=1):
+        return gc.grouped_conv3x3_plain(dy, gc.dx_weight(w, groups), groups, dilation)
+
+    def fused_plain(x, w, scale, bias, groups, dilation=1, act="relu", slope=0.01):
+        return gc.grouped_conv3x3_plain(x, w, groups, dilation, scale, bias, act, slope)
+
+    with mock.patch.object(gc, "grouped_conv3x3", fwd_plain), \
+            mock.patch.object(gc, "grouped_conv3x3_dx", dx_plain), \
+            mock.patch.object(gc, "grouped_conv3x3_fused", fused_plain):
+        yield
+
+
+@contextlib.contextmanager
+def one_process_bn_group():
+    """A gloo group of this process alone, given to train-mode BN as the
+    data-parallel statistics group: one process on the whole batch through
+    the BN code the workers run (float64 sums all-reduced over one process,
+    a copy), so that the two differ only by the split."""
+    import torch.distributed as dist
+
+    from heatnet_tpu_torch.models import layers
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        with mock.patch.object(layers, "batch_stats_group", lambda: dist.group.WORLD):
+            yield
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_adversarial_worker(spec_path: str, out_path: str) -> None:
+    """Phase 11g's worker, rank ``RANK`` of ``DP_PROCS`` in a gloo group on
+    the one card: ``dp_adversarial_steps`` on its rows, in bf16 through the
+    kernels or (``spec["precision"]``) in float32 through their plain
+    versions. Around each step it reads the kernels' launches, times the
+    gradient all-reduce by CUDA events and counts its bytes, keeps its own
+    part of each phase's first gradients (the planted fault: the all-reduce
+    skipped here), records every grouped-conv launch shape, and all-gathers
+    a digest of the parameters; then it holds its losses, step gradients,
+    planted fault and running statistics against the one-process steps'
+    (``spec["reference"]``) and writes its record to ``out_path``."""
+    import datetime
+    import inspect
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from heatnet_tpu_torch.ops import fused_preproc as fp
+    from heatnet_tpu_torch.ops import grouped_conv as gc
+    from heatnet_tpu_torch.parallel import mesh as pm
+    from heatnet_tpu_torch.train import adversarial as adv
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    float32 = spec["precision"] == "float32"
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False  # as run_phases sets them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{spec['port']}",
+                            rank=rank, world_size=DP_PROCS,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    mesh = pm.create_mesh()
+    model, teacher, batch, draws = dp_adversarial_inputs(
+        spec, dev, mesh, torch.float32 if float32 else None)
+    kernels = (fp.INGEST, gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_FUSED, gc.GROUPED_CONV3X3_DX)
+    reduce_events, reduce_bytes = [], []
+    real_reduce = adv.all_reduce_gradients
+    names = {id(p): k for k, p in model.named_parameters()}
+    unreduced = []  # the planted fault: this rank's own part, as if not all-reduced
+    launches, reduce_ms, replicas_equal = [], [], []
+
+    def timed_reduce(mesh_, params):
+        params = [p for p in params if p.grad is not None]
+        if len(launches) in DP_GRAD_STEPS:
+            unreduced.append({names[id(p)]: p.grad.float().cpu() for p in params})
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        real_reduce(mesh_, params)
+        end.record()
+        reduce_events.append((start, end))
+        reduce_bytes.append(sum(p.numel() * p.element_size() for p in params))
+
+    shapes = {}
+
+    def recording(name):
+        real = getattr(gc, name)
+        sig = inspect.signature(real)
+
+        def wrapper(*args, **kw):
+            a = sig.bind(*args, **kw).arguments
+            x = a["x"] if "x" in a else a["dy"]
+            key = json.dumps({"kernel": name, "x": list(x.shape), "w": list(a["w"].shape),
+                              "dilation": a.get("dilation", 1)})
+            shapes[key] = shapes.get(key, 0) + 1
+            return real(*args, **kw)
+        return mock.patch.object(gc, name, wrapper)
+
+    def before(i):
+        for k in kernels:
+            k.launches = 0
+        dist.barrier()
+
+    def after(i):
+        torch.cuda.synchronize()
+        launches.append({k.name: k.launches for k in kernels})
+        reduce_ms.append(sum(a.elapsed_time(b) for a, b in reduce_events))
+        reduce_events.clear()
+        both = pm.all_gather(pm.data_group(mesh), param_digest(model))
+        replicas_equal.append(bool(both[0] == both[1]))
+
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(adv, "all_reduce_gradients", timed_reduce))
+        if float32:
+            stack.enter_context(plain_grouped_convs())
+        else:
+            for name in ("grouped_conv3x3", "grouped_conv3x3_dx", "grouped_conv3x3_fused"):
+                stack.enter_context(recording(name))
+        losses, ms, grads, stats = dp_adversarial_steps(model, teacher, batch, draws, mesh,
+                                                        before, after)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    ref = torch.load(spec["reference"], map_location="cpu", weights_only=True)
+
+    def grad_rows(steps):
+        """(step, name, rel L2 from the one-process step's gradient, its bound)"""
+        return [(step, k, float((got[k] - want[k]).norm() / want[k].norm()), t)
+                for step, (got, want, tol) in enumerate(zip(steps, ref["grads"], ref["tol"]))
+                for k, t in tol.items()]
+
+    rows, fault_rows = grad_rows(grads), grad_rows(unreduced)
+    stats_rows = [sorted(((stats_rel(v, want[k]) / bound[k], stats_rel(v, want[k]), bound[k], k)
+                          for k, v in got.items()), reverse=True)
+                  for got, want, bound in zip(stats, ref["stats"], ref["stats_tol"])]
+    with open(out_path, "w") as f:
+        json.dump({"rank": rank, "launches": launches, "ms": ms, "losses": losses,
+                   "reduce_ms": reduce_ms, "reduce_bytes": reduce_bytes,
+                   "replicas_equal": replicas_equal, "grads_compared": len(rows),
+                   "grads_bad": [r for r in rows if r[2] > r[3]],
+                   "grads_worst": sorted(rows, key=lambda r: r[2] / r[3])[-5:],
+                   "grads_farthest": max(rows, key=lambda r: r[2]),
+                   "grads_above_tol": sum(r[2] > GRAD_TOL for r in rows),
+                   "fault_caught": [[r[3] < 0.5, r[2] > r[3]] for r in fault_rows],
+                   "fault_least": sorted((r for r in fault_rows if r[3] < 0.5),
+                                         key=lambda r: r[2] / r[3])[:3],
+                   "stats_compared": len(stats_rows[-1]),
+                   "stats_worst": [r[:3] for r in stats_rows], "peak_gb": peak_gb,
+                   "shapes": [dict(json.loads(k), count=v) for k, v in shapes.items()]}, f)
+    dist.destroy_process_group()
+
+
+def dp_adversarial_workers(work: str, spec: dict, precision: str) -> tuple:
+    """``DP_PROCS`` processes of ``dp_adversarial_worker`` in ``precision``:
+    their records and the seconds they took; ``fail`` on a worker's
+    failure."""
+    spec = dict(spec, port=free_port(), precision=precision)
+    spec_path = os.path.join(work, f"dp_11g_spec_{precision}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    outs = [os.path.join(work, f"dp_11g_{precision}_rank{r}.json") for r in range(DP_PROCS)]
+    env = dict(os.environ, WORLD_SIZE=str(DP_PROCS))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dp-adversarial-worker", spec_path, outs[r]],
+                              env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(DP_PROCS)]
+    logs = []
+    try:
+        for p in procs:
+            remaining = max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0))
+            logs.append(p.communicate(timeout=remaining)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase 11g: a {precision} worker did not exit within {DP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    workers_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"phase 11g: {precision} worker {r} exited {p.returncode}:\n{log[-3000:]}")
+    recs = []
+    for out in outs:
+        with open(out) as f:
+            recs.append(json.load(f))
+    return recs, workers_s
+
+
+def dp_adversarial_phase(work: str, card: str, pack: str, teacher_ckpt: str, zero_counts,
+                         read_counts, check, time_ms) -> dict:
+    """Phase 11g: the one-process steps here (their launches, losses,
+    gradients and running statistics; again in float32 through the plain
+    versions, whose distance sets each bound), then the same steps over
+    ``DP_PROCS`` worker processes (``dp_adversarial_worker``), each on its
+    rows: in bf16 through the kernels against the one-process steps, and in
+    float32 through the plain versions against the float32 twin, each with
+    its planted fault; then every launch shape of the workers' grouped convs
+    against its plain version. Returns the phase's record; ``fail`` on any
+    disagreement."""
+    import torch
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    spec = {"pack": pack, "teacher": teacher_ckpt}
+    per_step = [DP_PER_STEP[p] for p in DP_PHASES]
+
+    model, teacher, batch, draws = dp_adversarial_inputs(spec, dev)
+    once = []
+    torch.cuda.reset_peak_memory_stats()
+    with one_process_bn_group():
+        losses, ms, grads_k, stats = dp_adversarial_steps(
+            model, teacher, batch, draws, before=lambda i: zero_counts(),
+            after=lambda i: once.append({k: v for k, v in read_counts().items()
+                                         if k in per_step[0]}))
+    peak_ref = torch.cuda.max_memory_allocated() / 1e9
+    # warm, for the p50, through the default BN
+    ref_ms = dp_adversarial_steps(model, teacher, batch, draws)[1]
+    if once != per_step:
+        fail(f"phase 11g: the one-process steps launched {once}, not {per_step}")
+    del model, teacher, batch
+
+    # the float32 twin: the same steps through the plain versions in float32
+    model, teacher, batch, draws = dp_adversarial_inputs(spec, dev, dtype=torch.float32)
+    zero_counts()
+    with plain_grouped_convs():
+        losses_p, _, grads_p, stats_p = dp_adversarial_steps(model, teacher, batch, draws)
+    if any(read_counts().values()):
+        fail("phase 11g: the plain-version steps launched a kernel")
+    del model, teacher, batch
+    torch.cuda.empty_cache()
+    # bf16: each gradient's bound twice the one-process step's distance from
+    # its float32 twin, at least GRAD_TOL; each running statistic's twice
+    # that distance, at least SPATIAL_STATS_TOL. Two bf16 steps that each lie
+    # that far from the float32 twin lie within twice it of each other (13e's
+    # rule for the statistics). float32: GRAD_TOL and SPATIAL_STATS_TOL
+    # themselves, against the twin
+    dist_plain = [{k: float((g[k] - gp[k]).norm() / gp[k].norm()) for k in gp
+                   if float(g[k].norm()) >= 1e-4} for g, gp in zip(grads_k, grads_p)]
+    tol = [{k: max(GRAD_TOL, 2.0 * v) for k, v in d.items()} for d in dist_plain]
+    stats_tol = [{k: max(SPATIAL_STATS_TOL, 2.0 * stats_rel(a[k], b[k])) for k in a}
+                 for a, b in zip(stats, stats_p)]
+    print(f"  11g: the one-process steps against their plain versions in float32: gradients of steps "
+          f"{list(DP_GRAD_STEPS)} rel L2 max {[round(max(d.values()), 4) for d in dist_plain]} "
+          f"over {[len(d) for d in dist_plain]} tensors; running statistics apart by up to "
+          f"{[round(max(stats_rel(a[k], b[k]) for k in a), 5) for a, b in zip(stats, stats_p)]}; "
+          f"losses {[round(v, 6) for v in losses_p]} in float32, the bf16 steps' "
+          f"{[round(abs(a - b) / abs(b), 5) for a, b in zip(losses, losses_p)]} relative from them",
+          flush=True)
+    # how the bf16 bounds spread: a half-summed gradient lies about 0.5 from
+    # the whole batch's, a missing one 1.0, so a bound of 0.5 or more holds
+    # neither; the float32 pass holds those tensors
+    edges = (GRAD_TOL, 0.1, 0.25, 0.5)
+    spread = [[sum(lo < b <= hi for b in t.values())
+               for lo, hi in zip((0.0,) + edges, edges + (float("inf"),))] for t in tol]
+    loose = [(step, k, round(dist_plain[step][k], 4), round(b, 4))
+             for step, t in enumerate(tol) for k, b in sorted(t.items()) if b >= 0.5]
+    print(f"  11g: bf16 gradient bounds per step in (0, {GRAD_TOL}], ({GRAD_TOL}, 0.1], "
+          f"(0.1, 0.25], (0.25, 0.5], above 0.5: {spread}; {len(loose)} of "
+          f"{sum(len(t) for t in tol)} at 0.5 or more (step, name, distance from float32, "
+          f"bound): {loose}", flush=True)
+    passes = {
+        "bf16": {"grads": [{k: g[k] for k in t} for g, t in zip(grads_k, tol)], "tol": tol,
+                 "stats": stats, "stats_tol": stats_tol, "losses": losses,
+                 "launches": per_step},
+        "float32": {"grads": [{k: g[k] for k in g if float(g[k].norm()) >= 1e-4}
+                              for g in grads_p],
+                    "stats": stats_p, "losses": losses_p,
+                    "launches": [{k: 0 for k in s} for s in per_step]}}
+    passes["float32"]["tol"] = [{k: GRAD_TOL for k in g} for g in passes["float32"]["grads"]]
+    passes["float32"]["stats_tol"] = [{k: SPATIAL_STATS_TOL for k in s} for s in stats_p]
+    del grads_k, grads_p, stats_p
+
+    print(f"  {card}", flush=True)
+    ref_p50 = float(np.percentile(ref_ms, 50))
+    print(f"  11g one process, batch {N_ADV} of {CROP[0]}x{CROP[1]} (host clock, forward "
+          f"to the optimizer): step ms {[round(v, 2) for v in ms]}, then warm "
+          f"{[round(v, 2) for v in ref_ms]}, p50 {ref_p50:.3f}; losses "
+          f"{[round(v, 6) for v in losses]}; launches per step {once}; peak "
+          f"{peak_ref:.3f} GB", flush=True)
+    failures, out = [], {}
+    for precision, want in passes.items():
+        reference = os.path.join(work, f"dp_11g_reference_{precision}.pt")
+        torch.save({k: want[k] for k in ("grads", "tol", "stats", "stats_tol")}, reference)
+        recs, workers_s = dp_adversarial_workers(work, dict(spec, reference=reference),
+                                                 precision)
+        for rec in recs:
+            tag = f"11g {precision} worker {rec['rank']}"
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], want["losses"]))
+            stats_w = max((rows[0] for rows in rec["stats_worst"]), key=lambda r: r[0])
+            tight = [caught for held, caught in rec["fault_caught"] if held]
+            print(f"  {tag} (batch {N_ADV // DP_PROCS}): per step launches "
+                  f"{rec['launches']}; gradient all-reduce MB "
+                  f"{[round(b / 1e6, 3) for b in rec['reduce_bytes']]} in ms "
+                  f"{[round(v, 2) for v in rec['reduce_ms']]} (CUDA events: to the host, gloo, "
+                  f"back); step ms {[round(v, 1) for v in rec['ms']]}, p50 "
+                  f"{float(np.percentile(rec['ms'], 50)):.1f} ({DP_PROCS} processes share one "
+                  f"card: not a latency figure); peak {rec['peak_gb']:.3f} GB", flush=True)
+            print(f"  {tag} against one process: losses {[round(v, 6) for v in rec['losses']]} "
+                  f"(largest rel {loss_rel:.3g}, tolerance {STEP_LOSS_TOL}); "
+                  f"{rec['grads_compared']} step gradients of norm >= 1e-4, "
+                  f"{len(rec['grads_bad'])} beyond their bound, nearest (step, name, distance, "
+                  f"bound) {rec['grads_worst'][-3:]}, farthest {rec['grads_farthest']}, "
+                  f"{rec['grads_above_tol']} farther than {GRAD_TOL}; running statistics of "
+                  f"{rec['stats_compared']} tensors, nearest their bound after each step "
+                  f"{[[(k, d, b) for _, d, b, k in w] for w in rec['stats_worst']]}; "
+                  f"parameters equal to the other rank's after each step "
+                  f"{rec['replicas_equal']}", flush=True)
+            print(f"  {tag}, the planted fault (its own part of each gradient, as if the "
+                  f"all-reduce were skipped on this rank): beyond its bound on {sum(tight)} of "
+                  f"the {len(tight)} tensors bound below 0.5 and "
+                  f"{sum(c for held, c in rec['fault_caught'] if not held)} of the "
+                  f"{len(rec['fault_caught']) - len(tight)} others; nearest their bound "
+                  f"(step, name, distance, bound) {rec['fault_least']}", flush=True)
+            if not loss_rel <= STEP_LOSS_TOL:
+                failures.append(f"{tag}: loss rel {loss_rel}")
+            if rec["grads_bad"] or rec["grads_compared"] < 50:
+                failures.append(f"{tag}: gradients {rec['grads_bad'][:5]} of "
+                                f"{rec['grads_compared']}")
+            if not any(tight):
+                failures.append(f"{tag}: the planted fault passed the gradient check")
+            if not stats_w[0] <= 1.0 or rec["stats_compared"] < 50:
+                failures.append(f"{tag}: running statistics {stats_w}")
+            if rec["launches"] != want["launches"]:
+                failures.append(f"{tag}: launches {rec['launches']}")
+            if rec["replicas_equal"] != [True] * len(DP_PHASES):
+                failures.append(f"{tag}: replicas {rec['replicas_equal']}")
+        out[precision] = (recs, workers_s)
+    if failures:
+        fail(f"phase 11g: the data-parallel steps disagree with one process: {failures}")
+    recs, workers_s = out["bf16"]
+    print("kernels: the launch shapes of phase 11g's bf16 workers against the plain versions",
+          flush=True)
+    errs = spatial_shapes({"11g": recs[0]}, check, time_ms)["max_abs_err"]
+    print(f"  11g: workers bf16 {workers_s:.1f} s, float32 {out['float32'][1]:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    launches = {k: sum(sum(c[k] for c in rec["launches"]) for rec in recs) for k in per_step[0]}
+
+    def fault(rs):
+        return [[sum(c for h, c in r["fault_caught"] if h), sum(h for h, _ in r["fault_caught"]),
+                 sum(c for h, c in r["fault_caught"] if not h),
+                 sum(not h for h, _ in r["fault_caught"])] for r in rs]
+
+    f32 = out["float32"][0]
+    return {"launches": launches, "one_process_step_ms": ms,
+            "one_process_warm_step_ms": ref_ms, "one_process_step_ms_p50": ref_p50,
+            "one_process_losses": losses, "one_process_peak_gb": peak_ref,
+            "worker_step_ms_p50": [float(np.percentile(rec["ms"], 50)) for rec in recs],
+            "worker_losses": [rec["losses"] for rec in recs],
+            "reduce_bytes": [rec["reduce_bytes"] for rec in recs],
+            "reduce_ms": [rec["reduce_ms"] for rec in recs],
+            "grads_worst": [rec["grads_worst"] for rec in recs],
+            "grads_farthest": [rec["grads_farthest"] for rec in recs],
+            "grads_above_tol": [rec["grads_above_tol"] for rec in recs],
+            "grad_bounds_spread": spread, "grad_bounds_at_half": loose,
+            "fault_caught": fault(recs), "float32_losses": losses_p,
+            "float32_worker_losses": [rec["losses"] for rec in f32],
+            "float32_grads_worst": [rec["grads_worst"] for rec in f32],
+            "float32_stats_worst": [rec["stats_worst"] for rec in f32],
+            "float32_fault_caught": fault(f32), "float32_workers_s": out["float32"][1],
+            "stats_worst": [rec["stats_worst"] for rec in recs],
+            "peak_gb": [rec["peak_gb"] for rec in recs], "workers_s": workers_s,
+            "max_abs_err": errs}
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--int8-card-times"]:
         int8_card_times(*sys.argv[2:4])
@@ -2058,6 +2581,9 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--spatial-train-worker"]:
         spatial_train_worker(*sys.argv[2:4])
+        return
+    if sys.argv[1:2] == ["--dp-adversarial-worker"]:
+        dp_adversarial_worker(*sys.argv[2:4])
         return
     with tempfile.TemporaryDirectory() as work:
         run_phases(work)
@@ -4623,9 +5149,10 @@ def run_phases(work: str) -> None:
         per_step = []
         real_step = train_plain.train_step
 
-        def counted_plain_step(state, batch, real_step=real_step, per_step=per_step):
+        def counted_plain_step(state, batch, mesh=None, real_step=real_step,
+                               per_step=per_step):
             before = counts()
-            loss = real_step(state, batch)
+            loss = real_step(state, batch, mesh)
             float(loss)
             per_step.append({k: v - before[k] for k, v in counts().items()})
             return loss
@@ -4971,6 +5498,81 @@ def run_phases(work: str) -> None:
     later["profile_serving"] = prof
     print(f"  phases 11a-11e: {time.perf_counter() - t_11:.1f} s", flush=True)
 
+    # 11f. cli.train_conf and cli.train_plain data parallel as one process
+    # under a launcher's environment (NCCL), against the plain run
+    t_11f = time.perf_counter()
+    print("trainers data parallel: cli.train_conf (a critic and a seg step) and "
+          "cli.train_plain (two steps), structure 1 1 1 1, batch 2, alone and as rank 0 of 1 "
+          "under a torchrun-style environment (NCCL)", flush=True)
+    prng = np.random.RandomState(21)
+    dp_pack = os.path.join(work, "dp_pack")
+    write_train_pack(dp_pack, prng.randint(0, 256, (2, 320, 960, 3)).astype(np.uint8),
+                     prng.randint(21000, 26000, (2, 320, 960)).astype(np.uint16),
+                     prng.randint(0, 13, (2, 320, 960)).astype(np.uint8),
+                     prng.randint(0, 256, (1, 320, 960, 3)).astype(np.uint8),
+                     prng.randint(21000, 26000, (1, 320, 960)).astype(np.uint16))
+    tiny = ["--dataroot", dp_pack, "--batch_size", "2", "--structure", "1", "1", "1", "1"]
+    trainers = {
+        "train_conf": (train_conf, tiny + [
+            "--n_epochs", "1", "--discarch", "cyclegan", "--num_critics", "2",
+            "--iter_initial_critic_phase", "1", "--iter_seg_phase", "1", "--moddrop",
+            "--irscale", "--log_everyn", "1"]),
+        "train_plain": (train_plain, tiny + ["--n_epochs", "2"]),
+    }
+    dp_launches = {k.name: 0 for k in all_kernels}
+    torch.backends.cudnn.deterministic = True
+    for name, (module, args) in trainers.items():
+        dp_out = {}
+        for tag in ("plain", "nccl"):
+            argv = args + ["--checkpointname", os.path.join(work, f"dp11f_{name}_{tag}"),
+                           "--log_dir", os.path.join(work, "runs_11f")]
+            for k in all_kernels:
+                k.launches = 0
+            env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+                   "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+            printed = io.StringIO()
+            with mock.patch.dict(os.environ, env if tag == "nccl" else {}), \
+                    mock.patch.object(critics_module, "resize_bilinear", deterministic_resize), \
+                    contextlib.redirect_stdout(printed):
+                run = module.main(argv)
+                backend = (torch.distributed.get_backend()
+                           if torch.distributed.is_initialized() else None)
+                if backend is not None:
+                    torch.distributed.destroy_process_group()
+            dp_out[tag] = {"launches": counts(), "losses": run.losses, "backend": backend,
+                           "printed": [line for line in printed.getvalue().splitlines()
+                                       if "Current loss" in line],
+                           "state": torch.load(run.checkpoint, map_location="cpu",
+                                               weights_only=True)["state_dict"]}
+        a, b = dp_out["plain"], dp_out["nccl"]
+        same_state = (a["state"].keys() == b["state"].keys()
+                      and all(torch.equal(v, b["state"][k]) for k, v in a["state"].items()))
+        print(f"  {name} plain: printed {a['printed']}, launches {a['launches']}", flush=True)
+        print(f"  {name} rank 0 of 1 ({b['backend']}): printed {b['printed']}, launches "
+              f"{b['launches']}; equal bit for bit: printed losses "
+              f"{a['printed'] == b['printed']}, losses {a['losses'] == b['losses']}, final "
+              f"state_dict ({len(a['state'])} tensors) {same_state}", flush=True)
+        if (b["backend"] != "nccl" or a["printed"] != b["printed"] or len(a["printed"]) != 2
+                or a["losses"] != b["losses"] or not same_state
+                or a["launches"] != b["launches"]):
+            fail(f"{name} under the launcher's environment differs from the plain run")
+        for k, v in b["launches"].items():
+            dp_launches[k] += v
+        del dp_out
+    torch.backends.cudnn.deterministic = False
+    later["trainers_data_parallel"] = {"launches": dp_launches}
+    torch.cuda.empty_cache()
+
+    # 11g. the adversarial steps over 2 gloo processes on the card, each on its
+    # rows of phase 4c's batch, against one process on the whole batch
+    print(f"trainers data parallel 11g: critic, seg and critic steps at phase 4c's point "
+          f"(ResNeXt-50, 6 cyclegan critics, IR teacher, batch {N_ADV} of "
+          f"{CROP[0]}x{CROP[1]}) over {DP_PROCS} gloo processes on one card", flush=True)
+    later["dp_adversarial"] = dp_adversarial_phase(work, card, adv_pack, teacher_ckpt,
+                                                   zero_counts, q_counts, check, time_ms)
+    dp_err = later["dp_adversarial"].pop("max_abs_err")
+    print(f"  phases 11f-11g: {time.perf_counter() - t_11f:.1f} s", flush=True)
+
     # 12. the capture path (host code): the native library, cli.dump_capture,
     # ThermalDriveDataset and the small CLIs; the counts are read around it
     print("capture path: the native library, cli.dump_capture at the shipped rig's "
@@ -5036,7 +5638,8 @@ def run_phases(work: str) -> None:
          "launches_by_path": {"forward": by_path("grouped_conv3x3"),
                               "fused": by_path("grouped_conv3x3_fused")},
          "max_abs_err": max(gc_err, spatial_err["grouped_conv3x3_fused"],
-                            train_err["grouped_conv3x3"]),
+                            train_err["grouped_conv3x3"], dp_err["grouped_conv3x3"],
+                            dp_err["grouped_conv3x3_fused"]),
          "train_conf_launches": {
              "forward": adv_launches["grouped_conv3x3"],
              "fused": adv_launches["grouped_conv3x3_fused"],
@@ -5056,7 +5659,8 @@ def run_phases(work: str) -> None:
                      "custom VJP: forward _kernel :121, dx of _bwd :313)",
          "launches": sum(by_path("grouped_conv3x3_dx").values()),
          "launches_by_path": by_path("grouped_conv3x3_dx"),
-         "max_abs_err": max(dx_err, train_err["grouped_conv3x3_dx"]),
+         "max_abs_err": max(dx_err, train_err["grouped_conv3x3_dx"],
+                            dp_err["grouped_conv3x3_dx"]),
          "ms": dx_sums[0], "plain_ms": dx_sums[1], "bound_ms": dx_bound,
          "bound_by": dx_by, "library_ms": dx_sums[2],
          "train_forward_launches": train_launches["grouped_conv3x3"],

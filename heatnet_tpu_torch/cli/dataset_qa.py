@@ -16,7 +16,10 @@ Counterpart of ``heatnet_tpu/cli/dataset_qa.py`` (the reference's
   ``*/*/fl_rgb_labels/*.png`` (read with ``data/png.py``) and of test trees'
   ``SegmentationClass/*.npy``; returns the number of pixels counted.
 
-Runs on the card unless ``--device cpu``.
+Runs on the card unless ``--device cpu``. Under PyTorch's launcher
+(``torchrun --nproc_per_node N``; gloo with ``--device cpu``) the
+validators run over a mesh of every process (JAX's eval mesh, :126-149);
+the first process alone prints and writes the dumps.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ..io.checkpoint import load_state_dict, restore_partial
 from ..models import ResNeXtSeg
 from ..models.conf_segnet import num_input_channels
 from ..models.layers import init_params, prepare_for_inference
+from ..parallel.mesh import create_mesh, maybe_initialize_distributed
 from .eval_hotnet import SEGNET_PREFIX, segnet_state_dict
 
 # the reference's trailing comma of "building," (a wandb key) stripped
@@ -71,26 +75,29 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_segnet(args: argparse.Namespace, device: torch.device) -> torch.nn.Module:
+def load_segnet(args: argparse.Namespace, device: torch.device,
+                verbose: bool = True) -> torch.nn.Module:
     """The segnet of the subcommand's flags with ``--checkpoint``'s matching
-    entries, prepared for inference on ``device``."""
+    entries, prepared for inference on ``device``; ``verbose`` prints the
+    number of entries loaded."""
     model = ResNeXtSeg(structure=tuple(args.structure),
                        input_channels=num_input_channels(args.modalities),
                        cert_branch=args.cert_branch, late_fusion=args.late_fusion)
     init_params(model, torch.Generator().manual_seed(0))
     if args.checkpoint:
         saved = load_state_dict(args.checkpoint)
-        restore_partial(model, saved)
+        restore_partial(model, saved, verbose)
         # a conf_segnet checkpoint nests the segnet under trgb_segnet.
         if any(k.startswith(SEGNET_PREFIX) for k in saved):
-            restore_partial(model, segnet_state_dict(saved))
+            restore_partial(model, segnet_state_dict(saved), verbose)
     return prepare_for_inference(model, device)
 
 
-def _print_ious(ious, names) -> float:
-    for k, name in enumerate(names[:len(ious)]):
-        print(f"IoU {name:35s} {ious[k]:.4f}")
-    print(f"mean IoU: {float(np.nanmean(ious)):.4f}")
+def _print_ious(ious, names, rank: int = 0) -> float:
+    if rank == 0:
+        for k, name in enumerate(names[:len(ious)]):
+            print(f"IoU {name:35s} {ious[k]:.4f}")
+        print(f"mean IoU: {float(np.nanmean(ious)):.4f}")
     return float(np.nanmean(ious))
 
 
@@ -100,21 +107,26 @@ def main(argv=None) -> float:
         return stats_main(args)
 
     device = resolve(args.device)
-    model = load_segnet(args, device)
+    distributed = maybe_initialize_distributed(device)
+    rank = torch.distributed.get_rank() if distributed else 0
+    # eval rides every process (:126-130)
+    mesh = (create_mesh() if distributed and torch.distributed.get_world_size() > 1
+            else None)
+    model = load_segnet(args, device, verbose=rank == 0)
+    kw = dict(save_dir=args.save_dir, device=device, mesh=mesh)
     if args.cmd == "freiburg":
         ds = FreiburgThermalTestDataset(*get_test_paths([args.data]))
         ious = validate_model(model, prefetch_items(ds), args.modalities, mode=args.split,
-                              save_dir=args.save_dir, device=device)
-        return _print_ious(ious, CLASS_NAMES_13)
+                              **kw)
+        return _print_ious(ious, CLASS_NAMES_13, rank)
     if args.cmd == "mfnet":
         ds = MFNetDataset(args.data, split=args.split)
         ious = validate_model_mfnet(model, prefetch_items(ds), args.modalities,
-                                    mode=args.split, save_dir=args.save_dir, device=device)
-        return _print_ious(ious, ["unlabelled", "car", "person", "bike", "curve"])
+                                    mode=args.split, **kw)
+        return _print_ious(ious, ["unlabelled", "car", "person", "bike", "curve"], rank)
     ds = BDDValDataset(args.data)
-    ious = validate_model_bdd(model, prefetch_items(ds), save_dir=args.save_dir,
-                              device=device)
-    return _print_ious(ious, CLASS_NAMES_13)
+    ious = validate_model_bdd(model, prefetch_items(ds), **kw)
+    return _print_ious(ious, CLASS_NAMES_13, rank)
 
 
 def stats_main(args: argparse.Namespace) -> float:

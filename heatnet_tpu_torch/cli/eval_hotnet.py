@@ -12,6 +12,13 @@ night (``--testroot_night`` and ``--testroot_fence``) then day, the frames
 decoded ahead on threads; the combined mIoU, the mean of the two IoU
 vectors' average, is printed and logged per run.
 
+Under PyTorch's launcher (``torchrun --nproc_per_node N``; gloo with
+``--device cpu``) the validators run over a mesh of every process (JAX's
+eval mesh, :43-47, :86-90): each process runs its rows of each eval batch
+and the counts are summed, so every process holds one process's IoUs; the
+first process alone prints, and the others write their run logs under
+``<log_dir>/rank<r>/``.
+
 A JAX run directory (an orbax ``checkpoint_best/`` directory) cannot be
 read here: convert it with ``heatnet_tpu_torch/io/from_jax.py::
 state_dict_from_jax`` where JAX runs (ROADMAP queue 6, item 5).
@@ -40,6 +47,7 @@ from ..io.logging import RunLogger
 from ..models import ResNeXtSeg, build_network
 from ..models.conf_segnet import num_input_channels
 from ..models.layers import prepare_for_inference
+from ..parallel.mesh import create_mesh, maybe_initialize_distributed
 
 SEGNET_PREFIX = "trgb_segnet."
 
@@ -92,22 +100,29 @@ def load_run(run_dir: str, device: torch.device) -> Tuple[torch.nn.Module, str]:
 def main(argv=None) -> Dict[str, float]:
     args = build_parser().parse_args(argv)
     device = resolve(args.device)
-    logger = RunLogger("hotnet-eval", log_dir=args.log_dir)
+    distributed = maybe_initialize_distributed(device)
+    rank = torch.distributed.get_rank() if distributed else 0
+    # eval rides every process (:43-47)
+    eval_mesh = (create_mesh() if distributed and torch.distributed.get_world_size() > 1
+                 else None)
+    logger = RunLogger("hotnet-eval", log_dir=args.log_dir if rank == 0
+                       else os.path.join(args.log_dir, f"rank{rank}"))
     night_roots = [r for r in (args.testroot_night, args.testroot_fence) if r]
     results = {}
     for run_dir in args.runs:
         model, modalities = load_run(run_dir, device)
         ious_night = validate_model(
             model, prefetch_items(FreiburgThermalTestDataset(*get_test_paths(night_roots))),
-            modalities, mode="night", logger=logger, device=device)
+            modalities, mode="night", logger=logger, device=device, mesh=eval_mesh)
         ious_day = validate_model(
             model, prefetch_items(FreiburgThermalTestDataset(
                 *get_test_paths([args.testroot_day]))),
-            modalities, mode="day", logger=logger, device=device)
+            modalities, mode="day", logger=logger, device=device, mesh=eval_mesh)
         combined = float(np.nanmean((ious_day + ious_night) / 2))
         name = os.path.basename(os.path.normpath(run_dir))
         results[name] = combined
-        print(f"{name}: combined mIoU {combined:.4f}")
+        if rank == 0:
+            print(f"{name}: combined mIoU {combined:.4f}")
         logger.log({f"{name}_combined_mIoU": combined})
     logger.finish()
     return results

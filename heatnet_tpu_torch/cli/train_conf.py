@@ -54,6 +54,27 @@ Checkpoints are ``torch.save({"epoch", "state_dict", "best_iou"})`` files.
 The logged loss averages take the losses of the log points only, as the
 JAX trainer's do.
 
+Data parallelism (JAX's mesh, :121-128, :264, :344-345, :415): under
+PyTorch's launcher (``torchrun --nproc_per_node N``: one process per card
+with NCCL, or gloo processes with ``--device cpu``) ``parallel/mesh.py``
+joins the process group before any device use and builds a ``(data,
+model)`` mesh whose ``data`` size divides the batch; a process the batch
+leaves idle says so and returns. Every process reads the same global batch
+and draws the augmentation, the seg phase's draws and PSPNet's dropout masks
+for the whole batch from the same generator in the same order, then trains on
+its rows (``DeviceAugment(..., mesh)``, ``shard_batch``): the weights start
+equal (a broadcast from the first process after ``--pretraining`` and
+``--resume``), and each step takes the whole batch's losses, BN statistics
+and summed gradients (``train/adversarial.py``), so it equals one process's
+step on the whole batch. ``--eval`` and ``--infer`` run over an eval mesh of
+every process and the periodic eval over the training mesh's processes
+(``eval/validate.py``'s ``mesh=``; JAX's eval mesh, of every device, holds
+the same processes unless the batch leaves some idle). The first process
+writes the checkpoints, the run log and the ``--vis`` PNGs (its critics'
+verdicts are the means over its rows); the others log under
+``<log_dir>/rank<r>/``. Without ``WORLD_SIZE`` in the
+environment nothing joins a group and one process trains as before.
+
 ``--vis`` (:352-403) renders, at every log point, the day and night class
 maps with a dot per critic (green where the critic's mean output is above
 0.5), the day RGB and IR, and with ``--cert_branch`` the day certainty, to
@@ -65,6 +86,7 @@ Usage::
 
     python -m heatnet_tpu_torch.cli.train_conf --dataroot TREE_OR_PACK --moddrop --irscale
     python -m heatnet_tpu_torch.cli.train_conf --eval FR_day --testroot_day TREE --resume CK
+    torchrun --nproc_per_node 2 -m heatnet_tpu_torch.cli.train_conf --dataroot ... --device cpu
 """
 
 from __future__ import annotations
@@ -92,6 +114,8 @@ from ..io.logging import AverageMeter, RunLogger
 from ..models import ConfSegnet, ResNeXtSeg, build_network
 from ..models.conf_segnet import num_input_channels
 from ..models.layers import prepare_for_inference
+from ..parallel.mesh import (create_mesh, maybe_initialize_distributed, mesh_for_batch,
+                             replicate, shard_batch)
 from ..train.adversarial import (AdversarialConfig, PhaseMachine, draw_seg_aug,
                                  make_adversarial_steps, make_phase_optimizers)
 from ..train.optim import step_lr
@@ -249,12 +273,13 @@ def _fr_test_set(roots) -> FreiburgThermalTestDataset:
 
 
 def run_eval(opt: argparse.Namespace, segnet: torch.nn.Module, device: torch.device,
-             logger: RunLogger) -> float:
-    """``--eval`` (train_conf.py:280-314): the IoU vector of one test set."""
+             logger: RunLogger, mesh=None) -> float:
+    """``--eval`` (train_conf.py:280-314): the IoU vector of one test set,
+    over ``mesh``'s processes when one is given."""
     print('Starting evaluation on: %s....' % opt.eval)
     night = "night" in opt.eval
     mode = "night" if night else "day"
-    kw = dict(logger=logger, save_dir=opt.im_save_dir, device=device)
+    kw = dict(logger=logger, save_dir=opt.im_save_dir, device=device, mesh=mesh)
     if "FR" in opt.eval:
         roots = [opt.testroot_night, opt.testroot_fence] if night else [opt.testroot_day]
         ious = validate_model(segnet, prefetch_items(_fr_test_set(roots)),
@@ -296,6 +321,12 @@ def main(argv=None):
     opt = build_parser().parse_args(argv)
     _refuse_unported(opt)
     device = resolve(opt.device)
+    # join the launcher's world before any device use (:121-128)
+    distributed = maybe_initialize_distributed(device)
+    rank = torch.distributed.get_rank() if distributed else 0
+    # --eval and --infer ride every process (:264)
+    eval_mesh = (create_mesh() if distributed and torch.distributed.get_world_size() > 1
+                 and (opt.eval or opt.infer) else None)
     if opt.eval != "":
         print('##############EVALUATING MODE##############')
     if opt.infer != "":
@@ -308,7 +339,8 @@ def main(argv=None):
         ds = open_freiburg_train(opt.dataroot, split="train",
                                  test_stamps=get_test_stamps(get_test_paths(test_roots)[2])
                                  if test_roots else None)
-    logger = RunLogger("hotnet", log_dir=opt.log_dir)
+    logger = RunLogger("hotnet", log_dir=opt.log_dir if rank == 0
+                       else os.path.join(opt.log_dir, f"rank{rank}"))
 
     model = init_model(ConfSegnet(
         disc_arch=opt.discarch, num_critics=opt.num_critics,
@@ -339,13 +371,14 @@ def main(argv=None):
     if opt.infer != "":
         print('Starting inference on: %s....' % opt.infer)
         inference(eval_copy(model.trgb_segnet, device),
-                  prefetch_items(FreiburgInferDataset(opt.infer)), eval_batch_size(),
-                  device, opt.modalities, save_dir=opt.im_save_dir)
+                  prefetch_items(FreiburgInferDataset(opt.infer)),
+                  eval_batch_size(mesh=eval_mesh), device, opt.modalities,
+                  save_dir=opt.im_save_dir, mesh=eval_mesh)
         print('Inference successfull !!!!')
         logger.finish()
         return 0.0
     if opt.eval != "":
-        miou = run_eval(opt, eval_copy(model.trgb_segnet, device), device, logger)
+        miou = run_eval(opt, eval_copy(model.trgb_segnet, device), device, logger, eval_mesh)
         logger.finish()
         return miou
 
@@ -372,14 +405,22 @@ def main(argv=None):
     if opt.max_iters_per_epoch:
         steps_per_epoch = min(steps_per_epoch, opt.max_iters_per_epoch)
     # StepLR(step_size=half_every, gamma=.5) over epochs, per phase (:338-341)
+    # the batch's rows over a data mesh, the weights the first process's (:344-345)
+    mesh = mesh_for_batch(opt.batch_size) if distributed else None
+    if mesh is not None and mesh.get_coordinate() is None:
+        print(f"rank {rank} idles: the batch of {opt.batch_size} does not use it")
+        logger.finish()
+        return TrainConfRun({"train_seg": [], "train_critic": []}, [], [], "")
+    if mesh is not None:
+        replicate(mesh, model)
     state = make_phase_optimizers(
         model, step_lr(opt.lr, step_size=half_every, gamma=0.5,
                        steps_per_epoch=steps_per_epoch))
-    seg_step, critic_step = make_adversarial_steps(model, cfg, teacher)
+    seg_step, critic_step = make_adversarial_steps(model, cfg, teacher, mesh)
     pm = PhaseMachine(cfg, no_conf=opt.no_conf)
     eval_everyn = opt.eval_everyn or (20 if mfnet else 2)  # (:349)
     log_everyn = max(opt.log_everyn, 1)
-    vis_dir = os.path.join(opt.log_dir, "vis") if opt.vis else ""
+    vis_dir = os.path.join(opt.log_dir, "vis") if opt.vis and rank == 0 else ""
     if vis_dir:
         os.makedirs(vis_dir, exist_ok=True)
     meters = {k: AverageMeter() for k in
@@ -393,15 +434,17 @@ def main(argv=None):
             if opt.max_iters_per_epoch and i >= opt.max_iters_per_epoch:
                 break
             t0 = time.perf_counter()
-            batch = augment(generator, raw)
+            # the whole batch's draws on every process, this process's rows (:415)
+            batch = augment(generator, raw, mesh)
             phase = pm.tick()
-            n = batch["label_day"].shape[0]
+            n = raw["label_day"].shape[0]
             if phase == "train_seg":
                 draws = draw_seg_aug(generator, cfg.num_classes)
-                draws.dropout = model.draw_dropout(n, generator)
+                draws.dropout = shard_batch(mesh, model.draw_dropout(n, generator))
                 m = seg_step(state, batch, draws)
             else:
-                m = critic_step(state, batch, model.draw_dropout(n, generator))
+                m = critic_step(state, batch,
+                                shard_batch(mesh, model.draw_dropout(n, generator)))
             total = float(m["total_loss"])  # waits for the step
             run.step_seconds.append(time.perf_counter() - t0)
             run.losses[phase].append(total)
@@ -431,22 +474,24 @@ def main(argv=None):
         bundle = lambda: {"epoch": epoch + 1, "state_dict": model.state_dict(),
                           "best_iou": best_track.state["best"]}
         if not (opt.testroot_night and opt.testroot_day):
-            run.checkpoint = save_checkpoint(bundle(), opt.checkpointname + ".pth")
+            if rank == 0:
+                run.checkpoint = save_checkpoint(bundle(), opt.checkpointname + ".pth")
         elif epoch % eval_everyn == 0:  # the periodic eval (:447-464)
             segnet = eval_copy(model.trgb_segnet, device)
             ious_night = validate_model(
                 segnet, prefetch_items(_fr_test_set([opt.testroot_night, opt.testroot_fence])),
-                opt.modalities, mode="night", logger=logger, device=device)
+                opt.modalities, mode="night", logger=logger, device=device, mesh=mesh)
             ious_day = validate_model(
                 segnet, prefetch_items(_fr_test_set([opt.testroot_day])),
-                opt.modalities, mode="day", logger=logger, device=device)
+                opt.modalities, mode="day", logger=logger, device=device, mesh=mesh)
             del segnet
             iou_mean = float(np.nanmean((ious_day + ious_night) / 2))
             logger.log({"combined_Test mean IoU": iou_mean})
             run.evals.append(iou_mean)
             is_best = best_track(iou_mean)
-            run.checkpoint = save_checkpoint(bundle(), opt.checkpointname + ".pth",
-                                             is_best=is_best)
+            if rank == 0:
+                run.checkpoint = save_checkpoint(bundle(), opt.checkpointname + ".pth",
+                                                 is_best=is_best)
     logger.finish()
     return run
 

@@ -16,15 +16,31 @@ which ``cli/inference.py --resume`` loads. Runs on the card unless
 ``--device cpu``. A tree decodes five PNGs per item on the host; its pack
 (``cli/pack_frames.py --train``) serves the same items with no decode.
 
+Data parallelism (JAX's mesh, :48-56, :84-85, :108): under PyTorch's
+launcher (``torchrun --nproc_per_node N``: one process per card with NCCL,
+or gloo processes with ``--device cpu``) ``parallel/mesh.py`` joins the
+process group before any device use and builds a mesh whose ``data`` size
+divides the batch; a process the batch leaves idle says so and returns.
+Every process reads the same global batch and draws the augmentation for
+the whole batch from the same generator, then trains on its rows: the
+weights start equal (a broadcast from the first process after
+``--resume_partial``), the loss is each process's summed cross-entropy over
+the whole batch's valid count, the gradients are summed over ``data`` and
+train-mode BN statistics span the whole batch, so a step equals one
+process's step on the whole batch. The first process writes the
+checkpoints and the run log (the others log under ``<log_dir>/rank<r>/``).
+
 Usage::
 
     python -m heatnet_tpu_torch.cli.train_plain --dataroot TREE_OR_PACK --n_epochs 1
+    torchrun --nproc_per_node 2 -m heatnet_tpu_torch.cli.train_plain --dataroot ... --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Dict, List
 
@@ -35,6 +51,8 @@ from ..device import resolve
 from ..io.checkpoint import load_state_dict, restore_partial, save_checkpoint
 from ..io.logging import AverageMeter, RunLogger
 from ..models import ResNeXtSeg
+from ..parallel.mesh import (all_reduce_gradients, data_parallel, global_count,
+                             maybe_initialize_distributed, mesh_for_batch, replicate)
 from ..train.optim import lambda_linear_decay, with_schedule
 from ..train.state import TrainState, init_model
 from ..train.supervised import cross_entropy_ignore
@@ -84,27 +102,50 @@ def create_state(model: torch.nn.Module, opt: argparse.Namespace,
     return TrainState(model, optimizer, with_schedule(optimizer, sched))
 
 
-def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+               mesh=None) -> torch.Tensor:
     """One step on an augmented batch: forward, CE on the day labels (no
-    ignore index: -1), backward, Adam and schedule steps. Returns the loss."""
+    ignore index: -1), backward, Adam and schedule steps. Returns the loss.
+
+    With a ``mesh`` of several processes ``batch`` is this process's rows:
+    the forward takes train-mode BN statistics over the whole batch, the
+    loss is this process's summed cross-entropy over the whole batch's valid
+    count, the gradients are summed over ``data``, and the loss returned is
+    the whole batch's (JAX's step on the sharded batch, :87-97). Without one
+    each of these is the one process's own: the same bits as
+    ``cross_entropy_ignore``'s mean."""
     model = state.model
     model.train()
-    seg, _, _ = model(batch["rgb_day"], batch["ir_day"])
-    loss = cross_entropy_ignore(seg, batch["label_day"], ignore_index=-1)
+    with data_parallel(mesh):
+        seg, _, _ = model(batch["rgb_day"], batch["ir_day"])
+    nll = cross_entropy_ignore(seg, batch["label_day"], ignore_index=-1, reduce=False)
+    valid = global_count(mesh, (batch["label_day"] != -1).sum())
+    loss = nll.sum() / valid.clamp(min=1)
     loss.backward()
+    all_reduce_gradients(mesh, model.parameters())
     state.apply_gradients()
-    return loss.detach()
+    return global_count(mesh, loss.detach())
 
 
 def main(argv=None) -> TrainRun:
     opt = build_parser().parse_args(argv)
     device = resolve(opt.device)
-    logger = RunLogger("HotNetConf", log_dir=opt.log_dir)
+    # join the launcher's world before any device use (:48-56)
+    distributed = maybe_initialize_distributed(device)
+    rank = torch.distributed.get_rank() if distributed else 0
+    mesh = mesh_for_batch(opt.batch_size) if distributed else None
+    if mesh is not None and mesh.get_coordinate() is None:
+        print(f"rank {rank} idles: the batch of {opt.batch_size} does not use it")
+        return TrainRun([], [], "")
+    logger = RunLogger("HotNetConf", log_dir=opt.log_dir if rank == 0
+                       else os.path.join(opt.log_dir, f"rank{rank}"))
 
     model = init_model(ResNeXtSeg(structure=tuple(opt.structure), input_channels=4),
                        seed=0, device=device)
     if opt.resume_partial:
         restore_partial(model, load_state_dict(opt.resume_partial))
+    if mesh is not None:  # the first process's weights (:84-85)
+        replicate(mesh, model)
     ds = open_freiburg_train(opt.dataroot, split="train")
     augment = DeviceAugment(crop_hw=CROP, device=device)
 
@@ -121,15 +162,17 @@ def main(argv=None) -> TrainRun:
             if opt.max_iters_per_epoch and i >= opt.max_iters_per_epoch:
                 break
             t0 = time.perf_counter()
-            loss = float(train_step(state, augment(generator, raw)))
+            # the whole batch's draws on every process, this process's rows (:108)
+            loss = float(train_step(state, augment(generator, raw, mesh), mesh))
             run.step_seconds.append(time.perf_counter() - t0)
             run.losses.append(loss)
             meter.update(loss)
             print("Current loss: %f " % meter.avg)
             logger.log({"epoch": epoch, "loss": meter.avg})
-        run.checkpoint = save_checkpoint(
-            {"epoch": epoch + 1, "state_dict": model.state_dict()},
-            opt.checkpointname + ".pth")
+        if rank == 0:
+            run.checkpoint = save_checkpoint(
+                {"epoch": epoch + 1, "state_dict": model.state_dict()},
+                opt.checkpointname + ".pth")
     logger.finish()
     return run
 

@@ -13,6 +13,9 @@ every epoch (keys ``encoder1.``, ``encoder2.``, ``seg_decoder.``,
 ``unc_decoder.``).
 
 Weights are random (seeds 0-3); runs on the card unless ``--device cpu``.
+Under PyTorch's launcher the process joins the process group before any
+device use, as JAX's joins ``jax.distributed`` (:40, :51); like JAX's, it
+builds no mesh, so each process trains on the whole batch.
 
 Usage::
 
@@ -31,6 +34,7 @@ from ..device import resolve
 from ..io.checkpoint import save_checkpoint
 from ..io.logging import AverageMeter, RunLogger
 from ..models.segnetsplit import ResNeXtDecoder, ResNeXtEncoder
+from ..parallel.mesh import maybe_initialize_distributed
 from ..train.optim import lambda_linear_decay
 from ..train.state import init_model
 from ..train.uncertainty import MODULE_NAMES, create_state, make_uncertainty_step
@@ -79,6 +83,7 @@ def subsample(aug: dict) -> dict:
 def main(argv=None) -> TrainRun:
     opt = build_parser().parse_args(argv)
     device = resolve(opt.device)
+    maybe_initialize_distributed(device)  # (:51)
     logger = RunLogger("hotnet-uncertainty", log_dir=opt.log_dir)
 
     mods = build_modules(opt.structure, device)

@@ -46,6 +46,7 @@ version vmaps the chain over per-sample keys).
 
 from __future__ import annotations
 
+import dataclasses
 import fnmatch
 import math
 import os
@@ -60,6 +61,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..parallel.mesh import shard_batch
 from ..ops.preprocess import (TRAIN_WINDOW, draw_train_params,
                               mf_train_sample_preprocess, train_sample_preprocess)
 from .clahe import apply_clahe
@@ -1451,6 +1453,11 @@ class DeviceAugment:
     ``mod_drop_params``, on the device. With ``mfnet`` it runs
     ``mf_train_sample_preprocess`` on ``MFNetTrainDataset`` batches (no
     window, 8-bit IR, no ``mod_drop_params``).
+
+    With a data-parallel ``mesh`` (``parallel/mesh.py``) the draws are
+    those of the whole batch, made on every process in one order, and this
+    process augments its rows with its rows of the draws: the chain is per
+    sample, so the rows equal the whole batch's augmentation's rows.
     """
 
     def __init__(self, crop_hw: Tuple[int, int] = (320, 640),
@@ -1460,8 +1467,8 @@ class DeviceAugment:
         self.device = resolve(device)
         self.mfnet = mfnet
 
-    def __call__(self, generator: torch.Generator,
-                 raw_batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    def __call__(self, generator: torch.Generator, raw_batch: Dict[str, np.ndarray],
+                 mesh=None) -> Dict[str, torch.Tensor]:
         n, h, w = raw_batch["rgb_day"].shape[:3]
         if self.mfnet:
             params = draw_train_params(generator, n, (h, w), self.crop_hw, mod_drop=False)
@@ -1471,8 +1478,11 @@ class DeviceAugment:
             params = draw_train_params(generator, n, (h, len(range(w)[lo:hi])),
                                        self.crop_hw)
             chain = train_sample_preprocess
-        t = {k: to_device(raw_batch[k], self.device)
-             for k in ("rgb_day", "ir_day", "label_day", "rgb_night", "ir_night")}
+        keys = ("rgb_day", "ir_day", "label_day", "rgb_night", "ir_night")
+        if mesh is not None:
+            params = dataclasses.replace(params, **shard_batch(mesh, dataclasses.asdict(params)))
+            raw_batch = shard_batch(mesh, {k: raw_batch[k] for k in keys})
+        t = {k: to_device(raw_batch[k], self.device) for k in keys}
         out = chain(params, t["rgb_day"], t["ir_day"], t["label_day"], t["rgb_night"],
                     t["ir_night"], crop_hw=self.crop_hw)
         out["label_day"] = out["label_day"].long()

@@ -15,7 +15,8 @@ Counterpart of ``heatnet_tpu/models/critics.py:30-106``:
 A PyTorch module needs its input width, so each takes ``in_channels``
 (flax infers it). Inputs and outputs are NHWC; the convolutions run in
 ``compute_dtype`` (bf16 on the card, set by ``prepare_for_training``) from
-float32 parameters, and the maps come out float32, as in the JAX modules.
+float32 parameters, and the maps come out float32 (float64 stays float64), as in the JAX
+modules.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .extractors import make_resnet
-from .layers import Conv2d, instance_norm, normal002_conv, resize_bilinear
+from .layers import Conv2d, at_least_f32, instance_norm, normal002_conv, resize_bilinear
 
 
 class FCDiscriminator(nn.Module):
@@ -47,7 +48,7 @@ class FCDiscriminator(nn.Module):
         for i in range(4):
             x = F.leaky_relu(getattr(self, f"conv{i + 1}")(x), 0.2)
         x = self.classifier(x)
-        return resize_bilinear(x.float(), in_hw).permute(0, 2, 3, 1)
+        return resize_bilinear(at_least_f32(x), in_hw).permute(0, 2, 3, 1)
 
 
 class PoolDiscriminator(nn.Module):
@@ -68,7 +69,7 @@ class PoolDiscriminator(nn.Module):
         x = F.leaky_relu(instance_norm(self.conv2(x)), 0.2)
         x = F.leaky_relu(instance_norm(self.conv3(x)), 0.2)
         x = F.leaky_relu(instance_norm(self.conv4(x)), 0.2)
-        return self.conv5(x).float().mean(dim=(2, 3))
+        return at_least_f32(self.conv5(x)).mean(dim=(2, 3))
 
 
 class DownNet(nn.Module):

@@ -37,7 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm, Linear, conv, max_pool_3x3_s2
+from .layers import BatchNorm, Linear, at_least_f32, conv, max_pool_3x3_s2
 
 
 class BasicBlock(nn.Module):
@@ -175,7 +175,7 @@ class ResNet(nn.Module):
         x_4 = self.layer3(x_3)
         x_5 = self.layer4(x_4)
         if self.classifier:
-            return self.fc(x_5.mean(dim=(2, 3))).float()
+            return at_least_f32(self.fc(x_5.mean(dim=(2, 3))))
         return _nhwc([x_5, x_4, x_3, x_2, x_1])
 
 

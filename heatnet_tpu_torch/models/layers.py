@@ -265,12 +265,18 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
                          align_corners=False)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 where a module's output or statistics leave bf16 for
+    float32; float64 stays float64, so a float64 check keeps its precision."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """``InstanceNorm2d`` without affine (layers.py:1213-1217): per sample
     and channel over H, W, biased variance. The statistics are taken in
-    f32 and the result returns in x's dtype."""
+    f32 (``at_least_f32``) and the result returns in x's dtype."""
     spatial.refuse("instance_norm")
-    xf = x.float()
+    xf = at_least_f32(x)
     var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, correction=0)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 

@@ -37,7 +37,8 @@ import torch.nn.functional as F
 
 from ..parallel import spatial
 from .extractors import feature_channels, make_extractor
-from .layers import BatchNorm, Conv2d, adaptive_avg_pool, conv, resize_bilinear
+from .layers import (BatchNorm, Conv2d, adaptive_avg_pool, at_least_f32, conv,
+                     resize_bilinear)
 
 # the channel dropouts in call order: after the pyramid, after up_1, up_2, up_3
 DROPOUT_RATES = (0.3, 0.15, 0.15, 0.15)
@@ -151,7 +152,7 @@ class PSPNet(nn.Module):
             p = stage(p)
             if self.training:
                 p = channel_dropout(p, dropout[i], DROPOUT_RATES[i])
-        out = self.final(p).float().permute(0, 2, 3, 1)
+        out = at_least_f32(self.final(p)).permute(0, 2, 3, 1)
         return out, [out] + list(feats), None
 
 

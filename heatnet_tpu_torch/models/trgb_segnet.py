@@ -50,6 +50,7 @@ from .layers import (
     InitBlock,
     NormAct,
     adaptive_avg_pool,
+    at_least_f32,
     conv,
     deconv,
     max_pool_3x3_s2,
@@ -160,12 +161,12 @@ class ResNeXtSeg(nn.Module):
         seg, fusion, seg_cf = self.aspp(self.bn_out_1(seg5))
         seg = self.up_seg_2(seg)
         seg = self.fuse_seg(torch.cat([seg, out_2], dim=1))
-        seg = seg.float()
+        seg = at_least_f32(seg)
         cert = None
         if self.cert_branch:
             cert = self.up_seg_2_cert(seg_cf)
             cert = self.fuse_seg_cert(torch.cat([cert, out_2], dim=1))
-            cert = torch.sigmoid(cert.float()).permute(0, 2, 3, 1)
+            cert = torch.sigmoid(at_least_f32(cert)).permute(0, 2, 3, 1)
 
         skip_down = adaptive_avg_pool(out_2, tuple(fusion.shape[2:]))
         taps = [seg, torch.cat([fusion, skip_down], dim=1), out_4, out_3,

@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm, Conv2d, resize_bilinear
+from .layers import BatchNorm, Conv2d, at_least_f32, resize_bilinear
 
 
 class DoubleConv(nn.Module):
@@ -84,7 +84,7 @@ class UNetAdapter(nn.Module):
         y = self.up2(x4, x3)
         y = self.up3(y, x2)
         y = self.up4(y, x1)
-        return self.outc(y).float().permute(0, 2, 3, 1)
+        return at_least_f32(self.outc(y)).permute(0, 2, 3, 1)
 
 
 class UNetSeg(nn.Module):
@@ -115,4 +115,4 @@ class UNetSeg(nn.Module):
         y = self.up2(y, x3)
         y = self.up3(y, x2)
         y = self.up4(y, x1)
-        return torch.sigmoid(self.outc(y).float()).permute(0, 2, 3, 1)
+        return torch.sigmoid(at_least_f32(self.outc(y))).permute(0, 2, 3, 1)

@@ -74,22 +74,23 @@ def grouped_conv3x3_plain(x: torch.Tensor, w: torch.Tensor, groups: int,
                           scale: Optional[torch.Tensor] = None,
                           bias: Optional[torch.Tensor] = None,
                           act: str = "none", slope: float = 0.01) -> torch.Tensor:
-    """Plain version: nine shifted slices, each a per-group matmul, summed in f32."""
+    """Plain version: nine shifted slices, each a per-group matmul, summed in
+    f32 (float64 operands in float64)."""
     n, h, wd, c = x.shape
     cpg = c // groups
     d = dilation
-    xp = F.pad(x.to(torch.float32), (0, 0, d, d, d, d))
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    xp = F.pad(x.to(acc_dtype), (0, 0, d, d, d, d))
     xp = xp.view(n, h + 2 * d, wd + 2 * d, groups, cpg)
-    wf = w.to(torch.float32).view(groups, c // groups, cpg, 3, 3)
-    acc = torch.zeros((n, h, wd, groups, c // groups), dtype=torch.float32,
-                      device=x.device)
+    wf = w.to(acc_dtype).view(groups, c // groups, cpg, 3, 3)
+    acc = torch.zeros((n, h, wd, groups, c // groups), dtype=acc_dtype, device=x.device)
     for ky in range(3):
         for kx in range(3):
             xs = xp[:, ky * d:ky * d + h, kx * d:kx * d + wd]
             acc += torch.einsum("nhwgi,goi->nhwgo", xs, wf[..., ky, kx])
     y = acc.view(n, h, wd, c)
     if scale is not None:
-        y = y * scale.to(torch.float32) + bias.to(torch.float32)
+        y = y * scale.to(acc_dtype) + bias.to(acc_dtype)
     return apply_act(y, act, slope).to(x.dtype)
 
 
@@ -246,17 +247,17 @@ def grouped_conv3x3_dx(dy: torch.Tensor, w: torch.Tensor, groups: int,
 def grouped_conv3x3_weight_grad_plain(x: torch.Tensor, dy: torch.Tensor,
                                       groups: int, dilation: int = 1
                                       ) -> torch.Tensor:
-    """Plain weight gradient, f32 ``(C, C/groups, 3, 3)``: per tap, the
-    per-group product of the shifted input slice with ``dy``, summed over
-    batch and pixels."""
+    """Plain weight gradient, f32 ``(C, C/groups, 3, 3)`` (float64 for
+    float64 operands): per tap, the per-group product of the shifted input
+    slice with ``dy``, summed over batch and pixels."""
     n, h, wd, c = x.shape
     cpg = c // groups
     d = dilation
-    xp = F.pad(x.to(torch.float32), (0, 0, d, d, d, d))
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    xp = F.pad(x.to(acc_dtype), (0, 0, d, d, d, d))
     xp = xp.view(n, h + 2 * d, wd + 2 * d, groups, cpg)
-    g = dy.to(torch.float32).view(n, h, wd, groups, cpg)
-    dk = torch.empty((groups, cpg, cpg, 3, 3), dtype=torch.float32,
-                     device=x.device)
+    g = dy.to(acc_dtype).view(n, h, wd, groups, cpg)
+    dk = torch.empty((groups, cpg, cpg, 3, 3), dtype=acc_dtype, device=x.device)
     for ky in range(3):
         for kx in range(3):
             xs = xp[:, ky * d:ky * d + h, kx * d:kx * d + wd]

@@ -22,7 +22,8 @@ written out:
   ``Replicate`` otherwise.
 - ``all_reduce_gradients``: the gradient sum over ``data``; with the loss
   of each process's rows divided by the whole batch's count
-  (``global_count``), it is the gradient of the whole batch's mean loss.
+  (``global_count``), it is the gradient of the whole batch's mean loss;
+  ``check_same_gradients`` raises where the processes' graphs differ.
 - ``data_parallel(mesh)``: while it is active, train-mode BN statistics
   are those of the whole batch across processes (``batch_stats_group``,
   read by ``models/layers.py``): the count, sum and sum of squares are
@@ -258,7 +259,8 @@ def global_count(mesh, count: torch.Tensor) -> torch.Tensor:
 
 def all_reduce_gradients(mesh, params) -> None:
     """Sum the gradients of ``params`` over the ``data`` dimension, in one
-    flat buffer per dtype."""
+    flat buffer per dtype. Every process must hold gradients for the same
+    parameters (``check_same_gradients``)."""
     grads = [p.grad for p in params if p.grad is not None]
     if mesh is None or not grads:
         return
@@ -273,6 +275,25 @@ def all_reduce_gradients(mesh, params) -> None:
         for g in gs:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
             offset += g.numel()
+
+
+def check_same_gradients(mesh, params) -> None:
+    """Raise unless every process of the ``data`` dimension holds a gradient
+    for the same ones of ``params`` (given in one order everywhere): else
+    ``all_reduce_gradients`` would sum misaligned buffers. One small
+    all-reduce and a read on the host, so a trainer calls it where its graph
+    is new (a phase's first step), not on every step."""
+    params = list(params)
+    if mesh is None or not params:
+        return
+    d = data_size(mesh)
+    present = torch.tensor([float(p.grad is not None) for p in params],
+                           device=params[0].device)
+    dist.all_reduce(present, group=data_group(mesh))
+    for p, n in zip(params, present.tolist()):
+        if n not in (0.0, float(d)):
+            raise RuntimeError(f"{int(n)} of {d} processes hold a gradient of a "
+                               f"{tuple(p.shape)} parameter: their graphs differ")
 
 
 def batch_stats_group() -> Optional[Any]:

@@ -39,18 +39,44 @@ seg step's and ``critic_step`` takes the critic step's. The JAX steps take
 theirs from the step key (seg) and from ``fold_in(PRNGKey(1), step)``
 (critic) (adversarial.py:284-289, :339-343); the port's stream differs, the
 distribution is the same.
+
+Over a data-parallel mesh (``mesh=``, ``parallel/mesh.py``) each process
+holds its rows of the batch, and a step equals one process's step on the
+whole batch, as JAX's step on the ``shard_batch``-placed batch is. Every
+mean of the losses is the whole batch's: the cross-entropies over the whole
+batch's valid pixels, the night and certainty losses over its every pixel,
+each critic's criterion over every critic output of the whole batch, the
+night weighting's mean too. The sums behind them go through one
+differentiable ``all_reduce_sum`` per reduction site (``BatchMeans``), so
+every process holds the whole batch's loss, and a product of two means (the
+night-weighted confusion loss, ``mean(w) · criterion(c)``) is the product of
+the global ones. The convention: each process backpropagates its part,
+``loss / n`` for n processes; ``all_reduce_sum``'s backward sums the parts'
+gradients over the processes, so the gradient that reaches each process's
+local sums is the whole loss's, and ``all_reduce_gradients`` over the phase's
+trainable parameters then sums the local terms into the whole batch's
+gradients. Train-mode BN statistics span the whole batch while the steps
+run (``data_parallel``), the frozen segnet's in the critic phase among them.
+The metrics are the whole batch's. The caller draws the seg phase's
+augmentation and the dropout masks for the whole batch on every process,
+from one generator in one order, and gives each step its rows of the masks
+(``shard_batch``); ``mod_drop_params`` is per sample and goes with the rows.
+One process (no mesh, or a mesh of one) takes ``torch.mean``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
+from ..models.layers import at_least_f32
 from ..ops.preprocess import (draw_ir_scale, draw_smart_augment, ir_scale_aug,
                               maybe_smart_augment, rect_drop)
+from ..parallel.mesh import (all_reduce_gradients, all_reduce_sum, check_same_gradients,
+                             data_group, data_parallel, data_size)
 from .optim import masked_optimizer, rmsprop
 from .state import TrainState
 from .supervised import cross_entropy_ignore
@@ -78,17 +104,70 @@ class AdversarialConfig:
     iter_initial_critic_phase: int = 1000
 
 
-def conf_criterion(kind: str) -> Callable[[torch.Tensor, float], torch.Tensor]:
+class ConfCriterion:
+    """MSE / BCE-with-logits against a constant target: ``elementwise(x, t)``
+    per critic output, f32 (float64 stays float64); calling it takes the
+    mean."""
+
+    def __init__(self, kind: str):
+        if kind not in ("MSE", "BCE"):
+            raise ValueError(f"Loss not known : {kind}")
+        self.kind = kind
+
+    def elementwise(self, x: torch.Tensor, t: float) -> torch.Tensor:
+        x = at_least_f32(x)
+        if self.kind == "MSE":
+            return (x - t) ** 2
+        return torch.clamp(x, min=0) - x * t + torch.log1p(torch.exp(-x.abs()))
+
+    def __call__(self, x: torch.Tensor, t: float) -> torch.Tensor:
+        return torch.mean(self.elementwise(x, t))
+
+
+def conf_criterion(kind: str) -> ConfCriterion:
     """MSE / BCE-with-logits against a constant target, mean-reduced, f32."""
-    if kind == "MSE":
-        return lambda x, t: torch.mean((x.float() - t) ** 2)
-    if kind == "BCE":
-        def bce(x, t):
-            x = x.float()
-            return torch.mean(torch.clamp(x, min=0) - x * t
-                              + torch.log1p(torch.exp(-x.abs())))
-        return bce
-    raise ValueError(f"Loss not known : {kind}")
+    return ConfCriterion(kind)
+
+
+class LocalMeans:
+    """The means of this process's batch (one process: ``torch.mean``)."""
+
+    def means(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return [torch.mean(x) for x in xs]
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        return self.means([x])[0]
+
+    def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        return cross_entropy_ignore(logits, labels, ignore_index=-1)
+
+
+class BatchMeans(LocalMeans):
+    """The means of the whole batch of a data-parallel mesh, held by every
+    process: each reduction site's local sums cross in one differentiable
+    ``all_reduce_sum`` (every process holds equal rows, so an element count
+    is the local one times the processes)."""
+
+    def __init__(self, mesh):
+        self.group = data_group(mesh)
+        self.processes = data_size(mesh)
+
+    def _sums(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        dtype = parts[0].dtype
+        for p in parts[1:]:
+            dtype = torch.promote_types(dtype, p.dtype)
+        return all_reduce_sum(self.group, torch.stack([p.to(dtype) for p in parts]))
+
+    def means(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        sums = self._sums([x.sum() for x in xs])
+        return [sums[i] / (x.numel() * self.processes) for i, x in enumerate(xs)]
+
+    def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """``cross_entropy_ignore`` (label -1 ignored) over the whole batch's
+        valid pixels."""
+        nll = cross_entropy_ignore(logits, labels, ignore_index=-1, reduce=False)
+        sums = self._sums([nll.sum(), (labels != -1).sum().to(nll.dtype)])
+        return sums[0] / sums[1].clamp(min=1)
 
 
 # -- the per-phase optimizers --------------------------------------------------
@@ -131,35 +210,45 @@ def make_phase_optimizers(model: nn.Module, lr_schedule: Callable
 
 # -- losses ----------------------------------------------------------------------
 
-def critic_loss(out: Dict[str, Any], criterion) -> torch.Tensor:
-    """Σ_i conf(c_a_i → 1) + conf(c_b_i → 0) (:174-181)."""
+def critic_loss(out: Dict[str, Any], criterion: ConfCriterion,
+                means: LocalMeans = LocalMeans()) -> torch.Tensor:
+    """Σ_i conf(c_a_i → 1) + conf(c_b_i → 0) (:174-181), each criterion the
+    mean of ``means``."""
+    terms = means.means([criterion.elementwise(c, 1.0) for c in out["critics_a"]]
+                        + [criterion.elementwise(c, 0.0) for c in out["critics_b"]])
     total = 0.0
-    for c_a in out["critics_a"]:
-        total = total + criterion(c_a, 1.0)
-    for c_b in out["critics_b"]:
-        total = total + criterion(c_b, 0.0)
+    for term in terms:
+        total = total + term
     return total
 
 
-def confusion_loss(out: Dict[str, Any], criterion, cfg: AdversarialConfig,
-                   conf_weighting: Optional[torch.Tensor] = None) -> torch.Tensor:
+def confusion_loss(out: Dict[str, Any], criterion: ConfCriterion, cfg: AdversarialConfig,
+                   conf_weighting: Optional[torch.Tensor] = None,
+                   means: LocalMeans = LocalMeans()) -> torch.Tensor:
     """The fool-the-critics term of the seg phase (:184-201):
-    ``criterion · mean(w)`` per critic, w ≡ 1 without IR-certainty weighting."""
+    ``criterion · mean(w)`` per critic, w ≡ 1 without IR-certainty weighting;
+    both means those of ``means``."""
     w = cfg.critic_weights
-    w_mean = conf_weighting.float().mean() if conf_weighting is not None else 1.0
     target_a = 0.0 if cfg.multidir else 1.0
+    crit_a, crit_b = out["critics_a"], out["critics_b"]
+    parts = ([criterion.elementwise(c, target_a) for c in crit_a]
+             + [criterion.elementwise(c, 1.0) for c in crit_b])
+    if conf_weighting is not None:
+        parts.append(at_least_f32(conf_weighting))
+    terms = means.means(parts)
+    w_mean = terms.pop() if conf_weighting is not None else 1.0
     loss = 0.0
-    for m, c_a in enumerate(out["critics_a"]):
-        loss = loss + w_mean * criterion(c_a, target_a) * w[m]
-    for m, c_b in enumerate(out["critics_b"]):
-        loss = loss + w_mean * criterion(c_b, 1.0) * w[m]
+    for m, term in enumerate(terms[:len(crit_a)]):
+        loss = loss + w_mean * term * w[m]
+    for m, term in enumerate(terms[len(crit_a):]):
+        loss = loss + w_mean * term * w[m]
     return loss
 
 
 def cert_target(pred_logits: torch.Tensor, label: torch.Tensor,
                 num_classes: int) -> torch.Tensor:
     """Certainty ground truth: 1 - the softmax probability of the true class."""
-    probs = torch.softmax(pred_logits.float(), dim=-1)
+    probs = torch.softmax(at_least_f32(pred_logits), dim=-1)
     idx = label.long().clamp(0, num_classes - 1)[..., None]
     return 1.0 - torch.gather(probs, -1, idx)[..., 0]
 
@@ -217,36 +306,40 @@ def augment_day(batch: Dict[str, torch.Tensor], draws: SegAugDraws,
 # -- the steps ---------------------------------------------------------------------
 
 def make_adversarial_losses(model: nn.Module, cfg: AdversarialConfig,
-                            teacher: Optional[nn.Module] = None):
+                            teacher: Optional[nn.Module] = None, mesh=None):
     """``(seg_loss, critic_loss)``: each sets its phase, runs the train-mode
     forward and returns ``(loss, metrics)``, the loss not yet backpropagated.
 
     ``seg_loss(batch, draws)`` augments the day inputs with ``draws`` first;
     ``critic_loss(batch, dropout=None)``. ``teacher`` is the frozen
     night-supervision model, in eval mode (``prepare_for_inference``); its
-    pseudo-labels supervise the night branch.
+    pseudo-labels supervise the night branch. With a ``mesh`` the batch is
+    this process's rows, the forward takes train-mode BN statistics over the
+    whole batch and the loss and metrics are the whole batch's (the module's
+    docstring).
     """
     criterion = conf_criterion(cfg.adv_loss)
+    means = BatchMeans(mesh) if data_size(mesh) > 1 else LocalMeans()
 
     def forward_teacher(batch):
         with torch.no_grad():
             out, _, t_cert = teacher(*pack_inputs(batch, cfg.night_sup_modalities,
                                                   day=False))
-        return torch.softmax(out.float(), dim=-1), t_cert
+        return torch.softmax(at_least_f32(out), dim=-1), t_cert
 
     def forward(batch, phase: str, dropout):
         model.train()
         model.set_phase(phase)
         model.zero_grad(set_to_none=True)
-        return model(pack_inputs(batch, cfg.modalities, day=True),
-                     pack_inputs(batch, cfg.modalities, day=False), dropout)
+        with data_parallel(mesh):
+            return model(pack_inputs(batch, cfg.modalities, day=True),
+                         pack_inputs(batch, cfg.modalities, day=False), dropout)
 
     def seg_loss_fn(batch, draws: SegAugDraws):
         batch = augment_day(batch, draws, cfg)
         out = forward(batch, "train_seg", draws.dropout)
         label_day = batch["label_day"].long()
-        seg_loss = cross_entropy_ignore(out["pred_label_a"], label_day,
-                                        ignore_index=-1)
+        seg_loss = means.cross_entropy(out["pred_label_a"], label_day)
         metrics = {}
         conf_weighting = None
 
@@ -254,17 +347,16 @@ def make_adversarial_losses(model: nn.Module, cfg: AdversarialConfig,
             night_probs, t_cert = forward_teacher(batch)
             pseudo = night_probs.argmax(-1)
             if not cfg.weight_ir_sup:
-                night_loss = cross_entropy_ignore(out["pred_label_b"], pseudo,
-                                                  ignore_index=-1)
+                night_loss = means.cross_entropy(out["pred_label_b"], pseudo)
             else:
                 per_pix = cross_entropy_ignore(out["pred_label_b"], pseudo,
                                                ignore_index=-1, reduce=False)
                 if cfg.cert_branch and t_cert is not None:
-                    night_loss = torch.mean((1.0 - t_cert[..., 0]) * per_pix)
+                    night_loss = means.mean((1.0 - t_cert[..., 0]) * per_pix)
                 else:
                     # the reference's softmax of softmaxed probabilities
                     cert = torch.softmax(night_probs, dim=-1).amax(-1)
-                    night_loss = torch.mean(cert * per_pix)
+                    night_loss = means.mean(cert * per_pix)
                     conf_weighting = 1.0 - cert
             seg_loss = seg_loss + night_loss
             metrics["night_seg_loss"] = night_loss
@@ -272,12 +364,12 @@ def make_adversarial_losses(model: nn.Module, cfg: AdversarialConfig,
         if cfg.cert_branch and not cfg.night_supervision:
             cert_gt = cert_target(out["pred_label_a"], label_day,
                                   out["pred_label_a"].shape[-1])
-            cert_loss = torch.mean((out["cert_a"][..., 0] - cert_gt) ** 2) * 10.0
+            cert_loss = means.mean((out["cert_a"][..., 0] - cert_gt) ** 2) * 10.0
             seg_loss = seg_loss + cert_loss
             metrics["cert_loss"] = cert_loss
 
         if "critics_a" in out:
-            conf = confusion_loss(out, criterion, cfg, conf_weighting)
+            conf = confusion_loss(out, criterion, cfg, conf_weighting, means)
             total = seg_loss + cfg.conf_weight * conf
         else:
             conf = torch.zeros((), device=seg_loss.device)
@@ -286,23 +378,34 @@ def make_adversarial_losses(model: nn.Module, cfg: AdversarialConfig,
         return total, metrics
 
     def critic_loss_fn(batch, dropout=None):
-        loss = critic_loss(forward(batch, "train_critic", dropout), criterion)
+        loss = critic_loss(forward(batch, "train_critic", dropout), criterion, means)
         return loss, {"critic_loss": loss, "total_loss": loss}
 
     return seg_loss_fn, critic_loss_fn
 
 
 def make_adversarial_steps(model: nn.Module, cfg: AdversarialConfig,
-                           teacher: Optional[nn.Module] = None):
+                           teacher: Optional[nn.Module] = None, mesh=None):
     """``(seg_step, critic_step)``: ``seg_step(state, batch, draws)`` and
     ``critic_step(state, batch, dropout=None)`` each run one step in place
     (forward, backward, the phase's optimizer and schedule) and return the
-    step's detached metrics."""
-    seg_loss_fn, critic_loss_fn = make_adversarial_losses(model, cfg, teacher)
+    step's detached metrics. With a ``mesh`` of n processes each backward
+    runs on ``loss / n`` and the phase's trainable parameters' gradients are
+    summed over the mesh's ``data`` dimension before the optimizer: the
+    whole batch's step (the module's docstring). Each phase's first step
+    checks that every process holds the same parameters' gradients."""
+    seg_loss_fn, critic_loss_fn = make_adversarial_losses(model, cfg, teacher, mesh)
+    processes = data_size(mesh)
+    checked = set()
 
     def run(loss_fn, phase_state, state, *args):
         loss, metrics = loss_fn(*args)
-        loss.backward()
+        (loss / processes).backward()
+        trainable = [p for p in model.parameters() if p.requires_grad]
+        if loss_fn not in checked:
+            check_same_gradients(mesh, trainable)
+            checked.add(loss_fn)
+        all_reduce_gradients(mesh, trainable)
         phase_state(state).apply_gradients()
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}

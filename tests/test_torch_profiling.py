@@ -5,7 +5,9 @@ that grows with the work."""
 
 import json
 import os
+import time
 
+import pytest
 import torch
 
 from heatnet_tpu.utils.profiling import StepTimer as JaxStepTimer
@@ -33,8 +35,25 @@ def test_trace_writes_the_annotated_span(tmp_path):
     assert any(e.key == "heatnet_span" for e in prof.key_averages())
 
 
-def test_scan_benchmark_is_positive_and_grows_with_the_work():
-    small, big = torch.randn(16, 16), torch.randn(384, 384)
-    t_small = profiling.scan_benchmark(torch.mm, (small, small), 2, 12, reps=2)
-    t_big = profiling.scan_benchmark(torch.mm, (big, big), 2, 12, reps=2)
-    assert 0 < t_small < t_big
+def test_scan_benchmark_is_positive_and_grows_with_the_work(monkeypatch):
+    """``scan_benchmark``'s arithmetic under a clock that advances a fixed
+    cost per call of the step, so the box's load cannot decide it: the cost
+    per call comes back exactly, grows with the work, and is clamped to
+    1e-12 where no time passes. Then one real-clock check: a step that sleeps
+    20 ms, timed as the difference of loops of 0 and 2 calls, reads at least
+    10 ms. A preemption only lengthens a sleep; to shrink the difference it
+    would have to fall in the 0-call loop, which lasts microseconds, and last
+    over 20 ms."""
+    clock = [0.0]
+    monkeypatch.setattr(profiling.time, "perf_counter", lambda: clock[0])
+
+    def work(cost):
+        clock[0] += cost
+
+    per_call = [profiling.scan_benchmark(work, (cost,), 2, 12, reps=2)
+                for cost in (1e-4, 2.5e-3)]
+    assert per_call == [pytest.approx(1e-4, rel=1e-9), pytest.approx(2.5e-3, rel=1e-9)]
+    assert 0 < per_call[0] < per_call[1]
+    assert profiling.scan_benchmark(work, (0.0,), 2, 12, reps=2) == 1e-12
+    monkeypatch.undo()
+    assert profiling.scan_benchmark(time.sleep, (0.02,), 0, 2, reps=1) >= 0.01
