@@ -239,10 +239,13 @@ Phases, each of which exits non-zero on failure:
        (``train/adversarial.py``'s ``mesh=``) at phase 4c's point (ResNeXt-50
        early fusion, 6 cyclegan critics, the IR teacher, batch 16 of 320x640
        from phase 4c's pack, ``--moddrop --irscale``, RMSprop at lr 1e-7)
-       over 2 gloo worker processes on the card (``--dp-adversarial-worker``,
+       over 2 gloo worker processes on the card (``--trainer-worker``,
        8 frames each, augmented from the whole batch's draws) against one
        process on the whole batch here (its train-mode BN on the workers'
-       code, a gloo group of one): every rank's losses within 1e-2
+       code, a gloo group of one), every run of both with cuDNN
+       deterministic and 11b's fixed-order resize backward (without them
+       the workers' third bf16 loss moved between runs of one tree): every
+       rank's losses within 1e-2
        relative, each gradient of norm >= 1e-4 of each phase's first step
        within max(0.05, 2x the one-process step's distance from its plain
        versions in float32), each running statistic after each step within
@@ -271,7 +274,7 @@ Phases, each of which exits non-zero on failure:
        round trip and its oversized-message ``BufferError``;
    12b. ``cli.dump_capture --calib`` the shipped camchain on a capture the
        phase writes (two RGB and two IR streams and a lidar stream of
-       32768x4 points, 10 frames each at 30 Hz with 1 ms skew, ``tf.jsonl``,
+       32768x4 points, 7 frames each at 30 Hz with 1 ms skew, ``tf.jsonl``,
        ``origin.json``): windows, frames, manifests of 5 paths, vehicle
        lines, heat stats and the HTML; where cv2 imports, the port's maps
        equal cv2's and every rectified frame equals ``cv2.remap`` of its
@@ -319,7 +322,7 @@ Phases, each of which exits non-zero on failure:
        full width and depth (random weights, seed 0), bf16, at train_plain's
        operating point (batch 10 of 320x640, a seeded label; 80 rows per
        shard, 10 at stride 8) over the same 4 gloo workers
-       (``--spatial-train-worker``), 3 Adam steps at lr 1e-6 against the
+       (``--spatial-train-worker``), an Adam step at lr 1e-6 against the
        unsharded steps here on the same weights and batch: losses within
        1e-2 relative, each step-0 gradient within max(0.05, 2x the unsharded
        step's distance from its plain versions), each running statistic
@@ -332,6 +335,33 @@ Phases, each of which exits non-zero on failure:
        batch 2 with seeded dropout keep masks (no port kernel); then every
        launch shape of 13e's extended shards (forward and dx) against its
        plain version;
+   13g. the adversarial critic, seg and critic steps split by rows
+       (``parallel/spatial.py::adversarial_frames``) at phase 4c's point
+       (ResNeXt-50 early fusion, 6 cyclegan critics, the IR teacher,
+       ``--moddrop --irscale``, RMSprop at lr 1e-7) at batch 4 of 320x640
+       from phase 4c's pack (80 rows a shard; the critics gather their maps
+       whole where their stride-2 windows no longer split the shards) over
+       the 4 gloo workers, against one process on the whole batch (its BN on
+       the workers' code), as 11g holds its workers but each pass against the
+       one process one precision up: in bf16 against its float32 twin, then
+       in float32 through the plain versions against a float64 twin, within
+       twice the one process's own distance from that reference (losses,
+       gradients, running statistics; the replicas bit for bit), each pass
+       with its planted fault; 32 forward launches per critic step and 32
+       forward, 32 dx and 16 fused per seg step in each worker; per worker and
+       step the exchanges of rows (count, MB) forward and backward, the ms of
+       the spatial path's ``all_gather`` and ``all_reduce_sum`` calls and of
+       the gradient all-reduce (CUDA events), the all-reduced gradient
+       bytes, step ms and peak memory; then every launch shape against its
+       plain version;
+   13h. the same for a CycleGAN round split by rows
+       (``cyclegan_frames``: the generator step, each process's rows of the
+       fakes through its replay buffers, the two discriminator steps) of
+       config #5's nets (9-block generators with reflect pads, instance
+       norms and output-padded transposed convs by rows; netSeg ResNeXt-50;
+       the pooled discriminators) at batch 2 of 256x256, Adam at lr 1e-7:
+       32 forward and 32 dx launches per round in each worker. One launch of
+       the 4 workers runs 13g and 13h, both passes each;
 14. the total time and one ``{"kernels": [...]}`` JSON line (each kernel's
    launches on every path); the last line is ``{"ok": true, "device": {...}}``.
 
@@ -344,12 +374,13 @@ Without a card, or run from a directory that does not hold the package, it
 prints no result and exits non-zero. ``--int8-card-times SPEC OUT`` is phase
 9a's child process (SPEC and OUT are JSON files), ``--serve-artifact SPEC
 OUT`` phase 10e's, ``--profile-serving OUT`` phase 11e's,
-``--dp-adversarial-worker SPEC OUT`` phase 11g's workers, ``--spatial-worker
+``--trainer-worker SPEC OUT`` phases 11g, 13g and 13h's workers, ``--spatial-worker
 SPEC OUT`` phase 13's workers, ``--spatial-train-worker SPEC OUT`` phase
 13e's; none is an entry point.
 """
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -781,7 +812,7 @@ def profile_serving(out_path: str) -> None:
                        [s.elapsed_time(e) for s, e in zip(start, end)], 50))}, f)
 
 
-CAPTURE_FRAMES = 10       # phase 12b: frames per stream at 30 Hz, 1 ms skew
+CAPTURE_FRAMES = 7        # phase 12b: frames per stream at 30 Hz, 1 ms skew
 CAPTURE_LIDAR_POINTS = 32768
 RELABEL_HW = (768, 1024)  # the panoptic map cli.generate_vistas relabels (--width 1024)
 
@@ -1097,12 +1128,12 @@ SPATIAL_SCALE_TOL = 1e-6
 # scripts/inference.py runs float32), the extractor's rows are the frame's
 # bit for bit (tools/spatial_layers.py --arch pspnet)
 SPATIAL_CASES = (
-    ("13", "spatial_serving", "resnext", 1, "ir_rgb", "bfloat16", None, 10,
+    ("13", "spatial_serving", "resnext", 1, "ir_rgb", "bfloat16", None, 1,
      ("ingest", "grouped_conv3x3_fused")),
-    ("13b", "spatial_pspnet", "pspnet", 1, "rgb", "float32", None, 5, ("ingest",)),
-    ("13c", "spatial_int8", "resnext_int8", 8, "ir_rgb", "bfloat16", None, 3,
+    ("13b", "spatial_pspnet", "pspnet", 1, "rgb", "float32", None, 1, ("ingest",)),
+    ("13c", "spatial_int8", "resnext_int8", 8, "ir_rgb", "bfloat16", None, 1,
      ("ingest", "grouped_conv3x3_fused", "int8_conv")),
-    ("13d", "spatial_pspnet_bf16", "pspnet", 1, "rgb", "bfloat16", "float32", 5,
+    ("13d", "spatial_pspnet_bf16", "pspnet", 1, "rgb", "bfloat16", "float32", 1,
      ("ingest",)),
 )
 
@@ -1676,7 +1707,7 @@ SPATIAL_TRAIN_CASES = (
      {"ingest": 0, "grouped_conv3x3": 0, "grouped_conv3x3_fused": 0,
       "grouped_conv3x3_dx": 0}),
 )
-SPATIAL_TRAIN_STEPS = 3
+SPATIAL_TRAIN_STEPS = 1
 SPATIAL_TRAIN_LR = 1e-6
 # running statistics after each step, each tensor's largest difference from
 # the unsharded step's over its largest |value| (stats_rel): at most this, or
@@ -1691,6 +1722,33 @@ SPATIAL_STATS_TOL = 1e-3
 def stats_rel(a, b) -> float:
     """Largest |a - b| over the largest |b|."""
     return float((a - b).abs().max() / b.abs().max())
+
+
+def stats_dist(got: dict, want: dict, by_std: bool = False) -> dict:
+    """Each running statistic's ``stats_rel`` from ``want``'s, or with
+    ``by_std`` a running mean's largest difference over the square root of
+    its layer's largest running variance in ``want``: the scale of a mean's
+    error is the data's spread, and a mean near zero (a random-init 1x1
+    conv's one output channel) is none."""
+    return {k: (float((v - want[k]).abs().max()
+                      / want[k[:-len("mean")] + "var"].max().sqrt())
+                if by_std and k.endswith("running_mean") else stats_rel(v, want[k]))
+            for k, v in got.items()}
+
+
+def stats_bounds(ref: dict, twin: dict, finer: bool = False) -> dict:
+    """Each running statistic's bound after a step: twice ``ref``'s
+    distance from ``twin`` (``stats_dist``), at least SPATIAL_STATS_TOL.
+    ``finer``: running means by their layer's spread, and every statistic
+    held to twice its kind's (means', variances') largest distance: the
+    rounding of two runs in one precision is drawn anew per tensor, so one
+    tensor's distance is no bound for another run's."""
+    d = stats_dist(ref, twin, finer)
+    if finer:
+        kind = {t: max(v for k, v in d.items() if k.endswith(t))
+                for t in ("running_mean", "running_var")}
+        d = {k: kind[k[k.rindex(".") + 1:]] for k in d}
+    return {k: max(SPATIAL_STATS_TOL, 2.0 * v) for k, v in d.items()}
 
 
 def spatial_train_inputs(arch: str, batch: int, weights: str, dev, dtype: str):
@@ -2075,11 +2133,21 @@ def spatial_train_phase(work: str, card: str, zero_counts, read_counts, check,
     return out
 
 
-# Phase 11g: the adversarial steps data parallel (train/adversarial.py's
-# mesh=) at phase 4c's operating point over DP_PROCS gloo processes on the
-# one card, each on its rows of the same batch, against one process on the
-# whole batch here: ResNeXt-50 early fusion, 6 cyclegan critics and the IR
-# teacher, batch N_ADV of CROP, --moddrop --irscale, RMSprop at DP_LR.
+# Phases 11g, 13g and 13h: a trainer's steps over gloo worker processes on
+# the one card against one process on the whole batch here
+# (``TRAINER_CASES``; the workers run ``trainer_worker``):
+# 11g: the adversarial steps data parallel (train/adversarial.py's mesh=) at
+#   phase 4c's operating point over DP_PROCS processes, each on its samples:
+#   ResNeXt-50 early fusion, 6 cyclegan critics and the IR teacher, batch
+#   N_ADV of CROP, --moddrop --irscale, RMSprop at DP_LR;
+# 13g: the same steps split by rows (parallel/spatial.py::adversarial_frames)
+#   over SPATIAL_PROCS processes at batch N_SPATIAL_ADV of CROP (80 rows a
+#   shard; the critics gather their maps at 1/32 of the full-size tap, 2.5
+#   rows a shard, and at 1/4 of the 1/8 taps);
+# 13h: the CycleGAN rounds split by rows (cyclegan_frames) over
+#   SPATIAL_PROCS processes: config #5's nets (9-block generators, netSeg
+#   ResNeXt-50 with 12 classes, the discriminators) at batch N_SPATIAL_CG of
+#   CG_HW x CG_HW (64 rows a shard), Adam at DP_LR, CG_ROUNDS rounds.
 DP_PROCS = 2
 DP_PHASES = ("train_critic", "train_seg", "train_critic")
 DP_GRAD_STEPS = (0, 1)  # each phase's first step
@@ -2088,6 +2156,12 @@ DP_GRAD_STEPS = (0, 1)  # each phase's first step
 # step's loss reads that rounding: at 1e-6 it spread 5.291-5.358 over three
 # runs of the workers (one process 5.262-5.269), past STEP_LOSS_TOL
 DP_LR = 1e-7
+# and 11g's compared runs (the one process, its float32 twin and the
+# workers) take deterministic_steps: without it the workers' third bf16
+# loss lay 2.79e-3, 3.07e-3 and 3.07e-3 relative from the one process's in
+# three runs of this phase on an NVIDIA H100 80GB HBM3 at 700 W (the one
+# process's the same bits each time), and 1.54e-2 in a fourth
+DETERMINISTIC_CASES = ("11g",)
 DP_TIMEOUT_S = 300
 # the launches of one step in each process, whatever its rows
 DP_PER_STEP = {
@@ -2095,6 +2169,34 @@ DP_PER_STEP = {
                      "grouped_conv3x3_dx": 0},
     "train_seg": {"ingest": 0, "grouped_conv3x3": 32, "grouped_conv3x3_fused": 16,
                   "grouped_conv3x3_dx": 32},
+}
+N_SPATIAL_ADV = 4
+N_SPATIAL_CG, CG_HW, CG_ROUNDS = 2, 256, 1
+# a CycleGAN round: netSeg's two forwards and their backward in the
+# generator step, nothing in the discriminator steps (6a's)
+CG_PER_ROUND = {"ingest": 0, "grouped_conv3x3": 32, "grouped_conv3x3_fused": 0,
+                "grouped_conv3x3_dx": 32}
+# (processes, the steps' names, the launches of each step, the steps whose
+# gradients are compared, the workers' time limit, whether each pass is held
+# to the one process one precision up). By rows, two runs in one precision
+# lay as far apart as each from the finer one, past 11g's rule: on an NVIDIA
+# H100 80GB HBM3 at 700 W, 13h's float32 workers 6.0 % from the float32 twin
+# on netSeg's gradients (batch 2 of 256x256, one input channel, random
+# labels; on the CPU its float32 gradients lie up to 2.9 % from float64),
+# and the bf16 workers' statistics up to 3.2 times the bf16 step's own
+# distance from float32 in 13h and 1.95 times in 13g, the cert head's
+# one-channel BN the farthest. So 13g and 13h hold each pass one precision up
+# (bf16 workers to the float32 twin, float32 workers to a float64 twin),
+# within twice the one process's own distance from that reference, running
+# means in units of their layer's spread and every statistic to its kind's
+# largest distance (``stats_bounds``)
+TRAINER_CASES = {
+    "11g": (DP_PROCS, DP_PHASES, [DP_PER_STEP[p] for p in DP_PHASES], DP_GRAD_STEPS,
+            DP_TIMEOUT_S, False),
+    "13g": (SPATIAL_PROCS, DP_PHASES, [DP_PER_STEP[p] for p in DP_PHASES], DP_GRAD_STEPS,
+            SPATIAL_TIMEOUT_S, True),
+    "13h": (SPATIAL_PROCS, ("round",) * CG_ROUNDS, [CG_PER_ROUND] * CG_ROUNDS, (0,),
+            SPATIAL_TIMEOUT_S, True),
 }
 
 
@@ -2111,11 +2213,13 @@ def param_digest(model):
     return total
 
 
-def dp_adversarial_inputs(spec: dict, dev, mesh=None, dtype=None):
+def dp_adversarial_inputs(spec: dict, dev, mesh=None, dtype=None, by_rows: bool = False):
     """Phase 11g's model (seed 0) and the teacher from phase 4c's checkpoint
-    (activations bf16, or ``dtype``), the whole batch's augmentation (this
+    (activations bf16, or ``dtype``; float64 parameters too for float64),
+    the whole batch's augmentation (this
     process's rows of it over ``mesh``) and the seg step's draws, both
-    augmentations on."""
+    augmentations on. ``by_rows`` (13g): batch N_SPATIAL_ADV, whole on every
+    process (``adversarial_frames`` keeps each process's rows)."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -2131,28 +2235,35 @@ def dp_adversarial_inputs(spec: dict, dev, mesh=None, dtype=None):
     model = ConfSegnet(disc_arch="cyclegan", num_critics=6)
     init_params(model, torch.Generator().manual_seed(0))
     model = prepare_for_training(model, dev, dtype)
-    if mesh is not None:
-        pm.replicate(mesh, model)
     # cli.train_conf.load_teacher's IR ResNeXt-50, in the chosen precision
     teacher = ResNeXtSeg(structure=(3, 4, 6, 3), input_channels=1)
     restore_renamed(teacher, load_state_dict(spec["teacher"]), "trgb_segnet.", "")
     teacher = prepare_for_inference(teacher, dev, dtype)
-    raw = next(batch_iterator(PackedFreiburgTrainDataset(spec["pack"]), N_ADV, seed=0))
-    batch = DeviceAugment(CROP, dev)(torch.Generator().manual_seed(1), raw, mesh)
+    if dtype == torch.float64:  # every parameter and statistic too
+        model, teacher = model.double(), teacher.double()
+    if mesh is not None:
+        pm.replicate(mesh, model)
+    n = N_SPATIAL_ADV if by_rows else N_ADV
+    raw = next(batch_iterator(PackedFreiburgTrainDataset(spec["pack"]), n, seed=0))
+    batch = DeviceAugment(CROP, dev)(torch.Generator().manual_seed(1), raw,
+                                     None if by_rows else mesh)
     draws = adv.draw_seg_aug(torch.Generator().manual_seed(2))
     draws.moddrop = draws.irscale = True
     return model, teacher, batch, draws
 
 
-def dp_adversarial_steps(model, teacher, batch, draws, mesh=None, before=None, after=None):
+def dp_adversarial_steps(model, teacher, batch, draws, mesh=None, before=None, after=None,
+                         by_rows: bool = False):
     """Critic, seg and critic steps (``make_adversarial_steps``, RMSprop at
     ``DP_LR``) on ``batch``: one process, or this process's rows over
-    ``mesh``; ``before(i)`` and ``after(i)`` run around step i. Returns the
-    losses, the step ms (host clock to a synchronise), the gradients of each
-    phase's first step (float32, on the host; summed over the processes) and
-    the running statistics after each step."""
+    ``mesh`` (its samples, or ``by_rows`` its rows of every frame through
+    ``adversarial_frames``); ``before(i)`` and ``after(i)`` run around step
+    i. Returns the losses, the step ms (host clock to a synchronise), the
+    gradients of each phase's first step (float32, on the host; summed over
+    the processes) and the running statistics after each step."""
     import torch
 
+    from heatnet_tpu_torch.parallel import spatial
     from heatnet_tpu_torch.train import adversarial as adv
 
     cfg = adv.AdversarialConfig(moddrop=True, irscale=True, night_supervision=True)
@@ -2171,20 +2282,183 @@ def dp_adversarial_steps(model, teacher, batch, draws, mesh=None, before=None, a
         ts.optimizer.register_step_pre_hook(keep)
     losses, ms, stats = [], [], []
     for i, phase in enumerate(DP_PHASES):
+        step, args = (seg_step, (draws,)) if phase == "train_seg" else (critic_step, ())
         if before is not None:
             before(i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if phase == "train_seg":
-            metrics = seg_step(state, batch, draws)
+        if by_rows:
+            metrics = spatial.adversarial_frames(step, state, batch, mesh, *args)
         else:
-            metrics = critic_step(state, batch)
+            metrics = step(state, batch, *args)
         losses.append(float(metrics["total_loss"]))
         ms.append((time.perf_counter() - t0) * 1e3)
         stats.append({k: b.float().cpu() for k, b in model.named_buffers() if "running" in k})
         if after is not None:
             after(i)
     return losses, ms, grads[:len(DP_GRAD_STEPS)], stats
+
+
+def cyclegan_inputs(dev, mesh=None, dtype=None):
+    """Phase 13h's nets (config #5's, ``cli.train_cyclegan``'s defaults:
+    9-block generators, netSeg ResNeXt-50 with 12 classes; seeds 0-4) in
+    train mode (activations bf16, or ``dtype``; float64 parameters too for
+    float64), replicated over ``mesh``,
+    and a seeded batch of N_SPATIAL_CG whole frames on the card: A and B in
+    [-1, 1), day labels with a tenth of the pixels ignored (-1)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from heatnet_tpu_torch.models import ResNeXtSeg
+    from heatnet_tpu_torch.models.cyclegan import Discriminator, Generator
+    from heatnet_tpu_torch.models.layers import init_params, prepare_for_training
+    from heatnet_tpu_torch.parallel import mesh as pm
+
+    nets = {"netG_A2B": Generator(1, 9), "netG_B2A": Generator(1, 9),
+            "netD_A": Discriminator(1), "netD_B": Discriminator(1),
+            "netSeg": ResNeXtSeg(structure=(3, 4, 6, 3), input_channels=1, classes=12)}
+    for i, m in enumerate(nets.values()):
+        init_params(m, torch.Generator().manual_seed(i))
+        prepare_for_training(m, dev, dtype)
+        if dtype == torch.float64:
+            m.double()
+        if mesh is not None:
+            pm.replicate(mesh, m)
+    prng = np.random.RandomState(21)
+    shape = (N_SPATIAL_CG, CG_HW, CG_HW)
+    label = prng.randint(0, 12, shape)
+    label[prng.rand(*shape) < 0.1] = -1
+    batch = {"A": torch.from_numpy(prng.rand(*shape, 1).astype(np.float32) * 2 - 1).to(dev),
+             "B": torch.from_numpy(prng.rand(*shape, 1).astype(np.float32) * 2 - 1).to(dev),
+             "label": torch.from_numpy(label).to(dev)}
+    return nets, batch
+
+
+def cyclegan_rounds(nets, batch, mesh=None, before=None, after=None):
+    """CG_ROUNDS rounds of the generator step and the two discriminator
+    steps (``make_cyclegan_steps``, Adam at ``DP_LR``, replay buffers of 50)
+    on ``batch``: one process, or this process's rows over ``mesh``
+    (``cyclegan_frames``); ``before(i)`` and ``after(i)`` run around round
+    i. Returns each round's generator and discriminator losses (flat), the
+    round ms (host clock to a synchronise), round 0's gradients of every
+    step (float32, on the host; summed over the processes; ``g/``, ``d_a/``
+    and ``d_b/`` before the names) and netSeg's running statistics after
+    each round."""
+    import torch
+
+    from heatnet_tpu_torch.parallel import mesh as pm
+    from heatnet_tpu_torch.parallel import spatial
+    from heatnet_tpu_torch.train import cyclegan as tc
+
+    state = tc.CycleGANState.create(nets, lambda count: DP_LR)
+    steps = tc.make_cyclegan_steps(*(nets[k] for k in tc.NET_NAMES), mesh=mesh)
+    grads, losses, ms, stats = {}, [], [], []
+    for which in ("g", "d_a", "d_b"):
+        ts = getattr(state, which)
+        ts.optimizer.register_step_pre_hook(lambda *_, w=which, t=ts: grads.update(
+            {f"{w}/{k}": p.grad.float().cpu() for k, p in t.model.named_parameters()
+             if p.grad is not None}) if not ms else None)
+    dev = batch["A"].device
+    fake_dtype = torch.promote_types(nets["netG_A2B"].compute_dtype, torch.float32)
+    buffers = [tc.DeviceReplayBuffer(50, (CG_HW // pm.data_size(mesh), CG_HW, 1), dev,
+                                     fake_dtype) for _ in range(2)]
+    generator = torch.Generator().manual_seed(3)
+    for i in range(CG_ROUNDS):
+        if before is not None:
+            before(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mesh is not None:
+            _, _, metrics, loss_a, loss_b = spatial.cyclegan_frames(
+                steps, state, batch, mesh, buffers, generator)
+        else:
+            fake_a, fake_b, metrics = steps[0](state, batch)
+            loss_a = steps[1](state, batch["A"], buffers[0].push_and_pop(fake_a, generator))
+            loss_b = steps[2](state, batch["B"], buffers[1].push_and_pop(fake_b, generator))
+        losses += [float(metrics["loss_G"]), float(loss_a), float(loss_b)]
+        ms.append((time.perf_counter() - t0) * 1e3)
+        stats.append({k: b.float().cpu() for k, b in nets["netSeg"].named_buffers()
+                      if "running" in k})
+        if after is not None:
+            after(i)
+    return losses, ms, [grads], stats
+
+
+def trainer_setup(case: str, spec: dict, dev, mesh=None, dtype=None):
+    """Case ``case`` of ``TRAINER_CASES`` ready to run: ``(run, modules,
+    names)``, ``run(before, after)`` its steps (one process without
+    ``mesh``), ``modules`` what it trains, ``names`` each trainable
+    parameter's name in its gradients, by ``id``."""
+    from functools import partial
+
+    if case in ("11g", "13g"):
+        model, teacher, batch, draws = dp_adversarial_inputs(spec, dev, mesh, dtype,
+                                                             by_rows=case == "13g")
+        return (partial(dp_adversarial_steps, model, teacher, batch, draws, mesh,
+                        by_rows=case == "13g" and mesh is not None), [model],
+                {id(p): k for k, p in model.named_parameters()})
+    nets, batch = cyclegan_inputs(dev, mesh, dtype)
+    groups = {"g": ("netG_A2B", "netG_B2A", "netSeg"), "d_a": ("netD_A",), "d_b": ("netD_B",)}
+    names = {id(p): f"{w}/{net}.{k}" for w, group in groups.items() for net in group
+             for k, p in nets[net].named_parameters()}
+    return partial(cyclegan_rounds, nets, batch, mesh), list(nets.values()), names
+
+
+@functools.lru_cache(maxsize=None)
+def _deterministic_resize_fn():
+    import torch
+    import torch.nn.functional as F
+
+    class DeterministicResize(torch.autograd.Function):
+        """``F.interpolate``'s bilinear resize with a backward that takes the
+        same sums in a fixed order (the interpolation matrices, one einsum):
+        the CUDA backward adds with atomics, so the critics' resizes make a
+        seg step's gradient differ in its last bits from run to run."""
+
+        @staticmethod
+        def forward(ctx, x, hw):
+            ctx.in_hw = x.shape[2:]
+            return F.interpolate(x, size=hw, mode="bilinear", align_corners=False)
+
+        @staticmethod
+        def backward(ctx, dy):
+            def weights(n_in, n_out):
+                eye = torch.eye(n_in, device=dy.device, dtype=dy.dtype)[None]
+                return F.interpolate(eye, size=n_out, mode="linear", align_corners=False)[0]
+
+            ay, ax = weights(ctx.in_hw[0], dy.shape[2]), weights(ctx.in_hw[1], dy.shape[3])
+            return torch.einsum("ncHW,hH,wW->nchw", dy, ay, ax), None
+
+    return DeterministicResize
+
+
+def deterministic_resize(x, hw):
+    """The critics' ``resize_bilinear`` (a map held whole) with the
+    fixed-order backward of ``_deterministic_resize_fn``."""
+    if tuple(x.shape[2:]) == tuple(hw):
+        return x
+    return _deterministic_resize_fn().apply(x, tuple(hw))
+
+
+@contextlib.contextmanager
+def deterministic_steps():
+    """cuDNN's deterministic algorithms and the critics' resizes with the
+    fixed-order backward (11b's and 11f's setting), so that a step's bits do
+    not depend on the order in which atomic adds land. Two processes that
+    share the card interleave their kernels differently from run to run, and
+    RMSprop's first update (10 lr sign(g) per element) carries the sign of
+    each bf16 gradient that is rounding only into the next step's loss."""
+    import torch
+
+    from heatnet_tpu_torch.models import critics as critics_module
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with mock.patch.object(critics_module, "resize_bilinear", deterministic_resize):
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = was
 
 
 @contextlib.contextmanager
@@ -2227,60 +2501,66 @@ def one_process_bn_group():
         dist.destroy_process_group()
 
 
-def dp_adversarial_worker(spec_path: str, out_path: str) -> None:
-    """Phase 11g's worker, rank ``RANK`` of ``DP_PROCS`` in a gloo group on
-    the one card: ``dp_adversarial_steps`` on its rows, in bf16 through the
-    kernels or (``spec["precision"]``) in float32 through their plain
-    versions. Around each step it reads the kernels' launches, times the
-    gradient all-reduce by CUDA events and counts its bytes, keeps its own
-    part of each phase's first gradients (the planted fault: the all-reduce
-    skipped here), records every grouped-conv launch shape, and all-gathers
-    a digest of the parameters; then it holds its losses, step gradients,
-    planted fault and running statistics against the one-process steps'
-    (``spec["reference"]``) and writes its record to ``out_path``."""
-    import datetime
+def trainer_run(run: dict, mesh, rank: int) -> dict:
+    """One pass of ``trainer_worker``: case ``run["case"]``'s steps on this
+    process's part (``trainer_setup``), in bf16 through the kernels or
+    (``run["precision"]``) in float32 through their plain versions. Around
+    each step it reads the kernels' launches and the exchanges of rows
+    (``parallel.spatial.EXCHANGE``), times the gradient all-reduce and the
+    spatial path's collectives (each ``all_gather``: halos and maps gathered
+    whole; each ``all_reduce_sum``: halo gradients, instance-norm and pool
+    sums, gathered maps' gradients) by CUDA events and counts the
+    all-reduced gradient bytes, keeps its own part of the compared steps'
+    gradients (the planted fault: the all-reduce skipped here), records every
+    grouped-conv launch shape, and all-gathers a digest of the parameters;
+    then it holds its losses, step gradients, planted fault and running
+    statistics against the one-process steps' (``run["reference"]``).
+    Returns the pass's record."""
     import inspect
 
     import torch
-    import torch.distributed as dist
 
-    sys.path.insert(0, ROOT)
     from heatnet_tpu_torch.ops import fused_preproc as fp
     from heatnet_tpu_torch.ops import grouped_conv as gc
     from heatnet_tpu_torch.parallel import mesh as pm
+    from heatnet_tpu_torch.parallel import spatial
     from heatnet_tpu_torch.train import adversarial as adv
+    from heatnet_tpu_torch.train import cyclegan as tc
 
-    with open(spec_path) as f:
-        spec = json.load(f)
-    float32 = spec["precision"] == "float32"
-    rank = int(os.environ["RANK"])
-    torch.cuda.set_device(0)
-    torch.backends.cudnn.allow_tf32 = False  # as run_phases sets them
-    torch.backends.cuda.matmul.allow_tf32 = False
+    case = run["case"]
+    _, _, _, grad_steps, _, finer = TRAINER_CASES[case]
+    float32 = run["precision"] == "float32"
     dev = torch.device("cuda")
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{spec['port']}",
-                            rank=rank, world_size=DP_PROCS,
-                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
-    mesh = pm.create_mesh()
-    model, teacher, batch, draws = dp_adversarial_inputs(
-        spec, dev, mesh, torch.float32 if float32 else None)
+    setup, modules, names = trainer_setup(case, run, dev, mesh,
+                                          torch.float32 if float32 else None)
     kernels = (fp.INGEST, gc.GROUPED_CONV3X3, gc.GROUPED_CONV3X3_FUSED, gc.GROUPED_CONV3X3_DX)
     reduce_events, reduce_bytes = [], []
-    real_reduce = adv.all_reduce_gradients
-    names = {id(p): k for k, p in model.named_parameters()}
-    unreduced = []  # the planted fault: this rank's own part, as if not all-reduced
-    launches, reduce_ms, replicas_equal = [], [], []
+    real_reduce = pm.all_reduce_gradients
+    unreduced = {}  # the planted fault: this rank's own part, as if not all-reduced
+    launches, reduce_ms, replicas_equal, exchange, exchange_ms = [], [], [], [], []
+    events = {"all_gather": [], "all_reduce_sum": []}
 
     def timed_reduce(mesh_, params):
         params = [p for p in params if p.grad is not None]
-        if len(launches) in DP_GRAD_STEPS:
-            unreduced.append({names[id(p)]: p.grad.float().cpu() for p in params})
+        if len(launches) in grad_steps:
+            unreduced.setdefault(len(launches), {}).update(
+                {names[id(p)]: p.grad.float().cpu() for p in params})
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         real_reduce(mesh_, params)
         end.record()
         reduce_events.append((start, end))
-        reduce_bytes.append(sum(p.numel() * p.element_size() for p in params))
+        reduce_bytes[-1] += sum(p.numel() * p.element_size() for p in params)
+
+    def timed(name, fn):
+        def run_(*args):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return run_
 
     shapes = {}
 
@@ -2300,29 +2580,46 @@ def dp_adversarial_worker(spec_path: str, out_path: str) -> None:
     def before(i):
         for k in kernels:
             k.launches = 0
-        dist.barrier()
+        spatial.reset_exchange()
+        reduce_bytes.append(0)
+        torch.distributed.barrier()
 
     def after(i):
         torch.cuda.synchronize()
         launches.append({k.name: k.launches for k in kernels})
+        exchange.append(dict(spatial.EXCHANGE))
         reduce_ms.append(sum(a.elapsed_time(b) for a, b in reduce_events))
         reduce_events.clear()
-        both = pm.all_gather(pm.data_group(mesh), param_digest(model))
-        replicas_equal.append(bool(both[0] == both[1]))
+        exchange_ms.append({k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()})
+        for v in events.values():
+            v.clear()
+        digest = param_digest(modules[0])
+        for m in modules[1:]:
+            digest = digest * 1000003 + param_digest(m)
+        every = pm.all_gather(pm.data_group(mesh), digest)
+        replicas_equal.append(bool((every == every[0]).all()))
 
     torch.cuda.reset_peak_memory_stats()
     with contextlib.ExitStack() as stack:
-        stack.enter_context(mock.patch.object(adv, "all_reduce_gradients", timed_reduce))
+        for module in (adv, tc):
+            stack.enter_context(mock.patch.object(module, "all_reduce_gradients",
+                                                  timed_reduce))
+        for name in events:
+            stack.enter_context(mock.patch.object(spatial, name,
+                                                  timed(name, getattr(spatial, name))))
+        if case in DETERMINISTIC_CASES:
+            stack.enter_context(deterministic_steps())
         if float32:
             stack.enter_context(plain_grouped_convs())
         else:
             for name in ("grouped_conv3x3", "grouped_conv3x3_dx", "grouped_conv3x3_fused"):
                 stack.enter_context(recording(name))
-        losses, ms, grads, stats = dp_adversarial_steps(model, teacher, batch, draws, mesh,
-                                                        before, after)
+        losses, ms, grads, stats = setup(before, after)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del setup, modules
+    torch.cuda.empty_cache()
 
-    ref = torch.load(spec["reference"], map_location="cpu", weights_only=True)
+    ref = torch.load(run["reference"], map_location="cpu", weights_only=True)
 
     def grad_rows(steps):
         """(step, name, rel L2 from the one-process step's gradient, its bound)"""
@@ -2330,59 +2627,95 @@ def dp_adversarial_worker(spec_path: str, out_path: str) -> None:
                 for step, (got, want, tol) in enumerate(zip(steps, ref["grads"], ref["tol"]))
                 for k, t in tol.items()]
 
-    rows, fault_rows = grad_rows(grads), grad_rows(unreduced)
-    stats_rows = [sorted(((stats_rel(v, want[k]) / bound[k], stats_rel(v, want[k]), bound[k], k)
-                          for k, v in got.items()), reverse=True)
+    rows = grad_rows(grads)
+    fault_rows = grad_rows([unreduced[s] for s in grad_steps])
+    stats_rows = [sorted(((d / bound[k], d, bound[k], k)
+                          for k, d in stats_dist(got, want, finer).items()), reverse=True)
                   for got, want, bound in zip(stats, ref["stats"], ref["stats_tol"])]
+    return {"rank": rank, "launches": launches, "ms": ms, "losses": losses,
+            "reduce_ms": reduce_ms, "reduce_bytes": reduce_bytes,
+            "exchange": exchange, "exchange_ms": exchange_ms,
+            "replicas_equal": replicas_equal, "grads_compared": len(rows),
+            "grads_bad": [r for r in rows if r[2] > r[3]],
+            "grads_worst": sorted(rows, key=lambda r: r[2] / r[3])[-5:],
+            "grads_farthest": max(rows, key=lambda r: r[2]),
+            "grads_above_tol": sum(r[2] > GRAD_TOL for r in rows),
+            "fault_caught": [[r[3] < 0.5, r[2] > r[3]] for r in fault_rows],
+            "fault_least": sorted((r for r in fault_rows if r[3] < 0.5),
+                                  key=lambda r: r[2] / r[3])[:3],
+            "stats_compared": len(stats_rows[-1]),
+            "stats_worst": [r[:3] for r in stats_rows], "peak_gb": peak_gb,
+            "shapes": [dict(json.loads(k), count=v) for k, v in shapes.items()]}
+
+
+def trainer_worker(spec_path: str, out_path: str) -> None:
+    """Phases 11g, 13g and 13h's worker, rank ``RANK`` of ``spec["procs"]``
+    in a gloo group on the one card: every pass of ``spec["runs"]`` in turn
+    in this one process (``trainer_run``: a case in a precision), so that
+    the passes share one start and one group. Writes ``{case/precision:
+    record}`` to ``out_path``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from heatnet_tpu_torch.parallel import mesh as pm
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False  # as run_phases sets them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{spec['port']}",
+                            rank=rank, world_size=spec["procs"],
+                            timeout=datetime.timedelta(seconds=spec["timeout_s"]))
+    mesh = pm.create_mesh()
+    out = {}
+    for run in spec["runs"]:
+        t0 = time.perf_counter()
+        out[f"{run['case']}/{run['precision']}"] = dict(
+            trainer_run(dict(spec["inputs"], **run), mesh, rank),
+            seconds=time.perf_counter() - t0)
     with open(out_path, "w") as f:
-        json.dump({"rank": rank, "launches": launches, "ms": ms, "losses": losses,
-                   "reduce_ms": reduce_ms, "reduce_bytes": reduce_bytes,
-                   "replicas_equal": replicas_equal, "grads_compared": len(rows),
-                   "grads_bad": [r for r in rows if r[2] > r[3]],
-                   "grads_worst": sorted(rows, key=lambda r: r[2] / r[3])[-5:],
-                   "grads_farthest": max(rows, key=lambda r: r[2]),
-                   "grads_above_tol": sum(r[2] > GRAD_TOL for r in rows),
-                   "fault_caught": [[r[3] < 0.5, r[2] > r[3]] for r in fault_rows],
-                   "fault_least": sorted((r for r in fault_rows if r[3] < 0.5),
-                                         key=lambda r: r[2] / r[3])[:3],
-                   "stats_compared": len(stats_rows[-1]),
-                   "stats_worst": [r[:3] for r in stats_rows], "peak_gb": peak_gb,
-                   "shapes": [dict(json.loads(k), count=v) for k, v in shapes.items()]}, f)
+        json.dump(out, f)
     dist.destroy_process_group()
 
 
-def dp_adversarial_workers(work: str, spec: dict, precision: str) -> tuple:
-    """``DP_PROCS`` processes of ``dp_adversarial_worker`` in ``precision``:
-    their records and the seconds they took; ``fail`` on a worker's
-    failure."""
-    spec = dict(spec, port=free_port(), precision=precision)
-    spec_path = os.path.join(work, f"dp_11g_spec_{precision}.json")
+def trainer_workers(work: str, spec: dict, runs: list, procs: int, timeout_s: float) -> tuple:
+    """``procs`` processes of ``trainer_worker`` running ``runs`` (case,
+    precision, reference): every rank's records and the seconds they took;
+    ``fail`` on a worker's failure."""
+    tag = "-".join(sorted({r["case"] for r in runs}))
+    spec_path = os.path.join(work, f"trainer_{tag}_spec.json")
     with open(spec_path, "w") as f:
-        json.dump(spec, f)
-    outs = [os.path.join(work, f"dp_11g_{precision}_rank{r}.json") for r in range(DP_PROCS)]
-    env = dict(os.environ, WORLD_SIZE=str(DP_PROCS))
+        json.dump({"port": free_port(), "procs": procs, "timeout_s": timeout_s,
+                   "inputs": spec, "runs": runs}, f)
+    outs = [os.path.join(work, f"trainer_{tag}_rank{r}.json") for r in range(procs)]
+    env = dict(os.environ, WORLD_SIZE=str(procs))
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--dp-adversarial-worker", spec_path, outs[r]],
-                              env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(DP_PROCS)]
+    workers = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--trainer-worker", spec_path, outs[r]],
+                                env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+               for r in range(procs)]
     logs = []
     try:
-        for p in procs:
-            remaining = max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0))
+        for p in workers:
+            remaining = max(1.0, timeout_s - (time.perf_counter() - t0))
             logs.append(p.communicate(timeout=remaining)[0])
     except subprocess.TimeoutExpired:
-        fail(f"phase 11g: a {precision} worker did not exit within {DP_TIMEOUT_S} s")
+        fail(f"phases {tag}: a worker did not exit within {timeout_s} s")
     finally:
-        for p in procs:
+        for p in workers:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     workers_s = time.perf_counter() - t0
-    for r, (p, log) in enumerate(zip(procs, logs)):
+    for r, (p, log) in enumerate(zip(workers, logs)):
         if p.returncode != 0:
-            fail(f"phase 11g: {precision} worker {r} exited {p.returncode}:\n{log[-3000:]}")
+            fail(f"phases {tag}: worker {r} exited {p.returncode}:\n{log[-3000:]}")
     recs = []
     for out in outs:
         with open(out) as f:
@@ -2390,63 +2723,71 @@ def dp_adversarial_workers(work: str, spec: dict, precision: str) -> tuple:
     return recs, workers_s
 
 
-def dp_adversarial_phase(work: str, card: str, pack: str, teacher_ckpt: str, zero_counts,
-                         read_counts, check, time_ms) -> dict:
-    """Phase 11g: the one-process steps here (their launches, losses,
+def trainer_references(work: str, card: str, case: str, spec: dict, zero_counts,
+                       read_counts) -> dict:
+    """Case ``case``'s one-process steps here (their launches, losses,
     gradients and running statistics; again in float32 through the plain
-    versions, whose distance sets each bound), then the same steps over
-    ``DP_PROCS`` worker processes (``dp_adversarial_worker``), each on its
-    rows: in bf16 through the kernels against the one-process steps, and in
-    float32 through the plain versions against the float32 twin, each with
-    its planted fault; then every launch shape of the workers' grouped convs
-    against its plain version. Returns the phase's record; ``fail`` on any
-    disagreement."""
+    versions, whose distance sets each bound; ``finer`` cases also in
+    float64), and the reference of each pass of its workers, saved under
+    ``work``: bf16 against the one-process steps and float32 against the
+    float32 twin, or (``finer``) each one precision up. Returns the
+    one-process record and, per pass, its reference's path, losses and
+    launches."""
     import torch
 
-    t_phase = time.perf_counter()
     dev = torch.device("cuda")
-    spec = {"pack": pack, "teacher": teacher_ckpt}
-    per_step = [DP_PER_STEP[p] for p in DP_PHASES]
+    _, step_names, per_step, grad_steps, _, finer = TRAINER_CASES[case]
 
-    model, teacher, batch, draws = dp_adversarial_inputs(spec, dev)
+    run = trainer_setup(case, spec, dev)[0]
     once = []
     torch.cuda.reset_peak_memory_stats()
     with one_process_bn_group():
-        losses, ms, grads_k, stats = dp_adversarial_steps(
-            model, teacher, batch, draws, before=lambda i: zero_counts(),
+        losses, ms, grads_k, stats = run(
+            before=lambda i: zero_counts(),
             after=lambda i: once.append({k: v for k, v in read_counts().items()
                                          if k in per_step[0]}))
     peak_ref = torch.cuda.max_memory_allocated() / 1e9
     # warm, for the p50, through the default BN
-    ref_ms = dp_adversarial_steps(model, teacher, batch, draws)[1]
+    ref_ms = run()[1]
     if once != per_step:
-        fail(f"phase 11g: the one-process steps launched {once}, not {per_step}")
-    del model, teacher, batch
+        fail(f"phase {case}: the one-process steps launched {once}, not {per_step}")
+    del run
 
-    # the float32 twin: the same steps through the plain versions in float32
-    model, teacher, batch, draws = dp_adversarial_inputs(spec, dev, dtype=torch.float32)
-    zero_counts()
-    with plain_grouped_convs():
-        losses_p, _, grads_p, stats_p = dp_adversarial_steps(model, teacher, batch, draws)
-    if any(read_counts().values()):
-        fail("phase 11g: the plain-version steps launched a kernel")
-    del model, teacher, batch
-    torch.cuda.empty_cache()
-    # bf16: each gradient's bound twice the one-process step's distance from
-    # its float32 twin, at least GRAD_TOL; each running statistic's twice
-    # that distance, at least SPATIAL_STATS_TOL. Two bf16 steps that each lie
-    # that far from the float32 twin lie within twice it of each other (13e's
-    # rule for the statistics). float32: GRAD_TOL and SPATIAL_STATS_TOL
-    # themselves, against the twin
-    dist_plain = [{k: float((g[k] - gp[k]).norm() / gp[k].norm()) for k in gp
-                   if float(g[k].norm()) >= 1e-4} for g, gp in zip(grads_k, grads_p)]
-    tol = [{k: max(GRAD_TOL, 2.0 * v) for k, v in d.items()} for d in dist_plain]
-    stats_tol = [{k: max(SPATIAL_STATS_TOL, 2.0 * stats_rel(a[k], b[k])) for k in a}
-                 for a, b in zip(stats, stats_p)]
-    print(f"  11g: the one-process steps against their plain versions in float32: gradients of steps "
-          f"{list(DP_GRAD_STEPS)} rel L2 max {[round(max(d.values()), 4) for d in dist_plain]} "
-          f"over {[len(d) for d in dist_plain]} tensors; running statistics apart by up to "
-          f"{[round(max(stats_rel(a[k], b[k]) for k in a), 5) for a, b in zip(stats, stats_p)]}; "
+    def twin(dtype):
+        """The same steps through the plain versions in ``dtype``."""
+        run = trainer_setup(case, spec, dev, dtype=dtype)[0]
+        zero_counts()
+        with plain_grouped_convs():
+            out = run()
+        if any(read_counts().values()):
+            fail(f"phase {case}: the {dtype} plain-version steps launched a kernel")
+        del run
+        torch.cuda.empty_cache()
+        return out
+
+    def bounds(grads, grads_ref, stats_, stats_ref):
+        """Each gradient's bound, twice ``grads``' distance from
+        ``grads_ref``, at least GRAD_TOL, over the gradients ``grads_ref``
+        holds above 1e-4 (``finer``; the compared run's otherwise: a bias
+        before an instance norm has a gradient that is rounding only, which
+        bf16 can lift past 1e-4), and each statistic's (``stats_bounds``)."""
+        held = grads_ref if finer else grads
+        dist = [{k: float((g[k] - gr[k]).norm() / gr[k].norm()) for k in gr
+                 if float(h[k].norm()) >= 1e-4} for g, gr, h in zip(grads, grads_ref, held)]
+        return (dist, [{k: max(GRAD_TOL, 2.0 * v) for k, v in d.items()} for d in dist],
+                [stats_bounds(a, b, finer) for a, b in zip(stats_, stats_ref)])
+
+    # the float32 twin: bf16's bounds are twice the one-process step's
+    # distance from it, at least GRAD_TOL and SPATIAL_STATS_TOL. Two bf16
+    # steps that each lie that far from the float32 twin lie within twice it
+    # of each other (13e's rule for the statistics)
+    losses_p, _, grads_p, stats_p = twin(torch.float32)
+    dist_plain, tol, stats_tol = bounds(grads_k, grads_p, stats, stats_p)
+    print(f"  {case}: the one-process steps against their plain versions in float32: "
+          f"gradients of steps {list(grad_steps)} rel L2 max "
+          f"{[round(max(d.values()), 4) for d in dist_plain]} over "
+          f"{[len(d) for d in dist_plain]} tensors; running statistics apart by up to "
+          f"{[round(max(stats_dist(a, b, finer).values()), 5) for a, b in zip(stats, stats_p)]}; "
           f"losses {[round(v, 6) for v in losses_p]} in float32, the bf16 steps' "
           f"{[round(abs(a - b) / abs(b), 5) for a, b in zip(losses, losses_p)]} relative from them",
           flush=True)
@@ -2458,112 +2799,185 @@ def dp_adversarial_phase(work: str, card: str, pack: str, teacher_ckpt: str, zer
                for lo, hi in zip((0.0,) + edges, edges + (float("inf"),))] for t in tol]
     loose = [(step, k, round(dist_plain[step][k], 4), round(b, 4))
              for step, t in enumerate(tol) for k, b in sorted(t.items()) if b >= 0.5]
-    print(f"  11g: bf16 gradient bounds per step in (0, {GRAD_TOL}], ({GRAD_TOL}, 0.1], "
+    print(f"  {case}: bf16 gradient bounds per step in (0, {GRAD_TOL}], ({GRAD_TOL}, 0.1], "
           f"(0.1, 0.25], (0.25, 0.5], above 0.5: {spread}; {len(loose)} of "
           f"{sum(len(t) for t in tol)} at 0.5 or more (step, name, distance from float32, "
           f"bound): {loose}", flush=True)
+    def loss_tol(losses_, losses_ref):
+        """Each step's loss bound: STEP_LOSS_TOL, or (``finer``) at least
+        twice the one process's largest distance from the reference's
+        losses over the steps: each step's distance is one draw of the
+        rounding (the third bf16 step's loss at 13g's point moved 7.6065 to
+        7.6787 between two runs of the one process)."""
+        far = max(abs(a - b) / abs(b) for a, b in zip(losses_, losses_ref))
+        return [max(STEP_LOSS_TOL, 2.0 * far) if finer else STEP_LOSS_TOL for _ in losses_]
+
+    bf16_ref = (grads_p, stats_p, losses_p) if finer else (grads_k, stats, losses)
     passes = {
-        "bf16": {"grads": [{k: g[k] for k in t} for g, t in zip(grads_k, tol)], "tol": tol,
-                 "stats": stats, "stats_tol": stats_tol, "losses": losses,
-                 "launches": per_step},
+        "bf16": {"grads": [{k: g[k] for k in t} for g, t in zip(bf16_ref[0], tol)], "tol": tol,
+                 "stats": bf16_ref[1], "stats_tol": stats_tol, "losses": bf16_ref[2],
+                 "loss_tol": loss_tol(losses, bf16_ref[2]), "launches": per_step},
         "float32": {"grads": [{k: g[k] for k in g if float(g[k].norm()) >= 1e-4}
                               for g in grads_p],
                     "stats": stats_p, "losses": losses_p,
+                    "loss_tol": [STEP_LOSS_TOL] * len(losses_p),
                     "launches": [{k: 0 for k in s} for s in per_step]}}
     passes["float32"]["tol"] = [{k: GRAD_TOL for k in g} for g in passes["float32"]["grads"]]
     passes["float32"]["stats_tol"] = [{k: SPATIAL_STATS_TOL for k in s} for s in stats_p]
-    del grads_k, grads_p, stats_p
-
+    if finer:  # the float64 twin: the float32 pass's reference and bounds
+        losses_d, _, grads_d, stats_d = twin(torch.float64)
+        dist_d, tol_d, stats_tol_d = bounds(grads_p, grads_d, stats_p, stats_d)
+        passes["float32"].update(
+            losses=losses_d, loss_tol=loss_tol(losses_p, losses_d), tol=tol_d,
+            stats_tol=stats_tol_d,
+            grads=[{k: gd[k] for k in t} for gd, t in zip(grads_d, tol_d)], stats=stats_d)
+        print(f"  {case}: the float32 twin against a float64 twin: gradients rel L2 max "
+              f"{[round(max(d.values()), 4) for d in dist_d]} over "
+              f"{[len(d) for d in dist_d]} tensors, "
+              f"{sum(v > GRAD_TOL / 2 for d in dist_d for v in d.values())} beyond "
+              f"{GRAD_TOL / 2}; running statistics apart by up to "
+              f"{[round(max(stats_dist(a, b, True).values()), 5) for a, b in zip(stats_p, stats_d)]}; "
+              f"losses {[round(v, 6) for v in losses_d]}", flush=True)
     print(f"  {card}", flush=True)
     ref_p50 = float(np.percentile(ref_ms, 50))
-    print(f"  11g one process, batch {N_ADV} of {CROP[0]}x{CROP[1]} (host clock, forward "
-          f"to the optimizer): step ms {[round(v, 2) for v in ms]}, then warm "
+    print(f"  {case} one process (host clock, forward to the optimizer): step ms "
+          f"{[round(v, 2) for v in ms]} ({list(step_names)}), then warm "
           f"{[round(v, 2) for v in ref_ms]}, p50 {ref_p50:.3f}; losses "
           f"{[round(v, 6) for v in losses]}; launches per step {once}; peak "
           f"{peak_ref:.3f} GB", flush=True)
-    failures, out = [], {}
     for precision, want in passes.items():
-        reference = os.path.join(work, f"dp_11g_reference_{precision}.pt")
-        torch.save({k: want[k] for k in ("grads", "tol", "stats", "stats_tol")}, reference)
-        recs, workers_s = dp_adversarial_workers(work, dict(spec, reference=reference),
-                                                 precision)
-        for rec in recs:
-            tag = f"11g {precision} worker {rec['rank']}"
-            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], want["losses"]))
-            stats_w = max((rows[0] for rows in rec["stats_worst"]), key=lambda r: r[0])
-            tight = [caught for held, caught in rec["fault_caught"] if held]
-            print(f"  {tag} (batch {N_ADV // DP_PROCS}): per step launches "
-                  f"{rec['launches']}; gradient all-reduce MB "
-                  f"{[round(b / 1e6, 3) for b in rec['reduce_bytes']]} in ms "
-                  f"{[round(v, 2) for v in rec['reduce_ms']]} (CUDA events: to the host, gloo, "
-                  f"back); step ms {[round(v, 1) for v in rec['ms']]}, p50 "
-                  f"{float(np.percentile(rec['ms'], 50)):.1f} ({DP_PROCS} processes share one "
-                  f"card: not a latency figure); peak {rec['peak_gb']:.3f} GB", flush=True)
-            print(f"  {tag} against one process: losses {[round(v, 6) for v in rec['losses']]} "
-                  f"(largest rel {loss_rel:.3g}, tolerance {STEP_LOSS_TOL}); "
-                  f"{rec['grads_compared']} step gradients of norm >= 1e-4, "
-                  f"{len(rec['grads_bad'])} beyond their bound, nearest (step, name, distance, "
-                  f"bound) {rec['grads_worst'][-3:]}, farthest {rec['grads_farthest']}, "
-                  f"{rec['grads_above_tol']} farther than {GRAD_TOL}; running statistics of "
-                  f"{rec['stats_compared']} tensors, nearest their bound after each step "
-                  f"{[[(k, d, b) for _, d, b, k in w] for w in rec['stats_worst']]}; "
-                  f"parameters equal to the other rank's after each step "
-                  f"{rec['replicas_equal']}", flush=True)
-            print(f"  {tag}, the planted fault (its own part of each gradient, as if the "
-                  f"all-reduce were skipped on this rank): beyond its bound on {sum(tight)} of "
-                  f"the {len(tight)} tensors bound below 0.5 and "
-                  f"{sum(c for held, c in rec['fault_caught'] if not held)} of the "
-                  f"{len(rec['fault_caught']) - len(tight)} others; nearest their bound "
-                  f"(step, name, distance, bound) {rec['fault_least']}", flush=True)
-            if not loss_rel <= STEP_LOSS_TOL:
-                failures.append(f"{tag}: loss rel {loss_rel}")
-            if rec["grads_bad"] or rec["grads_compared"] < 50:
-                failures.append(f"{tag}: gradients {rec['grads_bad'][:5]} of "
-                                f"{rec['grads_compared']}")
-            if not any(tight):
-                failures.append(f"{tag}: the planted fault passed the gradient check")
-            if not stats_w[0] <= 1.0 or rec["stats_compared"] < 50:
-                failures.append(f"{tag}: running statistics {stats_w}")
-            if rec["launches"] != want["launches"]:
-                failures.append(f"{tag}: launches {rec['launches']}")
-            if rec["replicas_equal"] != [True] * len(DP_PHASES):
-                failures.append(f"{tag}: replicas {rec['replicas_equal']}")
-        out[precision] = (recs, workers_s)
+        path = os.path.join(work, f"trainer_{case}_reference_{precision}.pt")
+        torch.save({k: want[k] for k in ("grads", "tol", "stats", "stats_tol")}, path)
+        passes[precision] = {"reference": path, "losses": want["losses"],
+                             "loss_tol": want["loss_tol"], "launches": want["launches"]}
+    return {"passes": passes, "one_process_step_ms": ms, "one_process_warm_step_ms": ref_ms,
+            "one_process_step_ms_p50": ref_p50, "one_process_losses": losses,
+            "one_process_peak_gb": peak_ref, "grad_bounds_spread": spread,
+            "grad_bounds_at_half": loose, "float32_losses": losses_p}
+
+
+def trainer_phase(work: str, card: str, cases, spec: dict, zero_counts, read_counts,
+                  check, time_ms) -> dict:
+    """Phases ``cases`` of ``TRAINER_CASES`` (one worker count): each case's
+    one-process references (``trainer_references``), then one launch of the
+    worker processes (``trainer_worker``) that runs every case's bf16 and
+    float32 passes, each on its part, each held to its reference with its
+    planted fault; then every launch shape of each case's bf16 workers
+    against its plain version. Returns ``{case: record}``; ``fail`` on any
+    disagreement."""
+    import torch
+
+    t_phase = time.perf_counter()
+    procs = {TRAINER_CASES[c][0] for c in cases}.pop()
+    timeout_s = sum(TRAINER_CASES[c][4] for c in cases)
+    refs = {}
+    for case in cases:
+        with (deterministic_steps() if case in DETERMINISTIC_CASES
+              else contextlib.nullcontext()):
+            refs[case] = trainer_references(work, card, case, spec, zero_counts, read_counts)
+    torch.cuda.empty_cache()
+    runs = [{"case": case, "precision": precision, "reference": p["reference"]}
+            for case in cases for precision, p in refs[case]["passes"].items()]
+    recs, workers_s = trainer_workers(work, spec, runs, procs, timeout_s)
+    failures, out = [], {}
+    for case in cases:
+        step_names, per_step = TRAINER_CASES[case][1:3]
+        for precision, want in refs[case]["passes"].items():
+            for rank in recs:
+                rec = rank[f"{case}/{precision}"]
+                tag = f"{case} {precision} worker {rec['rank']}"
+                loss_rel = max(abs(a - b) / abs(b) / t for a, b, t in zip(
+                    rec["losses"], want["losses"], want["loss_tol"]))
+                stats_w = max((rows[0] for rows in rec["stats_worst"]), key=lambda r: r[0])
+                tight = [caught for held, caught in rec["fault_caught"] if held]
+                ex = rec["exchange"]
+                print(f"  {tag}: per step launches {rec['launches']}; gradient all-reduce MB "
+                      f"{[round(b / 1e6, 3) for b in rec['reduce_bytes']]} in ms "
+                      f"{[round(v, 2) for v in rec['reduce_ms']]} (CUDA events: to the host, "
+                      f"gloo, back); exchanges of rows per step: forward "
+                      f"{[e['calls'] for e in ex]}, MB received "
+                      f"{[round(e['bytes'] / 1e6, 3) for e in ex]}, backward "
+                      f"{[e['bwd_calls'] for e in ex]}, MB summed "
+                      f"{[round(e['bwd_bytes'] / 1e6, 3) for e in ex]}; ms per step in "
+                      f"all_gather {[round(e['all_gather'], 1) for e in rec['exchange_ms']]} "
+                      f"and all_reduce_sum "
+                      f"{[round(e['all_reduce_sum'], 1) for e in rec['exchange_ms']]}; step ms "
+                      f"{[round(v, 1) for v in rec['ms']]}, p50 "
+                      f"{float(np.percentile(rec['ms'], 50)):.1f} ({procs} processes share "
+                      f"one card: not a latency figure); peak {rec['peak_gb']:.3f} GB; pass "
+                      f"{rec['seconds']:.1f} s", flush=True)
+                print(f"  {tag} against one process: losses "
+                      f"{[round(v, 6) for v in rec['losses']]} (largest rel distance over its "
+                      f"bound {loss_rel:.3g}; bounds "
+                      f"{[round(t, 5) for t in want['loss_tol']]}); {rec['grads_compared']} "
+                      f"step gradients of "
+                      f"norm >= 1e-4, {len(rec['grads_bad'])} beyond their bound, nearest "
+                      f"(step, name, distance, bound) {rec['grads_worst'][-3:]}, farthest "
+                      f"{rec['grads_farthest']}, {rec['grads_above_tol']} farther than "
+                      f"{GRAD_TOL}; running statistics of {rec['stats_compared']} tensors, "
+                      f"nearest their bound after each step "
+                      f"{[[(k, d, b) for _, d, b, k in w] for w in rec['stats_worst']]}; "
+                      f"parameters equal to the other ranks' after each step "
+                      f"{rec['replicas_equal']}", flush=True)
+                print(f"  {tag}, the planted fault (its own part of each gradient, as if the "
+                      f"all-reduce were skipped on this rank): beyond its bound on "
+                      f"{sum(tight)} of the {len(tight)} tensors bound below 0.5 and "
+                      f"{sum(c for held, c in rec['fault_caught'] if not held)} of the "
+                      f"{len(rec['fault_caught']) - len(tight)} others; nearest their bound "
+                      f"(step, name, distance, bound) {rec['fault_least']}", flush=True)
+                if not loss_rel <= 1.0:
+                    failures.append(f"{tag}: loss rel over its bound {loss_rel}")
+                if rec["grads_bad"] or rec["grads_compared"] < 50:
+                    failures.append(f"{tag}: gradients {rec['grads_bad'][:5]} of "
+                                    f"{rec['grads_compared']}")
+                if not any(tight):
+                    failures.append(f"{tag}: the planted fault passed the gradient check")
+                if not stats_w[0] <= 1.0 or rec["stats_compared"] < 50:
+                    failures.append(f"{tag}: running statistics {stats_w}")
+                if rec["launches"] != want["launches"]:
+                    failures.append(f"{tag}: launches {rec['launches']}")
+                if rec["replicas_equal"] != [True] * len(step_names):
+                    failures.append(f"{tag}: replicas {rec['replicas_equal']}")
     if failures:
-        fail(f"phase 11g: the data-parallel steps disagree with one process: {failures}")
-    recs, workers_s = out["bf16"]
-    print("kernels: the launch shapes of phase 11g's bf16 workers against the plain versions",
-          flush=True)
-    errs = spatial_shapes({"11g": recs[0]}, check, time_ms)["max_abs_err"]
-    print(f"  11g: workers bf16 {workers_s:.1f} s, float32 {out['float32'][1]:.1f} s; phase "
-          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    launches = {k: sum(sum(c[k] for c in rec["launches"]) for rec in recs) for k in per_step[0]}
+        fail(f"phases {list(cases)}: the steps over {procs} processes disagree with one "
+             f"process: {failures}")
 
     def fault(rs):
         return [[sum(c for h, c in r["fault_caught"] if h), sum(h for h, _ in r["fault_caught"]),
                  sum(c for h, c in r["fault_caught"] if not h),
                  sum(not h for h, _ in r["fault_caught"])] for r in rs]
 
-    f32 = out["float32"][0]
-    return {"launches": launches, "one_process_step_ms": ms,
-            "one_process_warm_step_ms": ref_ms, "one_process_step_ms_p50": ref_p50,
-            "one_process_losses": losses, "one_process_peak_gb": peak_ref,
-            "worker_step_ms_p50": [float(np.percentile(rec["ms"], 50)) for rec in recs],
-            "worker_losses": [rec["losses"] for rec in recs],
-            "reduce_bytes": [rec["reduce_bytes"] for rec in recs],
-            "reduce_ms": [rec["reduce_ms"] for rec in recs],
-            "grads_worst": [rec["grads_worst"] for rec in recs],
-            "grads_farthest": [rec["grads_farthest"] for rec in recs],
-            "grads_above_tol": [rec["grads_above_tol"] for rec in recs],
-            "grad_bounds_spread": spread, "grad_bounds_at_half": loose,
-            "fault_caught": fault(recs), "float32_losses": losses_p,
-            "float32_worker_losses": [rec["losses"] for rec in f32],
-            "float32_grads_worst": [rec["grads_worst"] for rec in f32],
-            "float32_stats_worst": [rec["stats_worst"] for rec in f32],
-            "float32_fault_caught": fault(f32), "float32_workers_s": out["float32"][1],
-            "stats_worst": [rec["stats_worst"] for rec in recs],
-            "peak_gb": [rec["peak_gb"] for rec in recs], "workers_s": workers_s,
-            "max_abs_err": errs}
+    for case in cases:
+        per_step = TRAINER_CASES[case][2]
+        bf16 = [rank[f"{case}/bf16"] for rank in recs]
+        f32 = [rank[f"{case}/float32"] for rank in recs]
+        print(f"kernels: the launch shapes of phase {case}'s bf16 workers against the plain "
+              "versions", flush=True)
+        errs = spatial_shapes({case: bf16[0]}, check, time_ms)["max_abs_err"]
+        ref = {k: v for k, v in refs[case].items() if k != "passes"}
+        out[case] = dict(
+            ref, launches={k: sum(sum(c[k] for c in r["launches"]) for r in bf16)
+                           for k in per_step[0]},
+            worker_step_ms=[r["ms"] for r in bf16],
+            worker_step_ms_p50=[float(np.percentile(r["ms"], 50)) for r in bf16],
+            worker_losses=[r["losses"] for r in bf16],
+            reduce_bytes=[r["reduce_bytes"] for r in bf16],
+            reduce_ms=[r["reduce_ms"] for r in bf16],
+            exchange_per_step=[r["exchange"] for r in bf16],
+            exchange_ms=[r["exchange_ms"] for r in bf16],
+            grads_worst=[r["grads_worst"] for r in bf16],
+            grads_farthest=[r["grads_farthest"] for r in bf16],
+            grads_above_tol=[r["grads_above_tol"] for r in bf16],
+            fault_caught=fault(bf16), stats_worst=[r["stats_worst"] for r in bf16],
+            float32_worker_losses=[r["losses"] for r in f32],
+            float32_grads_worst=[r["grads_worst"] for r in f32],
+            float32_stats_worst=[r["stats_worst"] for r in f32],
+            float32_fault_caught=fault(f32), peak_gb=[r["peak_gb"] for r in bf16],
+            pass_seconds=[[r["seconds"] for r in bf16], [r["seconds"] for r in f32]],
+            max_abs_err=errs)
+    print(f"  phases {list(cases)}: workers {workers_s:.1f} s (every pass, one start); "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
 
 
 def main() -> None:
@@ -2582,8 +2996,8 @@ def main() -> None:
     if sys.argv[1:2] == ["--spatial-train-worker"]:
         spatial_train_worker(*sys.argv[2:4])
         return
-    if sys.argv[1:2] == ["--dp-adversarial-worker"]:
-        dp_adversarial_worker(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--trainer-worker"]:
+        trainer_worker(*sys.argv[2:4])
         return
     with tempfile.TemporaryDirectory() as work:
         run_phases(work)
@@ -5296,31 +5710,6 @@ def run_phases(work: str) -> None:
         del state
         return paths
 
-    class DeterministicResize(torch.autograd.Function):
-        """``F.interpolate``'s bilinear resize with a backward that takes the
-        same sums in a fixed order (the interpolation matrices, one einsum):
-        the CUDA backward adds with atomics, so the critics' resizes make a
-        seg step's gradient differ in its last bits from run to run."""
-
-        @staticmethod
-        def forward(ctx, x, hw):
-            ctx.in_hw = x.shape[2:]
-            return F.interpolate(x, size=hw, mode="bilinear", align_corners=False)
-
-        @staticmethod
-        def backward(ctx, dy):
-            def weights(n_in, n_out):
-                eye = torch.eye(n_in, device=dy.device, dtype=dy.dtype)[None]
-                return F.interpolate(eye, size=n_out, mode="linear", align_corners=False)[0]
-
-            ay, ax = weights(ctx.in_hw[0], dy.shape[2]), weights(ctx.in_hw[1], dy.shape[3])
-            return torch.einsum("ncHW,hH,wW->nchw", dy, ay, ax), None
-
-    def deterministic_resize(x, hw):
-        if tuple(x.shape[2:]) == tuple(hw):
-            return x
-        return DeterministicResize.apply(x, tuple(hw))
-
     def vis_run(vis: bool, tag: str):
         argv = ["--dataroot", adv_pack, "--batch_size", str(N_ADV), "--discarch",
                 "cyclegan", "--num_critics", "6", "--moddrop", "--irscale",
@@ -5568,8 +5957,9 @@ def run_phases(work: str) -> None:
     print(f"trainers data parallel 11g: critic, seg and critic steps at phase 4c's point "
           f"(ResNeXt-50, 6 cyclegan critics, IR teacher, batch {N_ADV} of "
           f"{CROP[0]}x{CROP[1]}) over {DP_PROCS} gloo processes on one card", flush=True)
-    later["dp_adversarial"] = dp_adversarial_phase(work, card, adv_pack, teacher_ckpt,
-                                                   zero_counts, q_counts, check, time_ms)
+    later["dp_adversarial"] = trainer_phase(work, card, ("11g",), {"pack": adv_pack,
+                                                                  "teacher": teacher_ckpt},
+                                            zero_counts, q_counts, check, time_ms)["11g"]
     dp_err = later["dp_adversarial"].pop("max_abs_err")
     print(f"  phases 11f-11g: {time.perf_counter() - t_11f:.1f} s", flush=True)
 
@@ -5595,6 +5985,26 @@ def run_phases(work: str) -> None:
     torch.cuda.empty_cache()
     later.update(spatial_train_phase(work, card, zero_counts, q_counts, check, time_ms))
     train_err = later["spatial_train"].pop("max_abs_err")
+
+    # 13g-13h. the adversarial steps (phase 4c's nets at batch 4) and the
+    # CycleGAN rounds (config #5's nets at batch 2 of 256x256) split by rows
+    # over the same 4 gloo processes against one process on the whole batch;
+    # launches read in each worker
+    torch.cuda.empty_cache()
+    print(f"spatial path 13g-13h: critic, seg and critic steps at phase 4c's point "
+          f"(ResNeXt-50, 6 cyclegan critics, IR teacher) at batch {N_SPATIAL_ADV} of "
+          f"{CROP[0]}x{CROP[1]}, and {CG_ROUNDS} CycleGAN rounds of config #5's nets (9-block "
+          f"generators, netSeg ResNeXt-50) at batch {N_SPATIAL_CG} of {CG_HW}x{CG_HW}, split "
+          f"by rows over {SPATIAL_PROCS} gloo processes on one card", flush=True)
+    t_13g = time.perf_counter()
+    by_rows = trainer_phase(work, card, ("13g", "13h"), {"pack": adv_pack,
+                                                        "teacher": teacher_ckpt},
+                            zero_counts, q_counts, check, time_ms)
+    for phase, record in (("13g", "spatial_adversarial"), ("13h", "spatial_cyclegan")):
+        later[record] = by_rows[phase]
+        err = later[record].pop("max_abs_err")
+        train_err = {k: max(v, err[k]) for k, v in train_err.items()}
+    print(f"  phases 13g-13h: {time.perf_counter() - t_13g:.1f} s", flush=True)
 
     # 14. the record: each kernel's launches on every path, read around it
     paths = {"serving": launches, "train_plain": train_launches, "train_conf": adv_launches,
@@ -5638,8 +6048,8 @@ def run_phases(work: str) -> None:
          "launches_by_path": {"forward": by_path("grouped_conv3x3"),
                               "fused": by_path("grouped_conv3x3_fused")},
          "max_abs_err": max(gc_err, spatial_err["grouped_conv3x3_fused"],
-                            train_err["grouped_conv3x3"], dp_err["grouped_conv3x3"],
-                            dp_err["grouped_conv3x3_fused"]),
+                            train_err["grouped_conv3x3"], train_err["grouped_conv3x3_fused"],
+                            dp_err["grouped_conv3x3"], dp_err["grouped_conv3x3_fused"]),
          "train_conf_launches": {
              "forward": adv_launches["grouped_conv3x3"],
              "fused": adv_launches["grouped_conv3x3_fused"],

@@ -17,6 +17,15 @@ A PyTorch module needs its input width, so each takes ``in_channels``
 ``compute_dtype`` (bf16 on the card, set by ``prepare_for_training``) from
 float32 parameters, and the maps come out float32 (float64 stays float64), as in the JAX
 modules.
+
+Split by rows (``parallel.spatial.spatial_parallel``) each critic runs its
+maps by rows while its strided windows split the shards, and gathers the
+first map they do not split whole (``spatial.RowsThenWhole``: at the
+operating point the 1/32 map of a 320-row tap over 4 processes, 2.5 rows a
+shard; ``PoolDiscriminator``'s stride-1 4x4 convs, which take H to H-1);
+the rest runs on the whole map, every process alike. ``FCDiscriminator``'s
+map is resized back to the tap's rows of each shard; the pooled scores
+``(N, 1)`` are the whole frame's, the same on every process.
 """
 
 from __future__ import annotations
@@ -26,7 +35,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .extractors import make_resnet
-from .layers import Conv2d, at_least_f32, instance_norm, normal002_conv, resize_bilinear
+from ..parallel import spatial
+from .layers import (Conv2d, at_least_f32, global_avg_pool, instance_norm, normal002_conv,
+                     resize_bilinear)
 
 
 class FCDiscriminator(nn.Module):
@@ -45,10 +56,15 @@ class FCDiscriminator(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         in_hw = x.shape[1:3]
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
-        for i in range(4):
-            x = F.leaky_relu(getattr(self, f"conv{i + 1}")(x), 0.2)
-        x = self.classifier(x)
-        return resize_bilinear(at_least_f32(x), in_hw).permute(0, 2, 3, 1)
+        with spatial.RowsThenWhole() as frame:
+            for i in range(4):
+                conv = getattr(self, f"conv{i + 1}")
+                x = F.leaky_relu(conv(frame.ready(x, *conv.window)), 0.2)
+            x = at_least_f32(self.classifier(frame.ready(x, *self.classifier.window)))
+        if frame.is_whole:  # each shard's rows of the resize to the whole tap
+            return resize_bilinear(x, (spatial.frame_rows(in_hw[0]), in_hw[1]),
+                                   frame=True).permute(0, 2, 3, 1)
+        return resize_bilinear(x, in_hw).permute(0, 2, 3, 1)
 
 
 class PoolDiscriminator(nn.Module):
@@ -65,11 +81,12 @@ class PoolDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
-        x = F.leaky_relu(self.conv1(x), 0.2)
-        x = F.leaky_relu(instance_norm(self.conv2(x)), 0.2)
-        x = F.leaky_relu(instance_norm(self.conv3(x)), 0.2)
-        x = F.leaky_relu(instance_norm(self.conv4(x)), 0.2)
-        return at_least_f32(self.conv5(x)).mean(dim=(2, 3))
+        with spatial.RowsThenWhole() as frame:
+            x = F.leaky_relu(self.conv1(frame.ready(x, *self.conv1.window)), 0.2)
+            for conv in (self.conv2, self.conv3, self.conv4):
+                x = F.leaky_relu(instance_norm(conv(frame.ready(x, *conv.window))), 0.2)
+            x = self.conv5(frame.ready(x, *self.conv5.window))
+            return global_avg_pool(at_least_f32(x)).flatten(1)
 
 
 class DownNet(nn.Module):
@@ -85,6 +102,8 @@ class DownNet(nn.Module):
         self.compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Split by rows each shard's rows (even, so that every 0.5x output
+        row reads two rows of its own shard)."""
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         for i in range(self.downsampling):
             x = instance_norm(getattr(self, f"down{i + 1}_conv")(x))

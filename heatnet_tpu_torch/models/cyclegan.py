@@ -18,7 +18,17 @@ conv has a bias (flax ``nn.Conv``'s default) and a N(0, 0.02) random init.
 
 NHWC at the surface; the convolutions run in ``compute_dtype`` (bf16 on the
 card, set by ``prepare_for_training``/``prepare_for_inference``), instance
-norms take their statistics in float32, and the output is the float32 tanh.
+norms take their statistics in float32, and the output is the float32 tanh
+(float64 stays float64).
+
+Split by rows (``parallel.spatial.spatial_parallel``) every layer computes
+its shard's rows: a reflect pad takes its rows of halo from the neighbouring
+shards and mirrors only at the frame's true top and bottom
+(``spatial.halo_rows(reflect=True)``; the width is each shard's own), and the
+VALID conv after it runs on the extended shard as it stands
+(``Conv2d.local``); the stride-2 convs and the output-padded transposed convs
+exchange their halos, and the instance norms take their statistics over the
+whole frame.
 """
 
 from __future__ import annotations
@@ -27,12 +37,20 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import spatial
 from .critics import PoolDiscriminator as Discriminator  # noqa: F401
-from .layers import NORMAL002, ConvTranspose2d, instance_norm, normal002_conv
+from .layers import (NORMAL002, Conv2d, ConvTranspose2d, at_least_f32, instance_norm,
+                     normal002_conv)
 
 
-def _reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
-    return F.pad(x, (p, p, p, p), mode="reflect")
+def _reflect_conv(conv: Conv2d, x: torch.Tensor, p: int) -> torch.Tensor:
+    """``conv`` (unpadded) of ``x`` reflect-padded by ``p`` rows and
+    columns; split by rows, of the shard with ``p`` rows of halo a side,
+    mirrored at the frame's edges only."""
+    if spatial.spatial_group() is None:
+        return conv(F.pad(x, (p, p, p, p), mode="reflect"))
+    x = spatial.halo_rows(x, p, p, reflect=True)
+    return conv.local(F.pad(x, (p, p, 0, 0), mode="reflect"))
 
 
 class ResidualBlock(nn.Module):
@@ -44,8 +62,8 @@ class ResidualBlock(nn.Module):
         self.conv2 = normal002_conv(features, features, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(instance_norm(self.conv1(_reflect_pad(x, 1))))
-        return x + instance_norm(self.conv2(_reflect_pad(y, 1)))
+        y = F.relu(instance_norm(_reflect_conv(self.conv1, x, 1)))
+        return x + instance_norm(_reflect_conv(self.conv2, y, 1))
 
 
 def _up(in_channels: int, features: int) -> ConvTranspose2d:
@@ -74,12 +92,12 @@ class Generator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x.to(self.compute_dtype).permute(0, 3, 1, 2)
-        y = F.relu(instance_norm(self.inconv(_reflect_pad(y, 3))))
+        y = F.relu(instance_norm(_reflect_conv(self.inconv, y, 3)))
         y = F.relu(instance_norm(self.down1(y)))
         y = F.relu(instance_norm(self.down2(y)))
         for i in range(self.n_residual_blocks):
             y = getattr(self, f"res{i + 1}")(y)
         y = F.relu(instance_norm(self.up1(y)))
         y = F.relu(instance_norm(self.up2(y)))
-        y = self.outconv(_reflect_pad(y, 3))
-        return torch.tanh(y.float()).permute(0, 2, 3, 1)
+        y = _reflect_conv(self.outconv, y, 3)
+        return torch.tanh(at_least_f32(y)).permute(0, 2, 3, 1)

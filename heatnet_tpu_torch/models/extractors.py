@@ -37,7 +37,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm, Linear, at_least_f32, conv, max_pool_3x3_s2
+from ..parallel import spatial
+from .layers import BatchNorm, Linear, at_least_f32, conv, global_avg_pool, max_pool_3x3_s2
 
 
 class BasicBlock(nn.Module):
@@ -122,7 +123,11 @@ def _nhwc(taps: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 class ResNet(nn.Module):
     """extractors.py:114-175 in classifier mode (``num_classes`` set:
     ``forward`` returns float32 ``(N, num_classes)``) or extractor mode
-    (``num_classes=None``: five NHWC taps, deepest first)."""
+    (``num_classes=None``: five NHWC taps, deepest first).
+
+    Split by rows, a classifier (a critic on a tap) gathers the first map
+    that a stride-2 window does not split (``spatial.RowsThenWhole``) and
+    runs the rest whole; its global pool is the whole frame's."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 23, 3),
                  block_name: str = "bottleneck", late_fusion: bool = False,
@@ -136,6 +141,7 @@ class ResNet(nn.Module):
         # the classifier, stride-1 dilated layer3/4 for the extractor
         deep = ((2, 1), (2, 1)) if self.classifier else ((1, 2), (1, 4))
         geometry = ((64, 1, 1), (128, 2, 1), (256,) + deep[0], (512,) + deep[1])
+        self.strides = [g[1] for g in geometry]
         twins = ("", "_2") if self.late_fusion else ("",)
         stem_in = RGB_CHANNELS if self.late_fusion else in_channels
         for sfx in twins:
@@ -154,9 +160,13 @@ class ResNet(nn.Module):
             self.fc = Linear(in_ch, num_classes)
         self.compute_dtype = torch.float32
 
-    def _stem(self, x: torch.Tensor, sfx: str = "") -> torch.Tensor:
-        x = getattr(self, f"conv1{sfx}")(_nchw(x, self.compute_dtype))
-        return max_pool_3x3_s2(F.relu(getattr(self, f"bn1{sfx}")(x)))
+    def _stem(self, x: torch.Tensor, sfx: str = "",
+              frame: Optional[spatial.RowsThenWhole] = None) -> torch.Tensor:
+        stem = getattr(self, f"conv1{sfx}")
+        x = _nchw(x, self.compute_dtype)
+        x = stem(x if frame is None else frame.ready(x, *stem.window))
+        x = F.relu(getattr(self, f"bn1{sfx}")(x))
+        return max_pool_3x3_s2(x if frame is None else frame.ready(x, 3, 2, 1))
 
     def forward(self, modal_1: torch.Tensor, modal_2: Optional[torch.Tensor] = None):
         if self.late_fusion:
@@ -168,15 +178,15 @@ class ResNet(nn.Module):
             x_4 = self.layer3(x_3)
             return _nhwc([self.layer4(x_4), x_4, x_3, torch.cat([x_2, x_2_ir], dim=1),
                           torch.cat([x_1, x_1_ir], dim=1)])
-        x_1 = self._stem(modal_1 if modal_2 is None
-                         else torch.cat([modal_1, modal_2], -1))
-        x_2 = self.layer1(x_1)
-        x_3 = self.layer2(x_2)
-        x_4 = self.layer3(x_3)
-        x_5 = self.layer4(x_4)
-        if self.classifier:
-            return at_least_f32(self.fc(x_5.mean(dim=(2, 3))))
-        return _nhwc([x_5, x_4, x_3, x_2, x_1])
+        with spatial.RowsThenWhole() as frame:
+            feats = [self._stem(modal_1 if modal_2 is None
+                                else torch.cat([modal_1, modal_2], -1), frame=frame)]
+            for i, stride in enumerate(self.strides):
+                x = feats[-1] if stride == 1 else frame.ready(feats[-1], 3, stride, 1)
+                feats.append(getattr(self, f"layer{i + 1}")(x))
+            if self.classifier:
+                return at_least_f32(self.fc(global_avg_pool(feats[-1]).flatten(1)))
+        return _nhwc(feats[::-1])
 
 
 class _DenseLayer(nn.Module):

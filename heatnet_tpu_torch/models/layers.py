@@ -32,17 +32,19 @@ processes, train-mode statistics are those of the whole batch.
 
 Inside ``parallel.spatial.spatial_parallel``, a frame is split by rows over
 processes and each operation computes exactly its rows of the unsharded
-result: convolutions, transposed convolutions, the grouped conv, the int8
-layers (float or int8 branch, chosen on the frame's shape) and the max pool
-run on their shard extended by its halo of neighbouring rows
-(``parallel/spatial.py``), the frame's true top and bottom padded as each
-operation pads them; ``global_avg_pool`` and ``adaptive_avg_pool(frame=True)``
-sum over the processes, and ``adaptive_avg_pool`` serves a factor of 1 or 2
-in height within a shard; ``resize_bilinear`` serves a map held whole to the
-frame's rows (``frame=True``) and a x2 upsample of a shard. Train-mode BN
-takes its statistics over the shards, every exchange carries its gradient
-back (training by rows). ``instance_norm``, other pools and other resizes
-raise there, as the int8 layers do in train mode anywhere.
+result: convolutions, transposed convolutions (output padding included), the
+grouped conv, the int8 layers (float or int8 branch, chosen on the frame's
+shape) and the max pools run on their shard extended by its halo of
+neighbouring rows (``parallel/spatial.py``), the frame's true top and bottom
+padded as each operation pads them; ``global_avg_pool``,
+``adaptive_avg_pool(frame=True)`` and ``instance_norm`` sum over the
+processes, and ``adaptive_avg_pool`` serves a factor of 1 or 2 in height
+within a shard; ``resize_bilinear`` serves a map held whole to the frame's
+rows (``frame=True``) and an integer factor (up or down) of a shard.
+Train-mode BN takes its statistics over the shards, every exchange carries
+its gradient back (training by rows). Other pools and resizes, and convs
+padded other than with zeros, raise there, as the int8 layers do in train
+mode anywhere.
 """
 
 from __future__ import annotations
@@ -210,13 +212,25 @@ class Conv2d(nn.Conv2d):
         return F.conv2d(self._window(x), w, b, self.stride, (0, self.padding[1]),
                         self.dilation, self.groups)
 
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv of ``x`` as it stands, with no exchange: ``x`` whole, or
+        a shard that its caller already extended by the halo the conv reads
+        (a VALID conv after ``spatial.halo_rows``)."""
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  None if self.bias is None else self.bias.to(x.dtype))
+
+    @property
+    def window(self) -> Tuple[int, int, int, int]:
+        """(kernel, stride, padding, dilation) in height."""
+        return self.kernel_size[0], self.stride[0], self.padding[0], self.dilation[0]
+
     def _window(self, x: torch.Tensor) -> torch.Tensor:
         """Split by rows: this shard and the halo that the conv, unpadded in
         height, needs for exactly its rows."""
         if self.padding_mode != "zeros" or isinstance(self.padding, str):
-            raise NotImplementedError("only zero-padded convs are served by rows")
-        return spatial.window_rows(x, self.kernel_size[0], self.stride[0],
-                                   self.padding[0], self.dilation[0])
+            spatial.refuse(f"a conv padded with {self.padding_mode!r} ({self.padding!r})",
+                           "the halo pads the frame's top and bottom with zeros")
+        return spatial.window_rows(x, *self.window)
 
 
 class Linear(nn.Linear):
@@ -247,18 +261,15 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
 
     Split by rows, this shard's rows of the unsharded resize, in two forms:
     ``frame=True``, ``x`` held whole by every process (PSPNet's pooled
-    priors) and ``out_hw`` the frame's size (``spatial.frame_resize_rows``);
-    or a x2 upsample of the shard in height (``PSPUpsample``'s,
-    ``spatial.upsample_rows``); a resize of the width alone is the shard's
-    own. Any other resize (the critics' among them) raises there."""
+    priors, a critic's map gathered whole) and ``out_hw`` the frame's size
+    (``spatial.frame_resize_rows``); or a shard resized by an integer factor
+    in height, up (``PSPUpsample``'s x2, a critic's x32) or down
+    (``DownNet``'s 0.5x), ``out_hw`` the shard's output size
+    (``spatial.resize_rows``). Other factors raise there."""
     if spatial.spatial_group() is not None:
-        rows = x.shape[2]
         if frame:
             return spatial.frame_resize_rows(x, out_hw)
-        if out_hw[0] == 2 * rows:
-            return spatial.upsample_rows(x, out_hw)
-        if out_hw[0] != rows:
-            spatial.refuse(f"a bilinear resize of {rows} rows to {out_hw[0]}")
+        return spatial.resize_rows(x, out_hw)
     if tuple(x.shape[2:]) == tuple(out_hw):
         return x
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
@@ -274,10 +285,14 @@ def at_least_f32(x: torch.Tensor) -> torch.Tensor:
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """``InstanceNorm2d`` without affine (layers.py:1213-1217): per sample
     and channel over H, W, biased variance. The statistics are taken in
-    f32 (``at_least_f32``) and the result returns in x's dtype."""
-    spatial.refuse("instance_norm")
+    f32 (``at_least_f32``) and the result returns in x's dtype. Split by
+    rows, over the whole frame: each shard's count, sum and sum of squares
+    summed over the processes (``spatial.frame_moments``)."""
     xf = at_least_f32(x)
-    var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, correction=0)
+    if spatial.spatial_group() is not None:
+        mean, var = spatial.frame_moments(xf)
+    else:
+        var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, correction=0)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
@@ -290,12 +305,10 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         if spatial.spatial_group() is None:
             return F.conv_transpose2d(x, w, b, self.stride, self.padding,
                                       self.output_padding, self.groups, self.dilation)
-        if self.output_padding[0]:
-            raise NotImplementedError("a transposed conv with output padding in "
-                                      "height is not served by rows")
         rows = x.shape[2] * self.stride[0]
         xe, first = spatial.transposed_rows(x, self.kernel_size[0], self.stride[0],
-                                            self.padding[0], self.dilation[0])
+                                            self.padding[0], self.dilation[0],
+                                            self.output_padding[0])
         y = F.conv_transpose2d(xe, w, b, self.stride, (0, self.padding[1]),
                                (0, self.output_padding[1]), self.groups, self.dilation)
         return y.narrow(2, first, rows)
@@ -568,6 +581,14 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(xe, 3, stride=2, padding=(0, 1))
 
 
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """``F.max_pool2d(2, 2)``. Split by rows each shard pools its own rows,
+    which must be even: no window then straddles two shards."""
+    if spatial.spatial_group() is not None and x.shape[2] % 2:
+        raise ValueError(f"a 2x2 max pool does not split shards of {x.shape[2]} rows")
+    return F.max_pool2d(x, 2, 2)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """Mean over H, W, kept as 1x1 (split by rows: over the whole frame)."""
     if spatial.spatial_group() is not None:
@@ -589,7 +610,8 @@ def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int],
     if tuple(x.shape[2:]) == tuple(out_hw):
         return x
     if x.shape[2] not in (out_hw[0], 2 * out_hw[0]):
-        spatial.refuse(f"an adaptive pool of {x.shape[2]} rows to {out_hw[0]}")
+        spatial.refuse(f"an adaptive pool of {x.shape[2]} rows to {out_hw[0]}",
+                       "its bins straddle the shards (frame=True pools the whole frame)")
     return F.adaptive_avg_pool2d(x, out_hw)
 
 

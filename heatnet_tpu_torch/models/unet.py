@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm, Conv2d, at_least_f32, resize_bilinear
+from .layers import BatchNorm, Conv2d, at_least_f32, max_pool_2x2, resize_bilinear
 
 
 class DoubleConv(nn.Module):
@@ -43,7 +43,7 @@ class _Down(nn.Module):
         self.conv = DoubleConv(in_channels, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.max_pool2d(x, 2, 2))
+        return self.conv(max_pool_2x2(x))
 
 
 class _Up(nn.Module):

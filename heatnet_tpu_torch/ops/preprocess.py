@@ -373,12 +373,13 @@ def _flip_rotate_normalize(params: TrainAugParams, rgb_day, ir_day, label_day,
 # ---------------------------------------------------------------------------
 
 
-def rect_drop(batch: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+def rect_drop(batch: torch.Tensor, params: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """Zero one rectangle per sample of an NHWC batch (rectDropTensor, conf
-    trainer :82-86); ``params`` is (N, 4) int [i, j, h, w]."""
+    trainer :82-86); ``params`` is (N, 4) int [i, j, h, w] in the frame's
+    rows, of which ``batch`` holds those from ``row0`` on (a shard's)."""
     n, h, w, _ = batch.shape
     p = params.to(device=batch.device, dtype=torch.int64)
-    rows = torch.arange(h, device=batch.device).view(1, h, 1)
+    rows = torch.arange(row0, row0 + h, device=batch.device).view(1, h, 1)
     cols = torch.arange(w, device=batch.device).view(1, 1, w)
     i, j, hh, ww = (p[:, k].view(n, 1, 1) for k in range(4))
     inside = (rows >= i) & (rows < i + hh) & (cols >= j) & (cols < j + ww)

@@ -62,10 +62,25 @@ augmentation and the dropout masks for the whole batch on every process,
 from one generator in one order, and gives each step its rows of the masks
 (``shard_batch``); ``mod_drop_params`` is per sample and goes with the rows.
 One process (no mesh, or a mesh of one) takes ``torch.mean``.
+
+On frames split by rows (``parallel/spatial.py::adversarial_frames``: the
+steps built with the mesh, run under ``spatial_parallel``) the same
+convention holds with ``RowMeans``: a map's means (the cross-entropies, the
+night and certainty losses, a patch critic's criterion, the night
+weighting) sum over the processes, while a pooled critic's ``(N, 1)``
+score is the whole frame's on every process and its mean is each
+process's own; every process backpropagates ``loss / n`` and the
+gradients are summed. Train-mode BN takes its statistics over the shards
+(the frozen segnet's in the critic phase too), the critics gather the maps
+their windows no longer split (``models/critics.py``), and ``rect_drop``
+reads the frame's rows (``spatial.row_offset``). The caller draws the
+augmentation and the dropout masks once for the whole batch, the same on
+every process.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -75,6 +90,7 @@ import torch.nn as nn
 from ..models.layers import at_least_f32
 from ..ops.preprocess import (draw_ir_scale, draw_smart_augment, ir_scale_aug,
                               maybe_smart_augment, rect_drop)
+from ..parallel import spatial
 from ..parallel.mesh import (all_reduce_gradients, all_reduce_sum, check_same_gradients,
                              data_group, data_parallel, data_size)
 from .optim import masked_optimizer, rmsprop
@@ -152,15 +168,27 @@ class BatchMeans(LocalMeans):
         self.group = data_group(mesh)
         self.processes = data_size(mesh)
 
+    def split(self, x: torch.Tensor) -> bool:
+        """Whether each process holds its part of ``x`` (else all of it)."""
+        return True
+
+    def _reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum(self.group, t)
+
     def _sums(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         dtype = parts[0].dtype
         for p in parts[1:]:
             dtype = torch.promote_types(dtype, p.dtype)
-        return all_reduce_sum(self.group, torch.stack([p.to(dtype) for p in parts]))
+        return self._reduce(torch.stack([p.to(dtype) for p in parts]))
 
     def means(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        sums = self._sums([x.sum() for x in xs])
-        return [sums[i] / (x.numel() * self.processes) for i, x in enumerate(xs)]
+        parts = [i for i, x in enumerate(xs) if self.split(x)]
+        out = [None if i in parts else torch.mean(x) for i, x in enumerate(xs)]
+        if parts:
+            sums = self._sums([xs[i].sum() for i in parts])
+            for j, i in enumerate(parts):
+                out[i] = sums[j] / (xs[i].numel() * self.processes)
+        return out
 
     def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """``cross_entropy_ignore`` (label -1 ignored) over the whole batch's
@@ -168,6 +196,33 @@ class BatchMeans(LocalMeans):
         nll = cross_entropy_ignore(logits, labels, ignore_index=-1, reduce=False)
         sums = self._sums([nll.sum(), (labels != -1).sum().to(nll.dtype)])
         return sums[0] / sums[1].clamp(min=1)
+
+
+class RowMeans(BatchMeans):
+    """The means of the whole batch of frames split by rows over a mesh's
+    ``data`` dimension, held by every process: a map (NHW or NHWC, this
+    process's rows of every sample) sums over the processes, as
+    ``BatchMeans``' rows of samples do; a per-sample score (a pooled
+    critic's ``(N, 1)``) is the whole frame's, the same on every process,
+    and its mean is each process's own. The reductions run in the
+    backward's order of ``spatial.ordered``."""
+
+    def split(self, x: torch.Tensor) -> bool:
+        return x.dim() >= 3
+
+    def _reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return spatial.ordered(lambda u: all_reduce_sum(self.group, u), t)
+
+
+def means_for(mesh) -> LocalMeans:
+    """The means a step takes where it runs: ``RowMeans`` under
+    ``spatial_parallel`` (the steps built with its mesh), ``BatchMeans``
+    over a data-parallel mesh of several processes, else ``LocalMeans``."""
+    if spatial.spatial_group() is not None:
+        if mesh is None:
+            raise ValueError("frames split by rows need the steps built with the mesh")
+        return RowMeans(mesh)
+    return BatchMeans(mesh) if data_size(mesh) > 1 else LocalMeans()
 
 
 # -- the per-phase optimizers --------------------------------------------------
@@ -291,10 +346,12 @@ def augment_day(batch: Dict[str, torch.Tensor], draws: SegAugDraws,
     from one modality, IR scaling, per-class IR scaling."""
     rgb_day, ir_day = batch["rgb_day"], batch["ir_day"]
     if cfg.moddrop and draws.moddrop:
+        # split by rows the rectangles stand in the frame's rows
+        row0 = spatial.row_offset(rgb_day.shape[1])
         if draws.drop_rgb:
-            rgb_day = rect_drop(rgb_day, batch["mod_drop_params"])
+            rgb_day = rect_drop(rgb_day, batch["mod_drop_params"], row0)
         else:
-            ir_day = rect_drop(ir_day, batch["mod_drop_params"])
+            ir_day = rect_drop(ir_day, batch["mod_drop_params"], row0)
     if cfg.irscale:
         ir_day = ir_scale_aug(ir_day, draws.irscale, draws.irscale_factor)
     if cfg.smartirscale:
@@ -316,10 +373,10 @@ def make_adversarial_losses(model: nn.Module, cfg: AdversarialConfig,
     pseudo-labels supervise the night branch. With a ``mesh`` the batch is
     this process's rows, the forward takes train-mode BN statistics over the
     whole batch and the loss and metrics are the whole batch's (the module's
-    docstring).
+    docstring); under ``spatial_parallel`` the batch is this process's rows
+    of every frame.
     """
     criterion = conf_criterion(cfg.adv_loss)
-    means = BatchMeans(mesh) if data_size(mesh) > 1 else LocalMeans()
 
     def forward_teacher(batch):
         with torch.no_grad():
@@ -331,11 +388,14 @@ def make_adversarial_losses(model: nn.Module, cfg: AdversarialConfig,
         model.train()
         model.set_phase(phase)
         model.zero_grad(set_to_none=True)
-        with data_parallel(mesh):
+        # by rows spatial_parallel has set the BN statistics' group
+        by_rows = spatial.spatial_group() is not None
+        with contextlib.nullcontext() if by_rows else data_parallel(mesh):
             return model(pack_inputs(batch, cfg.modalities, day=True),
                          pack_inputs(batch, cfg.modalities, day=False), dropout)
 
     def seg_loss_fn(batch, draws: SegAugDraws):
+        means = means_for(mesh)
         batch = augment_day(batch, draws, cfg)
         out = forward(batch, "train_seg", draws.dropout)
         label_day = batch["label_day"].long()
@@ -378,7 +438,8 @@ def make_adversarial_losses(model: nn.Module, cfg: AdversarialConfig,
         return total, metrics
 
     def critic_loss_fn(batch, dropout=None):
-        loss = critic_loss(forward(batch, "train_critic", dropout), criterion, means)
+        loss = critic_loss(forward(batch, "train_critic", dropout), criterion,
+                           means_for(mesh))
         return loss, {"critic_loss": loss, "total_loss": loss}
 
     return seg_loss_fn, critic_loss_fn

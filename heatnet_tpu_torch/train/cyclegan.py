@@ -13,6 +13,18 @@ optimizers update in place: ``g_step`` runs netSeg in train mode twice,
 real_A then fake_B, so its BN running statistics update twice in that
 order, as the JAX step threads them; the discriminators' parameters have
 ``requires_grad`` off during the generator step, so no gradient reaches them.
+
+Built with a ``mesh``, the steps run on frames split by rows over its
+``data`` dimension (``parallel/spatial.py::cyclegan_frames``, under
+``spatial_parallel``), JAX's steps on a batch placed by ``spatial_sharding``:
+the models compute their rows (``models/cyclegan.py``), every loss is the
+whole batch's (``adversarial.RowMeans``: the L1 and cross-entropy terms sum
+over the processes, a discriminator's pooled ``(N, 1)`` score is the same on
+every process), each process backpropagates ``loss / n`` and the step's
+trainable gradients are summed over the processes before its optimizer, so
+the processes' parameters stay equal. netSeg's train-mode BN takes its
+statistics over the shards. Each process keeps its rows of the fakes and of
+its replay buffers.
 """
 
 from __future__ import annotations
@@ -25,9 +37,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..models.layers import at_least_f32
+from ..parallel import spatial
+from ..parallel.mesh import all_reduce_gradients, check_same_gradients, data_size
+from .adversarial import LocalMeans, RowMeans
 from .optim import with_schedule
 from .state import TrainState
-from .supervised import cross_entropy_ignore
 
 NET_NAMES = ("netG_A2B", "netG_B2A", "netD_A", "netD_B", "netSeg")
 
@@ -67,7 +82,8 @@ class DeviceReplayBuffer:
     full, with p = 0.5 it replaces a random slot and the slot's old element
     is emitted, else it passes through. The coin and the slot come from the
     caller's ``torch.Generator`` (a CPU one: the decisions are made on the
-    host, so a push makes no host-device synchronisation).
+    host, so a push makes no host-device synchronisation). Split by rows,
+    each process holds a buffer of a shard's rows and draws alike.
     """
 
     def __init__(self, max_size: int, item_shape: Sequence[int],
@@ -121,12 +137,14 @@ class CycleGANState:
         return self.g.step
 
 
-def mse(x: torch.Tensor, target: float) -> torch.Tensor:
-    return torch.mean((x.float() - target) ** 2)
+def mse(x: torch.Tensor, target: float, means: LocalMeans = LocalMeans()) -> torch.Tensor:
+    """The mean squared distance from ``target``, f32 (float64 stays
+    float64), the mean that of ``means``."""
+    return means.mean((at_least_f32(x) - target) ** 2)
 
 
-def l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.abs(x.float() - y.float()))
+def l1(x: torch.Tensor, y: torch.Tensor, means: LocalMeans = LocalMeans()) -> torch.Tensor:
+    return means.mean(torch.abs(at_least_f32(x) - at_least_f32(y)))
 
 
 @contextlib.contextmanager
@@ -144,36 +162,61 @@ def frozen(*modules: nn.Module) -> Iterator[None]:
 
 
 def make_cyclegan_steps(gen_a2b: nn.Module, gen_b2a: nn.Module, disc_a: nn.Module,
-                        disc_b: nn.Module, seg_net: nn.Module):
+                        disc_b: nn.Module, seg_net: nn.Module, mesh=None):
     """``(g_step, d_a_step, d_b_step)``.
 
     ``g_step(state, batch)`` takes A (day IR), B (night IR) and label (day
     labels, -1 ignored) and returns ``(fake_A, fake_B, metrics)``, the fakes
     detached; ``d_a_step(state, real_A, fake_A)`` and ``d_b_step`` return
-    their loss. Every step applies its optimizer and schedule.
+    their loss. Every step applies its optimizer and schedule. With a
+    ``mesh`` they take this process's rows of every frame, under
+    ``spatial_parallel`` (the module's docstring); each step's first run
+    checks that every process holds the same parameters' gradients.
     """
+    processes = data_size(mesh)
+    checked = set()
+
+    def means() -> LocalMeans:
+        if mesh is None:
+            return LocalMeans()
+        if spatial.spatial_group() is None:
+            raise RuntimeError("with a mesh the CycleGAN steps take frames split by rows: "
+                               "run them through parallel.spatial.cyclegan_frames")
+        return RowMeans(mesh)
+
+    def backward(loss: torch.Tensor, which: str, ts: TrainState) -> None:
+        """``loss`` (the whole batch's) backpropagated and, over a mesh, the
+        gradients of ``ts``'s parameters summed over the processes."""
+        (loss / processes).backward()
+        if mesh is not None:
+            params = list(ts.model.parameters())
+            if which not in checked:
+                check_same_gradients(mesh, params)
+                checked.add(which)
+            all_reduce_gradients(mesh, params)
 
     def g_step(state: CycleGANState, batch: Dict[str, torch.Tensor]
                ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         real_a, real_b = batch["A"], batch["B"]
         label_a = batch["label"]
+        m = means()
         seg_net.train()
         with frozen(disc_a, disc_b):
-            loss_identity_b = l1(gen_a2b(real_b), real_b) * 5.0
-            loss_identity_a = l1(gen_b2a(real_a), real_a) * 5.0
+            loss_identity_b = l1(gen_a2b(real_b), real_b, m) * 5.0
+            loss_identity_a = l1(gen_b2a(real_a), real_a, m) * 5.0
             fake_b = gen_a2b(real_a)
-            loss_gan_a2b = mse(disc_b(fake_b), 1.0)
+            loss_gan_a2b = mse(disc_b(fake_b), 1.0, m)
             fake_a = gen_b2a(real_b)
-            loss_gan_b2a = mse(disc_a(fake_a), 1.0)
-            loss_cycle_aba = l1(gen_b2a(fake_b), real_a) * 10.0
-            loss_cycle_bab = l1(gen_a2b(fake_a), real_b) * 10.0
+            loss_gan_b2a = mse(disc_a(fake_a), 1.0, m)
+            loss_cycle_aba = l1(gen_b2a(fake_b), real_a, m) * 10.0
+            loss_cycle_bab = l1(gen_a2b(fake_a), real_b, m) * 10.0
             seg_a = seg_net(real_a)[0]
             seg_fake_b = seg_net(fake_b)[0]
-            loss_seg_a = cross_entropy_ignore(seg_a, label_a, ignore_index=-1)
-            loss_seg_fake_b = cross_entropy_ignore(seg_fake_b, label_a, ignore_index=-1)
+            loss_seg_a = m.cross_entropy(seg_a, label_a)
+            loss_seg_fake_b = m.cross_entropy(seg_fake_b, label_a)
             loss_g = (loss_identity_a + loss_identity_b + loss_gan_a2b + loss_gan_b2a
                       + loss_cycle_aba + loss_cycle_bab + loss_seg_a + loss_seg_fake_b)
-            loss_g.backward()
+            backward(loss_g, "g", state.g)
         state.g.apply_gradients()
         metrics = {
             "loss_G": loss_g,
@@ -189,8 +232,9 @@ def make_cyclegan_steps(gen_a2b: nn.Module, gen_b2a: nn.Module, disc_a: nn.Modul
     def d_step(disc: nn.Module, which: str):
         def step(state: CycleGANState, real: torch.Tensor, fake: torch.Tensor
                  ) -> torch.Tensor:
-            loss = (mse(disc(real), 1.0) + mse(disc(fake), 0.0)) * 0.5
-            loss.backward()
+            m = means()
+            loss = (mse(disc(real), 1.0, m) + mse(disc(fake), 0.0, m)) * 0.5
+            backward(loss, which, getattr(state, which))
             getattr(state, which).apply_gradients()
             return loss.detach()
 

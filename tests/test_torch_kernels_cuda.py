@@ -980,7 +980,7 @@ def test_spatial_upsample_and_pyramid_by_rows_equal_the_whole_map(dev, monkeypat
     want = F.interpolate(whole, size=(2 * n * rows, 96), mode="bilinear", align_corners=False)
     for r in range(n):
         rank["r"] = r
-        got = spatial.upsample_rows(whole[:, :, r * rows:(r + 1) * rows], (2 * rows, 96))
+        got = spatial.resize_rows(whole[:, :, r * rows:(r + 1) * rows], (2 * rows, 96))
         part = want[:, :, 2 * r * rows:2 * (r + 1) * rows]
         inner = slice(int(r == 0), 2 * rows - int(r == n - 1))
         assert torch.equal(got[:, :, inner], part[:, :, inner]), r

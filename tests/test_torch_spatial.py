@@ -36,10 +36,13 @@ and 6 (over the frame's 16 rows) straddle shards.
 - on one process: ``shard_rows``/``gather_rows`` against JAX's placement,
   every PSPNet backend of ``build_network`` under the context against its
   own unsharded forward, the frame pool and the frame-sized resize against
-  PyTorch's, the train step by rows equal to the unsharded step, and the
-  refusals under the context (the int8 layers in train mode, instance
-  norms, other resizes and pools, a height that is not a multiple of 8·n).
-  Training by rows over several processes: ``tests/test_torch_spatial_train.py``.
+  PyTorch's, the train step by rows equal to the unsharded step, instance
+  norms and integer resizes equal to the unsharded ones, and the refusals
+  under the context (the int8 layers in train mode, pools to other sizes,
+  resizes by other factors, convs padded other than with zeros, a height
+  that is not a multiple of 8·n). Training by rows over several processes:
+  ``tests/test_torch_spatial_train.py``; the adversarial and CycleGAN steps:
+  ``tests/test_torch_spatial_adversarial.py``.
 """
 
 import os
@@ -418,18 +421,40 @@ def test_all_reduce_max_over_one_process_is_a_copy(one_process):
 
 
 REFUSED = {
-    "instance_norm": (lambda x: L.instance_norm(x), "instance_norm"),
-    "downscale": (lambda x: L.resize_bilinear(x, (4, 4)), "bilinear resize of 8 rows to 4"),
-    "upsample_x4": (lambda x: L.resize_bilinear(x, (32, 8)), "bilinear resize of 8 rows to 32"),
     "pool_to_3": (lambda x: L.adaptive_avg_pool(x, (3, 3)), "adaptive pool of 8 rows to 3"),
+    "resize_by_1.5": (lambda x: L.resize_bilinear(x, (12, 8)), "bilinear resize of 8 rows to 12"),
+    "conv_reflect_padding": (lambda x: L.Conv2d(2, 2, 3, padding=1, padding_mode="reflect")(x),
+                             "conv padded with 'reflect'"),
 }
 
 
 @pytest.mark.parametrize("what", list(REFUSED))
 def test_a_refused_operation_raises_and_names_itself(one_process, what):
+    """What stays refused by rows: pools whose bins straddle the shards,
+    resizes by other than an integer factor, convs padded other than with
+    zeros (the int8 layers in train mode: the test above)."""
     fn, match = REFUSED[what]
     x = torch.randn(1, 2, 8, 8)
     fn(x)  # served without the context
     with spatial.spatial_parallel(one_process), pytest.raises(NotImplementedError,
                                                              match=match):
         fn(x)
+
+
+SERVED = {
+    "instance_norm": lambda x: L.instance_norm(x),
+    "downscale": lambda x: L.resize_bilinear(x, (4, 4)),
+    "upsample_x4": lambda x: L.resize_bilinear(x, (32, 8)),
+}
+
+
+@pytest.mark.parametrize("what", list(SERVED))
+def test_an_instance_norm_or_integer_resize_by_rows_equals_unsharded_on_one_process(
+        one_process, what):
+    """Once refused by rows, now served: over one process (the exchanges
+    local) the unsharded result within 1e-6."""
+    fn = SERVED[what]
+    x = torch.randn(1, 2, 8, 8)
+    with spatial.spatial_parallel(one_process):
+        got = fn(x)
+    np.testing.assert_allclose(got.numpy(), fn(x).numpy(), rtol=1e-6, atol=1e-6)
