@@ -1,0 +1,9 @@
+"""``library_conv_ms.serve``'s reader, in the full-resolution serving cell, where the
+metric moves ``fullres_frames_per_s``."""
+
+import os
+
+from portbench.harness.manifest import metric_reader
+
+read = metric_reader("library_conv_ms.serve", os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
